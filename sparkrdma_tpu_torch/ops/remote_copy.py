@@ -1,0 +1,220 @@
+"""Device-to-device block pull — the device fetch plane's data mover.
+
+The PyTorch counterpart of the JAX package's ``ops/remote_copy.py``.
+
+- ``wave_pull`` / ``pipelined_wave_pull``: one wave (or ``depth``
+  same-class waves) of block pulls landed as a zero-padded
+  ``[rows_b, bucket_elems]`` (``[depth, rows_b, bucket_elems]``) stack.
+  On a CUDA destination each launches the hand-written kernel of
+  ``csrc/wave_pull.cu`` (``srt_wave_pull`` / ``srt_pipelined_wave_pull``),
+  which reads the source arena slabs directly; on a CPU destination it
+  runs :func:`wave_pull_reference`, the plain version. A kernel that
+  does not build or launch raises; nothing falls back.
+- the emulated issue/wait halves and ``pull_block``: the CPU movers the
+  schedule compiler and the per-block planner use off CUDA, each an
+  independent copy (``clone``) of the source.
+
+Every wrapper that launches its kernel adds one to its launch count
+(``wave_pull_launches``, ``pipelined_wave_pull_launches``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from sparkrdma_tpu_torch.utils.torch_compat import torch_dtype
+
+wave_pull_launches = 0
+pipelined_wave_pull_launches = 0
+
+
+def reset_launch_counts() -> None:
+    global wave_pull_launches, pipelined_wave_pull_launches
+    wave_pull_launches = 0
+    pipelined_wave_pull_launches = 0
+
+
+def _bytes_of(src: torch.Tensor) -> torch.Tensor:
+    return src.reshape(-1).view(torch.uint8)
+
+
+def _dst_device(sources, device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    for src in sources:
+        if src is not None:
+            return src.device
+    raise ValueError("a wave with no source rows needs an explicit device")
+
+
+def _check_rows(sources, offsets, nbytes, rows_total: int,
+                bucket_bytes: int, device: torch.device) -> np.ndarray:
+    """Validate one launch's rows; return the row table (src pointer,
+    byte offset, payload bytes), uint64 ``[rows_total, 3]``."""
+    if not (len(sources) == len(offsets) == len(nbytes)):
+        raise ValueError("sources, offsets and nbytes differ in length")
+    if len(sources) > rows_total:
+        raise ValueError(f"{len(sources)} rows exceed the {rows_total}-row stack")
+    table = np.zeros((rows_total, 3), dtype=np.uint64)
+    for i, (src, off, nb) in enumerate(zip(sources, offsets, nbytes)):
+        off, nb = int(off), int(nb)
+        if src is None:
+            if nb:
+                raise ValueError(f"pad row {i} has {nb} payload bytes")
+            continue
+        if src.device != device:
+            raise ValueError(
+                f"row {i} source lies on {src.device}, destination on {device}"
+            )
+        if not src.is_contiguous():
+            raise ValueError(f"row {i} source is not contiguous")
+        cap = src.numel() * src.element_size()
+        if off < 0 or nb < 0 or off + nb > cap:
+            raise ValueError(
+                f"row {i} reads [{off}, {off + nb}) past its {cap}-byte source"
+            )
+        if nb > bucket_bytes:
+            raise ValueError(
+                f"row {i} carries {nb}B, more than the {bucket_bytes}B bucket"
+            )
+        table[i] = (src.data_ptr(), off, nb)
+    return table
+
+
+def wave_pull_reference(sources: Sequence[Optional[torch.Tensor]],
+                        offsets: Sequence[int], nbytes: Sequence[int],
+                        rows_b: int, bucket_elems: int, dtype, depth: int = 1,
+                        device=None) -> torch.Tensor:
+    """The plain version of both kernels: a zero ``[depth, rows_b,
+    bucket_elems]`` stack of ``dtype`` where destination row ``r``
+    (wave-major: wave ``d``'s row ``i`` is ``r = d * rows_b + i``) holds
+    ``nbytes[r]`` bytes of ``sources[r]`` from byte ``offsets[r]`` on. A
+    None source, or a row past the end of the lists, is a pad row."""
+    dtype = torch_dtype(dtype)
+    item = torch.empty((), dtype=dtype).element_size()
+    device = _dst_device(sources, device)
+    _check_rows(sources, offsets, nbytes, depth * rows_b,
+                bucket_elems * item, device)
+    out = torch.zeros((depth * rows_b, bucket_elems * item), dtype=torch.uint8,
+                      device=device)
+    for r, (src, off, nb) in enumerate(zip(sources, offsets, nbytes)):
+        if src is not None and nb:
+            out[r, :nb].copy_(_bytes_of(src)[off : off + nb])
+    return out.view(dtype).view(depth, rows_b, bucket_elems)
+
+
+def _launch(pipelined: bool, sources, offsets, nbytes, rows_b: int,
+            bucket_elems: int, dtype: torch.dtype, depth: int,
+            device: torch.device) -> torch.Tensor:
+    from sparkrdma_tpu_torch.ops import _build
+
+    global wave_pull_launches, pipelined_wave_pull_launches
+    item = torch.empty((), dtype=dtype).element_size()
+    bucket_bytes = bucket_elems * item
+    rows_total = depth * rows_b
+    table = _check_rows(sources, offsets, nbytes, rows_total, bucket_bytes,
+                        device)
+    lib = _build.load()
+    dst = torch.empty((rows_total, bucket_bytes), dtype=torch.uint8,
+                      device=device)
+    # an asynchronous copy from pinned memory (a pageable copy would wait
+    # for the stream to drain and stall the pipeline); the stream orders
+    # it before the kernel, and the allocators keep both ends alive
+    dev_table = torch.from_numpy(table.view(np.int64)).pin_memory().to(
+        device, non_blocking=True
+    )
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if pipelined:
+        rc = lib.srt_pipelined_wave_pull(
+            dev_table.data_ptr(), dst.data_ptr(), depth, rows_b, bucket_bytes,
+            stream,
+        )
+    else:
+        rc = lib.srt_wave_pull(
+            dev_table.data_ptr(), dst.data_ptr(), rows_b, bucket_bytes, stream,
+        )
+    if rc != 0:
+        name = "srt_pipelined_wave_pull" if pipelined else "srt_wave_pull"
+        raise RuntimeError(
+            f"{name} launch failed: {lib.srt_error_string(rc).decode()} ({rc})"
+        )
+    if pipelined:
+        pipelined_wave_pull_launches += 1
+    else:
+        wave_pull_launches += 1
+    return dst.view(dtype).view(depth, rows_b, bucket_elems)
+
+
+def wave_pull(sources: Sequence[Optional[torch.Tensor]],
+              offsets: Sequence[int], nbytes: Sequence[int], rows_b: int,
+              bucket_elems: int, dtype, device=None) -> torch.Tensor:
+    """Land one wave as a zero-padded ``[rows_b, bucket_elems]`` stack
+    (row layout as in :func:`wave_pull_reference`). CUDA destination:
+    one ``srt_wave_pull`` launch on the current stream, not waited on.
+    CPU destination: the plain version."""
+    dtype = torch_dtype(dtype)
+    device = _dst_device(sources, device)
+    if device.type == "cpu":
+        return wave_pull_reference(sources, offsets, nbytes, rows_b,
+                                   bucket_elems, dtype, 1, device)[0]
+    return _launch(False, sources, offsets, nbytes, rows_b, bucket_elems,
+                   dtype, 1, device)[0]
+
+
+def pipelined_wave_pull(sources: Sequence[Optional[torch.Tensor]],
+                        offsets: Sequence[int], nbytes: Sequence[int],
+                        rows_b: int, bucket_elems: int, dtype, depth: int,
+                        device=None) -> torch.Tensor:
+    """Land ``depth`` same-class waves as one ``[depth, rows_b,
+    bucket_elems]`` stack (rows wave-major). CUDA destination: one
+    ``srt_pipelined_wave_pull`` launch, not waited on. CPU destination:
+    the plain version."""
+    dtype = torch_dtype(dtype)
+    device = _dst_device(sources, device)
+    if device.type == "cpu":
+        return wave_pull_reference(sources, offsets, nbytes, rows_b,
+                                   bucket_elems, dtype, depth, device)
+    return _launch(True, sources, offsets, nbytes, rows_b, bucket_elems,
+                   dtype, depth, device)
+
+
+# ----------------------------------------------------------------------
+# CPU movers (the JAX package's emulated transfer-engine halves)
+# ----------------------------------------------------------------------
+def emulated_pull(src_array: torch.Tensor, dst_device) -> torch.Tensor:
+    """Pull ``src_array`` onto ``dst_device`` as an independent copy —
+    the caller may unpin (and the arena later recycle) the source."""
+    return src_array.to(dst_device, copy=True)
+
+
+def emulated_row_pull_start(src_array: torch.Tensor, dst_device) -> torch.Tensor:
+    """START one row's pull (an independent copy); the wave's consume
+    half waits on it with :func:`emulated_wave_wait`."""
+    return emulated_pull(src_array, dst_device)
+
+
+def emulated_wave_issue(stacked_host: torch.Tensor, dst_device) -> torch.Tensor:
+    """ISSUE an assembled ``[rows, bucket]`` stack toward the destination."""
+    return stacked_host.to(dst_device)
+
+
+def emulated_wave_wait(inflight):
+    """Wait for issued copies to land: a no-op for copies the CPU has
+    already made; kept as the consume half's seam."""
+    return inflight
+
+
+def emulated_wave_pull(stacked_host: torch.Tensor, dst_device) -> torch.Tensor:
+    """Issue + wait of one assembled stack."""
+    return emulated_wave_wait(emulated_wave_issue(stacked_host, dst_device))
+
+
+def pull_block(src_array: torch.Tensor, dst_device) -> torch.Tensor:
+    """Single-block pull used by the per-block planner. Errors propagate:
+    only residency misses degrade, and the planner checks those before
+    it calls the mover."""
+    return emulated_pull(src_array, dst_device)
+

@@ -1,0 +1,75 @@
+"""Device resolution, dtype mapping and the CUDA toolkit locator.
+
+The counterpart of the JAX package's ``utils/jax_compat.py``: the small
+surface every other module of this package goes through to pick its
+device. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; without a CUDA device they raise instead of carrying
+on quietly on the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from typing import Optional
+
+import numpy as np
+import torch
+
+_NP_TO_TORCH = {
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.uint32): torch.uint32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+}
+_TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` by default, the CPU
+    only when asked for. Raises when a CUDA device is wanted and none
+    is available."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def is_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A numpy dtype (or anything ``np.dtype`` takes, or a torch dtype)
+    as a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _NP_TO_TORCH[np.dtype(dtype)]
+
+
+def numpy_dtype(dtype) -> np.dtype:
+    """A torch dtype (or anything ``np.dtype`` takes) as a numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return _TORCH_TO_NP[dtype]
+    return np.dtype(dtype)
+
+
+def find_nvcc() -> Optional[str]:
+    """The CUDA compiler: on ``PATH``, then in ``$CUDA_HOME/bin``, then
+    in ``/usr/local/cuda/bin``; None when none is found."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    homes = [os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"]
+    for home in homes:
+        if home:
+            cand = os.path.join(home, "bin", "nvcc")
+            if os.path.isfile(cand) and os.access(cand, os.X_OK):
+                return cand
+    return None
