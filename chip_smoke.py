@@ -18,10 +18,25 @@ exits nonzero and prints no result. Phases, each one JSON line:
    fusion (one single-wave launch and one fused slab per reducer).
    Every reducer's output is checked against ``np.sort`` of its key
    range and against the input's count, sum and xor;
-3. ``TeraSorter.step`` for one device at the ``entry()`` shape.
+3. ``TeraSorter.step`` for one device at the ``entry()`` shape;
+4. ``attention_kernel``: ``srt_flash_attn_fwd`` against its plain
+   version (``flash_attention_reference`` on the card) over eight shapes,
+   f32 and bf16, causal and not, S from 1 to 4096, D from 4 to 256, out
+   and lse (fp32 rtol 2e-4 / atol 2e-5, bf16 1e-2 / 1e-2, lse atol 1e-4),
+   plus a misaligned q; together they reach both of the kernel's load
+   paths and all four of its tile variants;
+5. ``attention_path``: the attention serving path through its public
+   entry points at the repo's two full widths (bench.py's B4 S2048 H8
+   D128 bf16 causal, the transformer workload's B4 S2048 H8 D64 fp32
+   non-causal): ``UlyssesAttention(1)`` answers 3 calls, each checked
+   against the plain version, and ``RingAttention(1)`` against Ulysses;
+   per-call wall, flash launches and peak device memory.
 
-Then the kernels line (launches on the main path, time against bound
-and against the plain version), and last ``{"ok": true, "device": ...}``.
+Then the timing phase (every kernel at its main path's shapes: the
+kernel's time against its bound, the plain version's and, for flash
+attention, ``scaled_dot_product_attention``'s as a yardstick), the
+kernels line (launches on the main path), and last ``{"ok": true,
+"device": ...}``. f32 matrix products run in full f32 (TF32 off).
 Any failed check raises and the script exits nonzero.
 """
 
@@ -35,6 +50,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak, same sheet
+F32_FLOPS = 67e12  # f32 outside the tensor cores, same sheet
 KEYS = 1 << 28
 EXECUTORS = 8
 REDUCERS = 8
@@ -94,8 +111,12 @@ def phase_environment(torch):
     _build.load()
     emit(0, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         float32_matmul_precision=torch.get_float32_matmul_precision(),
          build_s=_build.build_seconds, load_s=time.perf_counter() - t0,
-         ptxas=[ln for ln in _build.build_log.splitlines() if "ptxas info" in ln])
+         ptxas=[ln.strip() for ln in _build.build_log.splitlines()
+                if "ptxas info" in ln or "spill" in ln])
 
 
 def _cases(torch, dev):
@@ -477,6 +498,208 @@ def phase_terasort_step(torch, dev):
         raise AssertionError("TeraSorter.step differs from np.sort")
     emit(3, n_local=n_local, equal=True)
 
+# ----------------------------------------------------------------------
+# attention: the flash forward kernel and the serving path above it
+# ----------------------------------------------------------------------
+TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}
+LSE_ATOL = 1e-4
+# (B, S, H, D, dtype, causal)
+ATTN_KERNEL_SHAPES = [
+    (1, 1, 1, 4, "float32", False),
+    (2, 300, 3, 8, "float32", True),
+    (1, 2000, 2, 64, "float32", False),
+    (2, 1000, 4, 128, "bfloat16", True),
+    (1, 4096, 4, 128, "bfloat16", True),
+    (1, 1024, 2, 256, "float32", False),
+    # D not a multiple of the 16-byte vector: the kernel's scalar loads
+    (1, 77, 2, 6, "float32", True),
+    (1, 130, 3, 20, "bfloat16", False),
+]
+# bench.py's flash headline; the transformer workload's attention
+ATTN_PATH_SHAPES = {
+    "bench_bf16_causal": (4, 2048, 8, 128, "bfloat16", True),
+    "workload_f32": (4, 2048, 8, 64, "float32", False),
+}
+
+
+def _qkv(torch, dev, shape, seed):
+    b, s, h, d, dtype, _ = shape
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32))
+            .to(getattr(torch, dtype)).to(dev) for _ in range(3)]
+
+
+def _max_err(torch, got, want, dtype, what):
+    rtol, atol = TOL[dtype]
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: non-finite values")
+    err = (g - w).abs()
+    bad = err > atol + rtol * w.abs()
+    if bad.any():
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} of {g.numel()} values off, max abs "
+            f"error {float(err.max())}"
+        )
+    return float(err.max())
+
+
+def phase_attention_kernel(torch, dev):
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+
+    cases = []
+    for i, shape in enumerate(ATTN_KERNEL_SHAPES):
+        b, s, h, d, dtype, causal = shape
+        q, k, v = _qkv(torch, dev, shape, 100 + i)
+        want, want_lse = pa.flash_attention_reference(q, k, v, causal,
+                                                      want_lse=True)
+        got = pa.flash_attention_fwd(q, k, v, causal)[0]
+        got2, lse = pa.flash_attention_fwd(q, k, v, causal, want_lse=True)
+        torch.cuda.synchronize()
+        what = f"srt_flash_attn_fwd {shape}"
+        err = _max_err(torch, got, want, dtype, what)
+        err2 = _max_err(torch, got2, want, dtype, what + " (lse variant)")
+        if lse.shape != (b, h, s):
+            raise AssertionError(f"{what}: lse shape {tuple(lse.shape)}")
+        lse_err = (lse - want_lse).abs()
+        if not torch.isfinite(lse).all() or float(lse_err.max()) > LSE_ATOL:
+            raise AssertionError(f"{what}: lse max abs error {float(lse_err.max())}")
+        cases.append({"shape": [b, s, h, d], "dtype": dtype, "causal": causal,
+                      "max_abs_err": max(err, err2),
+                      "lse_max_abs_err": float(lse_err.max())})
+    # a q 4 bytes past a 16-byte boundary: the scalar loads again
+    shape = (1, 129, 2, 64, "float32", True)
+    q, k, v = _qkv(torch, dev, shape, 99)
+    qm = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view_as(q)
+    qm.copy_(q)
+    got = pa.flash_attention(qm, k, v, causal=True)
+    err = _max_err(torch, got, pa.flash_attention_reference(q, k, v, True)[0],
+                   "float32", "srt_flash_attn_fwd misaligned q")
+    cases.append({"shape": list(shape[:4]), "dtype": "float32", "causal": True,
+                  "misaligned_q": True, "max_abs_err": err})
+    emit(4, name="attention_kernel", cases=cases, launches=pa.flash_fwd_launches)
+
+
+def phase_attention_path(torch, dev):
+    """The serving path at full width: counts from 0 just before each
+    shape's run, read just after."""
+    from sparkrdma_tpu_torch.ops import RingAttention, UlyssesAttention
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+
+    report, launches = {}, 0
+    for name, shape in ATTN_PATH_SHAPES.items():
+        b, s, h, d, dtype, causal = shape
+        q, k, v = _qkv(torch, dev, shape, 21)
+        want = pa.flash_attention_reference(q, k, v, causal)[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # inputs and earlier phases' arenas
+        pa.reset_launch_counts()
+        ul = UlyssesAttention(1)
+        walls, outs = [], []
+        for _ in range(3):
+            t = time.perf_counter()
+            outs.append(ul(q, k, v, causal=causal))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        ring_out = RingAttention(1)(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ring_s = time.perf_counter() - t
+        n = pa.flash_fwd_launches
+        peak = torch.cuda.max_memory_allocated()
+        if n <= 0:
+            raise AssertionError(f"{name}: srt_flash_attn_fwd never launched")
+        errs = []
+        for i, out in enumerate(outs):
+            if out.shape != q.shape or out.dtype != q.dtype:
+                raise AssertionError(f"{name} call {i}: {out.shape} {out.dtype}")
+            errs.append(_max_err(torch, out, want, dtype, f"{name} call {i}"))
+        ring_err = _max_err(torch, ring_out, outs[0], dtype, f"{name} ring")
+        launches += n
+        flops = 4 * b * h * d * (s * (s + 1) // 2 if causal else s * s)
+        report[name] = {
+            "shape": [b, s, h, d], "dtype": dtype, "causal": causal,
+            "ulysses_call_s": walls, "ring_call_s": ring_s,
+            "ulysses_tflops_warm": flops / min(walls[1:]) / 1e12,
+            "srt_flash_attn_fwd_launches": n, "peak_device_bytes": peak,
+            "peak_above_baseline_bytes": peak - base,
+            "max_abs_err_vs_plain": errs, "ring_vs_ulysses_max_abs_err": ring_err,
+        }
+    emit(5, name="attention_path", runs=report, launches=launches)
+    return launches
+
+
+def time_flash_attention(torch, dev):
+    """srt_flash_attn_fwd at the serving path's two shapes: the C entry
+    point alone on prebuilt outputs, the plain version, and
+    ``scaled_dot_product_attention`` on [B, H, S, D] copies (a yardstick
+    the port never calls)."""
+    from sparkrdma_tpu_torch.ops import _build
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+
+    F = torch.nn.functional
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    rec = {}
+    for name, shape in ATTN_PATH_SHAPES.items():
+        b, s, h, d, dtype, causal = shape
+        q, k, v = _qkv(torch, dev, shape, 21)
+        out = torch.empty_like(q)
+        code = {"float32": 0, "bfloat16": 1}[dtype]
+
+        def raw():
+            rc = lib.srt_flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        out.data_ptr(), None, b, s, h, d, code,
+                                        int(causal), stream)
+            if rc:
+                raise RuntimeError(f"srt_flash_attn_fwd launch failed ({rc})")
+
+        def plain():
+            return pa.flash_attention_reference(q, k, v, causal)[0]
+
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        raw()
+        want = plain()
+        torch.cuda.synchronize()
+        err = _max_err(torch, out, want, dtype, f"timing {name}")
+        # the yardstick's own accuracy is recorded, not gated
+        lib_err = float((library().transpose(1, 2).float() - want.float())
+                        .abs().max())
+        kernel_ms = event_ms_per_call(torch, raw, 20)
+        plain_ms = event_ms_per_call(torch, plain, 5)
+        library_ms = event_ms_per_call(torch, library, 20)
+        item = q.element_size()
+        moved = 4 * b * s * h * d * item  # q, k, v read once, out written once
+        flops = 4 * b * h * d * (s * (s + 1) // 2 if causal else s * s)
+        peak = BF16_TENSOR_FLOPS if dtype == "bfloat16" else F32_FLOPS
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / peak * 1e3
+        rec[name] = {
+            "shape": [b, s, h, d], "dtype": dtype, "causal": causal,
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_max_abs_err": lib_err,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bytes": moved, "flops": flops, "peak_flops": peak,
+            "tflops": flops / kernel_ms / 1e9,
+        }
+    head = rec["bench_bf16_causal"]
+    entry = {
+        "name": "srt_flash_attn_fwd", "route": "cuda",
+        "source": "sparkrdma_tpu_torch/ops/csrc/flash_attn_fwd.cu",
+        "replaces": "sparkrdma_tpu/ops/pallas_attention.py:189",
+        **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        "timer": "cuda_events", "shapes": rec,
+    }
+    emit("timing_attention", kernels=[entry])
+    return entry
+
 
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkrdma_tpu_torch")):
@@ -488,12 +711,19 @@ def main():
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # the plain versions' f32 products in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     t0 = time.perf_counter()
     phase_environment(torch)
     phase_kernels(torch, dev)
     arenas, ids, locs, launches = phase_main_path(torch, dev)
     kernels = phase_timing(torch, dev, arenas, ids, locs)
     phase_terasort_step(torch, dev)
+    phase_attention_kernel(torch, dev)
+    launches["srt_flash_attn_fwd"] = phase_attention_path(torch, dev)
+    kernels.append(time_flash_attention(torch, dev))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     for r in range(REDUCERS):

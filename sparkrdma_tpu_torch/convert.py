@@ -4,7 +4,9 @@ This system has no weights: its state is data, the blocks staged in
 executor arenas and the locations that name them. ``from_jax_state``
 takes a snapshot of the JAX side's arenas as numpy arrays plus its
 locations' fields, and builds port arenas holding the same bytes under
-the same handles, so every location resolves on both sides.
+the same handles, so every location resolves on both sides. The
+attention path holds no state either: q, k and v are its inputs, so
+nothing of it is converted.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Build and bind the package's own CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
+(all started together), and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The
 library goes to ``build/torch_kernels/libsrt_torch_kernels.so`` under
 the checkout root, beside a stamp holding the hash of the sources it
 was built from; it is rebuilt at first use whenever the sources change.
@@ -16,6 +17,7 @@ import os
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -26,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libsrt_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -50,6 +52,15 @@ def sources_hash() -> str:
     return h.hexdigest()
 
 
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    return proc.stdout + proc.stderr
+
+
 def _build(out: Path, digest: str) -> None:
     global build_seconds, build_log
     nvcc = find_nvcc()
@@ -59,16 +70,26 @@ def _build(out: Path, digest: str) -> None:
             "/usr/local/cuda/bin: the CUDA kernels cannot be built"
         )
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{os.getpid()}.tmp"
+    srcs = _sources()
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in srcs]
+    tmp = out.with_name(f"{out.name}.{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    try:
+        # one nvcc per source, all running at once; then one link
+        with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+            logs = list(pool.map(
+                lambda so: _run([nvcc, *NVCC_FLAGS, "-c", "-o", str(so[1]),
+                                 str(so[0])]),
+                zip(srcs, objs),
+            ))
+        logs.append(_run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-shared", "-o", str(tmp), *map(str, objs)]))
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs)
     os.replace(tmp, out)
     out.with_name(out.name + ".sha256").write_text(digest)
 
@@ -79,6 +100,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.srt_wave_pull.restype = ctypes.c_int
     lib.srt_pipelined_wave_pull.argtypes = [vp, vp, ll, ll, ll, vp]
     lib.srt_pipelined_wave_pull.restype = ctypes.c_int
+    lib.srt_flash_attn_fwd.argtypes = [vp, vp, vp, vp, vp,
+                                       ll, ll, ll, ll, ll, ll, vp]
+    lib.srt_flash_attn_fwd.restype = ctypes.c_int
     lib.srt_error_string.argtypes = [ctypes.c_int]
     lib.srt_error_string.restype = ctypes.c_char_p
     return lib
