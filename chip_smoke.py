@@ -30,16 +30,36 @@ exits nonzero and prints no result. Phases, each one JSON line:
    D128 bf16 causal, the transformer workload's B4 S2048 H8 D64 fp32
    non-causal): ``UlyssesAttention(1)`` answers 3 calls, each checked
    against the plain version, and ``RingAttention(1)`` against Ulysses;
-   per-call wall, flash launches and peak device memory.
+   per-call wall, flash launches and peak device memory;
+6. ``attention_bwd_kernel``: ``srt_flash_attn_bwd_dq`` and
+   ``srt_flash_attn_bwd_dkv`` against the plain backward
+   (``flash_attention_bwd_reference`` on the card) over nine shapes, f32
+   and bf16, causal and not, S from 1 to 2048, D from 4 to 256, plus a
+   misaligned ``do`` (fp32 rtol 2e-4 / atol 2e-5, bf16 1e-2 / 1e-2);
+7. ``training_path``: ``TransformerStep(attn="ulysses")`` at the
+   transformer workload's full width (``benchmarks/run_workloads.py``
+   ``bench_transformer_train``: B4 S2048, d_model 512, 8 heads, d_hidden
+   2048, fp32, lr 0.01, ``init_params`` seed 0, data from
+   ``default_rng(3)``): step 1 held against ``reference_step`` and
+   against ``attn="ring"`` on the card (loss rtol 1e-5, params rtol 1e-4
+   / atol 1e-6; the block's gradients through the flash kernels within
+   1e-3 of their largest value of the ring schedule's), then
+   ``run_steps`` of 9 more with the workload's check that the loss ends
+   at most 1.01 x the first; per-step wall, kernel launches per step,
+   the kernels' share of a profiled step and peak device memory. Then
+   bench.py's flash training step (B4 S2048 H8 D128 bf16 causal,
+   ``flash_attention(...).float().sum()`` backward), its gradients held
+   against the plain backward.
 
-Then the timing phase (every kernel at its main path's shapes: the
+Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, for flash
-attention, ``scaled_dot_product_attention``'s as a yardstick), the
-kernels line (launches on the main path), and last ``{"ok": true,
-"device": ...}``. f32 matrix products run in full f32 (TF32 off).
-Any failed check raises and the script exits nonzero.
+attention, ``scaled_dot_product_attention``'s forward and backward as
+yardsticks), the card's name and power limit again, the kernels line
+(launches on the main paths), and last ``{"ok": true, "device": ...}``. f32 matrix products run in full f32
+(TF32 off). Any failed check raises and the script exits nonzero.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -117,6 +137,7 @@ def phase_environment(torch):
          build_s=_build.build_seconds, load_s=time.perf_counter() - t0,
          ptxas=[ln.strip() for ln in _build.build_log.splitlines()
                 if "ptxas info" in ln or "spill" in ln])
+    return smi
 
 
 def _cases(torch, dev):
@@ -701,6 +722,380 @@ def time_flash_attention(torch, dev):
     return entry
 
 
+# ----------------------------------------------------------------------
+# training: the flash backward kernels and the transformer step above them
+# ----------------------------------------------------------------------
+# (B, S, H, D, dtype, causal)
+ATTN_BWD_SHAPES = [
+    (1, 1, 1, 4, "float32", False),
+    (2, 50, 2, 64, "float32", True),
+    (1, 96, 3, 128, "bfloat16", True),
+    (1, 96, 2, 256, "float32", False),
+    (2, 300, 2, 256, "bfloat16", True),
+    (1, 2048, 2, 64, "float32", True),
+    (1, 2048, 2, 128, "bfloat16", False),
+    # D not a multiple of the 16-byte vector: the kernels' scalar loads
+    (1, 77, 2, 6, "float32", True),
+    (1, 130, 3, 20, "bfloat16", False),
+]
+# bench_transformer_train's widths (benchmarks/run_workloads.py)
+TRAIN = {"b": 4, "s": 2048, "heads": 8, "d_model": 512, "d_hidden": 2048,
+         "lr": 0.01, "steps_after_first": 9}
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_TOL = (1e-4, 1e-6)
+TRAIN_GRAD_REL = 1e-3
+FLASH_KERNELS = ("srt_flash_attn_fwd", "srt_flash_attn_bwd_dq",
+                 "srt_flash_attn_bwd_dkv")
+
+
+def _flash_launches(pa):
+    return {"srt_flash_attn_fwd": pa.flash_fwd_launches,
+            "srt_flash_attn_bwd_dq": pa.flash_bwd_dq_launches,
+            "srt_flash_attn_bwd_dkv": pa.flash_bwd_dkv_launches}
+
+
+def _bwd_inputs(torch, dev, shape, seed):
+    """q, k, v, do and the kernel forward's out and lse."""
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+
+    q, k, v = _qkv(torch, dev, shape, seed)
+    do = _qkv(torch, dev, shape, seed + 1000)[0]
+    out, lse = pa.flash_attention_fwd(q, k, v, shape[5], want_lse=True)
+    return q, k, v, do, out, lse
+
+
+def phase_attention_bwd_kernel(torch, dev):
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+
+    cases = []
+    for i, shape in enumerate(ATTN_BWD_SHAPES):
+        b, s, h, d, dtype, causal = shape
+        q, k, v, do, out, lse = _bwd_inputs(torch, dev, shape, 200 + i)
+        want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+        got = pa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        errs = [_max_err(torch, g, w, dtype, f"{n} {shape}")
+                for g, w, n in zip(got, want, ("dq", "dk", "dv"))]
+        cases.append({"shape": [b, s, h, d], "dtype": dtype, "causal": causal,
+                      "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]}})
+    # a do 4 bytes past a 16-byte boundary: the scalar loads again
+    shape = (1, 129, 2, 64, "float32", True)
+    q, k, v, do, out, lse = _bwd_inputs(torch, dev, shape, 199)
+    dom = torch.empty(do.numel() + 1, dtype=do.dtype, device=dev)[1:].view_as(do)
+    dom.copy_(do)
+    want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
+    got = pa.flash_attention_bwd(q, k, v, out, lse, dom, True)
+    errs = [_max_err(torch, g, w, "float32", f"{n} misaligned do")
+            for g, w, n in zip(got, want, ("dq", "dk", "dv"))]
+    cases.append({"shape": list(shape[:4]), "dtype": "float32", "causal": True,
+                  "misaligned_do": True,
+                  "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]}})
+    emit(6, name="attention_bwd_kernel", cases=cases,
+         launches={"srt_flash_attn_bwd_dq": pa.flash_bwd_dq_launches,
+                   "srt_flash_attn_bwd_dkv": pa.flash_bwd_dkv_launches})
+
+
+def _train_data(torch, dev):
+    from sparkrdma_tpu_torch.convert import params_from_jax
+    from sparkrdma_tpu_torch.models.transformer_step import init_params
+
+    t = TRAIN
+    params = params_from_jax(init_params(t["d_model"], t["heads"],
+                                         t["d_hidden"], tp=1), dev)
+    rng = np.random.default_rng(3)
+    x, y = (torch.from_numpy(rng.normal(size=(t["b"], t["s"], t["d_model"]))
+                             .astype(np.float32)).to(dev) for _ in range(2))
+    return params, x, y
+
+
+def _close_params(got, want, what):
+    """The JAX test's bounds on the new parameters, and the gradients they
+    imply within TRAIN_GRAD_REL of their largest value."""
+    rtol, atol = TRAIN_PARAM_TOL
+    errs = {}
+    for k in want:
+        err = (got[k] - want[k]).abs()
+        if bool((err > atol + rtol * want[k].abs()).any()):
+            raise AssertionError(f"{what}: param {k} max abs error {float(err.max())}")
+        errs[k] = float(err.max())
+    return errs
+
+
+def _block_grads(torch, params, x, y, attn):
+    """Gradients of the step's sum of squares through the block itself:
+    the new parameters hide them (``lr * g`` is ~1e-7 of a weight)."""
+    from sparkrdma_tpu_torch.models.transformer_step import TransformerBlock
+
+    block = TransformerBlock(params, TRAIN["heads"], attn)
+    names, ps = zip(*block.named_parameters())
+    return dict(zip(names, torch.autograd.grad(((block(x) - y) ** 2).sum(), ps)))
+
+
+def _grad_rel_err(got, want, what):
+    """Largest gradient error of each parameter over its largest value."""
+    errs = {}
+    for k in want:
+        rel = float((got[k] - want[k]).abs().max() / want[k].abs().max())
+        if not rel <= TRAIN_GRAD_REL:
+            raise AssertionError(f"{what}: grad {k} off by {rel} of its largest value")
+        errs[k] = rel
+    return errs
+
+
+def phase_training_path(torch, dev):
+    """The training path at full width: counts from 0 just before each run,
+    read just after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparkrdma_tpu_torch.models.transformer_step import (
+        TransformerStep, reference_step,
+    )
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+
+    t = TRAIN
+    params, x, y = _train_data(torch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step = TransformerStep(n_heads=t["heads"], lr=t["lr"], attn="ulysses")
+
+    # ---- the main path: step 1, then run_steps of 9 more
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss1, new1 = step.step(params, x, y)
+    torch.cuda.synchronize()
+    step1_s = time.perf_counter() - t0
+    after_step1 = _flash_launches(pa)
+    t0 = time.perf_counter()
+    loss_k, _ = step.run_steps(new1, x, y, t["steps_after_first"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _flash_launches(pa)
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = 1 + t["steps_after_first"]
+    if after_step1 != dict.fromkeys(FLASH_KERNELS, 1) or launches != dict.fromkeys(
+            FLASH_KERNELS, n_steps):
+        raise AssertionError(f"launches not 1/1/1 a step: {after_step1}, {launches}")
+    l1, lk = float(loss1), float(loss_k)
+    if not (np.isfinite(lk) and lk <= l1 * 1.01):
+        raise AssertionError(f"training diverged: loss {l1} -> {lk}")
+
+    # ---- step 1 against reference_step and the ring schedule
+    ref_loss, ref_new = reference_step(params, x, y, t["heads"], t["lr"])
+    ring_loss, ring_new = TransformerStep(
+        n_heads=t["heads"], lr=t["lr"], attn="ring").step(params, x, y)
+    checks = {}
+    for name, (lw, pw) in (("reference_step", (ref_loss, ref_new)),
+                           ("ring", (ring_loss, ring_new))):
+        rel = abs(l1 - float(lw)) / abs(float(lw))
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"step 1 vs {name}: loss {l1} vs {float(lw)}")
+        checks[name] = {
+            "loss": float(lw), "loss_rel_err": rel,
+            "param_max_abs_err": _close_params(new1, pw, f"step 1 vs {name}"),
+        }
+    checks["grad_rel_err_ulysses_vs_ring"] = _grad_rel_err(
+        _block_grads(torch, params, x, y, "ulysses"),
+        _block_grads(torch, params, x, y, "ring"), "step 1 gradients")
+    for v in new1.values():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError("step 1: non-finite parameters")
+
+    # ---- one profiled warm step: the kernels' share of it
+    step.step(params, x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.step(params, x, y)
+        torch.cuda.synchronize()
+        prof_wall_s = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_ops = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == cuda]
+    busy_ms = sum(e.self_device_time_total for e in dev_ops) / 1e3
+    kernel_ms = {name: sum(e.self_device_time_total for e in dev_ops
+                           if f"flash_{part}_kernel" in e.key) / 1e3
+                 for name, part in zip(FLASH_KERNELS, ("fwd", "bwd_dq", "bwd_dkv"))}
+    top = sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:8]
+
+    train = {
+        "shape": {k: v for k, v in t.items() if k != "steps_after_first"},
+        "dtype": "float32", "attn": "ulysses", "causal": False,
+        "step1_s": step1_s, "steps_after_first_s": run_s,
+        "step_s_warm": run_s / t["steps_after_first"],
+        "loss_first": l1, "loss_last": lk, "steps": n_steps,
+        "launches": launches,
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+        "step1_checks": checks,
+        "profiled_step_s": prof_wall_s, "device_busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / (prof_wall_s * 1e3) if busy_ms > 0 else None,
+        "kernel_device_ms": kernel_ms,
+        "kernels_share_of_profiled_step": (
+            sum(kernel_ms.values()) / (prof_wall_s * 1e3) if busy_ms > 0 else None),
+        "kernels_share_of_warm_step": (
+            sum(kernel_ms.values()) / (run_s / t["steps_after_first"] * 1e3)
+            if busy_ms > 0 else None),
+        "top_device_ops_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                              for e in top],
+        "peak_device_bytes": peak, "peak_above_baseline_bytes": peak - base,
+    }
+    del new1, ref_new, ring_new
+
+    # ---- bench.py's flash training step
+    shape = ATTN_PATH_SHAPES["bench_bf16_causal"]
+    q, k, v = (x_.requires_grad_(True) for x_ in _qkv(torch, dev, shape, 31))
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    pa.flash_attention(q, k, v, causal=True).float().sum().backward()
+    torch.cuda.synchronize()
+    flash_s = time.perf_counter() - t0
+    flash_launches = _flash_launches(pa)
+    if flash_launches != dict.fromkeys(FLASH_KERNELS, 1):
+        raise AssertionError(f"flash training step launches {flash_launches}")
+    with torch.no_grad():
+        out, lse = pa.flash_attention_fwd(q, k, v, True, want_lse=True)
+        want = pa.flash_attention_bwd_reference(q, k, v, out, lse,
+                                                torch.ones_like(out), True)
+    errs = [_max_err(torch, g, w, "bfloat16", f"flash training step {n}")
+            for g, w, n in zip((q.grad, k.grad, v.grad), want, ("dq", "dk", "dv"))]
+    flash = {"shape": list(shape[:4]), "dtype": "bfloat16", "causal": True,
+             "step_s": flash_s, "launches": flash_launches,
+             "max_abs_err_vs_plain": {"dq": errs[0], "dk": errs[1], "dv": errs[2]}}
+    emit(7, name="training_path", transformer_step=train, flash_train_step=flash)
+    return {k: launches[k] + flash_launches[k] for k in FLASH_KERNELS}
+
+
+def _sdpa_backend(torch, fn):
+    """``(name, context)`` of the first SDPA backend, in the order SDPA
+    itself prefers, that runs ``fn``; ``(None, nullcontext)`` when the
+    backends cannot be forced."""
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+    except ImportError:
+        return None, contextlib.nullcontext
+    for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel(backend):
+                fn()
+                torch.cuda.synchronize()
+        except RuntimeError:  # this backend does not take these inputs
+            continue
+        return name, lambda: sdpa_kernel(backend)
+    return None, contextlib.nullcontext
+
+
+def time_flash_attention_bwd(torch, dev):
+    """srt_flash_attn_bwd_dq and _dkv at the training path's two shapes:
+    each C entry point alone on prebuilt inputs, each sweep of the plain
+    backward, and ``scaled_dot_product_attention``'s backward (forward +
+    ``autograd.grad``, less the forward) on [B, H, S, D] copies, a
+    yardstick the port never calls, for dq and dk/dv together."""
+    from sparkrdma_tpu_torch.ops import _build
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+
+    F = torch.nn.functional
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    rec = {"srt_flash_attn_bwd_dq": {}, "srt_flash_attn_bwd_dkv": {}}
+    for name, shape in ATTN_PATH_SHAPES.items():
+        b, s, h, d, dtype, causal = shape
+        q, k, v, do, out, lse = _bwd_inputs(torch, dev, shape, 41)
+        delta = torch.einsum("bshd,bshd->bhs", do.float(), out.float()).contiguous()
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        code = {"float32": 0, "bfloat16": 1}[dtype]
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               lse.data_ptr(), delta.data_ptr())
+        tail = (b, s, h, d, code, int(causal), stream)
+
+        def raw_dq():
+            if lib.srt_flash_attn_bwd_dq(*ins, dq.data_ptr(), *tail):
+                raise RuntimeError("srt_flash_attn_bwd_dq launch failed")
+
+        def raw_dkv():
+            if lib.srt_flash_attn_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *tail):
+                raise RuntimeError("srt_flash_attn_bwd_dkv launch failed")
+
+        raw_dq()
+        raw_dkv()
+        want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        errs = [_max_err(torch, g, w, dtype, f"timing {name} {n}")
+                for g, w, n in zip((dq, dk, dv), want, ("dq", "dk", "dv"))]
+        del want
+
+        # the yardstick: SDPA forward + backward, less its forward
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        backend, forced = _sdpa_backend(torch, sdpa_fwd_bwd)
+        with forced():
+            lib_total_ms = event_ms_per_call(torch, sdpa_fwd_bwd, 10)
+            lib_fwd_ms = event_ms_per_call(torch, sdpa_fwd, 10)
+        library_ms = lib_total_ms - lib_fwd_ms
+
+        item = q.element_size()
+        elems = b * s * h * d
+        rows = b * h * s
+        pairs = s * (s + 1) // 2 if causal else s * s
+        peak = BF16_TENSOR_FLOPS if dtype == "bfloat16" else F32_FLOPS
+        for kname, run, n_out, fma_per_d, sweep, err in (
+                ("srt_flash_attn_bwd_dq", raw_dq, 1, 3, "dq", errs[0]),
+                ("srt_flash_attn_bwd_dkv", raw_dkv, 2, 4, "dkv", max(errs[1:]))):
+            kernel_ms = event_ms_per_call(torch, run, 20)
+
+            def plain():
+                return pa._bwd_reference(q, k, v, out, lse, do, causal, 512, 512,
+                                         sweeps=(sweep,))
+
+            plain_ms = event_ms_per_call(torch, plain, 5)
+            # q, k, v, do read once, lse and delta read once, outputs written once
+            moved = (4 + n_out) * elems * item + 2 * rows * 4
+            flops = 2 * fma_per_d * b * h * d * pairs
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / peak * 1e3
+            rec[kname][name] = {
+                "shape": [b, s, h, d], "dtype": dtype, "causal": causal,
+                "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "library_scope": "dq+dkv",
+                "library_backend": backend,
+                "library_fwd_ms": lib_fwd_ms, "library_fwd_bwd_ms": lib_total_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "bytes": moved, "flops": flops, "peak_flops": peak,
+                "tflops": flops / kernel_ms / 1e9,
+            }
+        del qt, kt, vt, dot
+    entries = []
+    for kname, replaces in (("srt_flash_attn_bwd_dq",
+                             "sparkrdma_tpu/ops/pallas_attention.py:364"),
+                            ("srt_flash_attn_bwd_dkv",
+                             "sparkrdma_tpu/ops/pallas_attention.py:394")):
+        head = rec[kname]["bench_bf16_causal"]
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": "sparkrdma_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+            "replaces": replaces,
+            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "timer": "cuda_events", "shapes": rec[kname],
+        })
+    emit("timing_attention_bwd", kernels=entries)
+    return entries
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkrdma_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository")
@@ -716,14 +1111,19 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     t0 = time.perf_counter()
-    phase_environment(torch)
+    smi = phase_environment(torch)
     phase_kernels(torch, dev)
     arenas, ids, locs, launches = phase_main_path(torch, dev)
     kernels = phase_timing(torch, dev, arenas, ids, locs)
     phase_terasort_step(torch, dev)
     phase_attention_kernel(torch, dev)
-    launches["srt_flash_attn_fwd"] = phase_attention_path(torch, dev)
+    serving = phase_attention_path(torch, dev)
     kernels.append(time_flash_attention(torch, dev))
+    phase_attention_bwd_kernel(torch, dev)
+    training = phase_training_path(torch, dev)
+    kernels.extend(time_flash_attention_bwd(torch, dev))
+    launches.update(training)
+    launches["srt_flash_attn_fwd"] += serving
     for k in kernels:
         k["launches"] = launches[k["name"]]
     for r in range(REDUCERS):
@@ -733,6 +1133,7 @@ def main():
     for a in arenas:
         a.stop()
     emit("done", seconds=time.perf_counter() - t0)
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,11 @@ takes a snapshot of the JAX side's arenas as numpy arrays plus its
 locations' fields, and builds port arenas holding the same bytes under
 the same handles, so every location resolves on both sides. The
 attention path holds no state either: q, k and v are its inputs, so
-nothing of it is converted.
+nothing of it is converted. The training path's state is the
+transformer's parameters: ``params_from_jax`` carries the JAX package's
+``init_params``/``TransformerStep`` parameters across unchanged (both
+packages keep ``[d_in, d_out]`` weights used as ``x @ w``), and
+``params_to_jax`` carries them back.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from sparkrdma_tpu_torch.locations import (
     BlockLocation,
@@ -21,6 +26,7 @@ from sparkrdma_tpu_torch.locations import (
     ShuffleManagerId,
 )
 from sparkrdma_tpu_torch.ops.hbm_arena import DeviceBufferManager, host_tensor
+from sparkrdma_tpu_torch.utils.torch_compat import resolve_device
 
 
 def from_jax_state(
@@ -53,3 +59,20 @@ def from_jax_state(
         for f in locations
     ]
     return out, locs
+
+
+def params_from_jax(params: Mapping[str, np.ndarray],
+                    device=None) -> Dict[str, torch.Tensor]:
+    """The JAX package's transformer parameters (as numpy arrays, or
+    anything ``np.asarray`` takes) as port tensors of the same shapes,
+    dtypes and values, on ``device`` (``cuda`` unless ``"cpu"`` is asked
+    for)."""
+    dev = resolve_device(device)
+    return {name: torch.from_numpy(np.array(w)).to(dev)
+            for name, w in params.items()}
+
+
+def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_jax`: numpy arrays the JAX
+    package's ``TransformerStep`` takes."""
+    return {name: np.array(w.detach().cpu()) for name, w in params.items()}

@@ -1,12 +1,13 @@
 """Build and bind the package's own CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
-(all started together), and the objects are linked into one shared
-library with a plain C interface, loaded with ``ctypes``. The
-library goes to ``build/torch_kernels/libsrt_torch_kernels.so`` under
-the checkout root, beside a stamp holding the hash of the sources it
-was built from; it is rebuilt at first use whenever the sources change.
-Nothing is built at import time.
+(all started together; ``csrc/*.cuh`` are their shared headers), and
+the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The library goes to
+``build/torch_kernels/libsrt_torch_kernels.so`` under the checkout
+root, beside a stamp holding the hash of the sources and headers it was
+built from; it is rebuilt at first use whenever they change. Nothing is
+built at import time.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def _sources():
 
 def sources_hash() -> str:
     h = hashlib.sha256()
-    for p in _sources():
+    for p in sorted(CSRC.glob("*.cu*")):  # the .cu sources and their headers
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -103,6 +104,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.srt_flash_attn_fwd.argtypes = [vp, vp, vp, vp, vp,
                                        ll, ll, ll, ll, ll, ll, vp]
     lib.srt_flash_attn_fwd.restype = ctypes.c_int
+    lib.srt_flash_attn_bwd_dq.argtypes = [vp] * 7 + [ll] * 6 + [vp]
+    lib.srt_flash_attn_bwd_dq.restype = ctypes.c_int
+    lib.srt_flash_attn_bwd_dkv.argtypes = [vp] * 8 + [ll] * 6 + [vp]
+    lib.srt_flash_attn_bwd_dkv.restype = ctypes.c_int
     lib.srt_error_string.argtypes = [ctypes.c_int]
     lib.srt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,22 +1,31 @@
-"""Flash attention forward — the attention hot op on one device.
+"""Flash attention — the attention hot op on one device, forward and
+backward.
 
-The PyTorch counterpart of the JAX package's ``ops/pallas_attention.py``
-forward: exact attention over ``[B, S, H, D]`` inputs by online softmax
-over kv blocks, so the ``[S, S]`` score matrix never exists in device
-memory.
+The PyTorch counterpart of the JAX package's ``ops/pallas_attention.py``:
+exact attention over ``[B, S, H, D]`` inputs by online softmax over kv
+blocks, so the ``[S, S]`` score matrix never exists in device memory,
+and its FlashAttention-2 backward, which re-materialises the
+probability tiles from ``(q, k, lse)``.
 
 - ``flash_attention`` / ``flash_attention_fwd``: on CUDA tensors one
   launch of the hand-written kernel of ``csrc/flash_attn_fwd.cu``
   (``srt_flash_attn_fwd``) on the current stream, not waited on; on CPU
   tensors :func:`flash_attention_reference`, the plain version. A kernel
   that does not build or launch raises; nothing falls back.
+- ``flash_attention_bwd``: on CUDA tensors one launch each of
+  ``srt_flash_attn_bwd_dq`` and ``srt_flash_attn_bwd_dkv``
+  (``csrc/flash_attn_bwd.cu``); on CPU tensors
+  :func:`flash_attention_bwd_reference`.
+- ``flash_attention`` is differentiable: with grad mode on and an input
+  that requires grad it runs :class:`_FlashAttention`, the counterpart of
+  the JAX ``custom_vjp`` (the forward with lse, then the two backward
+  kernels). Inference keeps the forward without lse.
 - fp32 inputs are computed in full fp32 (the JAX ``HIGHEST``); bf16
-  inputs are widened to f32 inside, as the JAX kernel body does, and the
-  output is rounded back to the input dtype.
-- Gradients are the training slice's work: with grad mode on, inputs
-  that require grad raise ``NotImplementedError``.
+  inputs are widened to f32 inside, as the JAX kernel bodies do, and the
+  outputs are rounded back to the input dtype.
 
-Every launch adds one to ``flash_fwd_launches``.
+Every launch adds one to its kernel's counter: ``flash_fwd_launches``,
+``flash_bwd_dq_launches``, ``flash_bwd_dkv_launches``.
 """
 
 from __future__ import annotations
@@ -28,15 +37,19 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256  # the largest D the CUDA kernel takes
+MAX_HEAD_DIM = 256  # the largest D the CUDA kernels take
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 flash_fwd_launches = 0
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 
 
 def reset_launch_counts() -> None:
-    global flash_fwd_launches
+    global flash_fwd_launches, flash_bwd_dq_launches, flash_bwd_dkv_launches
     flash_fwd_launches = 0
+    flash_bwd_dq_launches = 0
+    flash_bwd_dkv_launches = 0
 
 
 def _resolve_blocks(s: int, block_q: int, block_k: int):
@@ -77,11 +90,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"q, k and v lie on different devices: {q.device}, {k.device}, "
             f"{v.device}"
-        )
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention has no backward yet: the dq/dkv kernels come "
-            "with the training slice; call it under torch.no_grad()"
         )
 
 
@@ -137,6 +145,89 @@ def flash_attention_reference(
         )
     out = out[:, :, :s].permute(0, 2, 1, 3).to(q.dtype)
     return out, (lse[:, :, :s].contiguous() if want_lse else None)
+
+
+def _pad_rows(x: torch.Tensor, s_pad: int, value: float) -> torch.Tensor:
+    """[B, H, S] -> [B, H, s_pad], the new rows set to ``value``."""
+    return torch.nn.functional.pad(x, (0, s_pad - x.shape[-1]), value=value)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool = False,
+    block_q: int = 512, block_k: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward: the JAX ``_bwd_impl`` in torch, in f32.
+
+    ``delta = rowsum(do * out)``; then ``p = exp(s * scale - lse)`` is
+    re-materialised tile by tile with the masks and causal skips of
+    ``_dq_kernel`` (a kv-minor sweep per q block) and ``_dkv_kernel`` (a
+    q-minor sweep per kv block, from the first live q block). ``lse`` is
+    ``[B, H, S]`` f32; padded rows take the forward's ``+1e30`` pin, so
+    their ``p`` is 0. Returns ``(dq, dk, dv)`` in the input dtype."""
+    return _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k)
+
+
+def _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k,
+                   sweeps=("dq", "dkv")):
+    """:func:`flash_attention_bwd_reference`, running only the named
+    sweeps (the others' gradients stay zero), so each sweep can be timed
+    beside its kernel."""
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    bq, bk, s_pad = _resolve_blocks(s, block_q, block_k)
+
+    def prep(x):  # [B, S, H, D] -> [B, H, s_pad, D] f32
+        x = x.permute(0, 2, 1, 3).float()
+        return torch.nn.functional.pad(x, (0, 0, 0, s_pad - s))
+
+    qt, kt, vt, dot = prep(q), prep(k), prep(v), prep(do)
+    delta = _pad_rows(torch.einsum("bshd,bshd->bhs", do.float(), out.float()),
+                      s_pad, 0.0)
+    lse = _pad_rows(lse.float(), s_pad, -NEG_INF)
+    dev = q.device
+    pos = torch.arange(s_pad, device=dev)
+
+    def probs(iq, ik):
+        """p [B, H, bq, bk] and ds of the (iq, ik) tile pair."""
+        qp, kp = pos[iq * bq:(iq + 1) * bq], pos[ik * bk:(ik + 1) * bk]
+        qb, dob = qt[:, :, iq * bq:(iq + 1) * bq], dot[:, :, iq * bq:(iq + 1) * bq]
+        kb, vb = kt[:, :, ik * bk:(ik + 1) * bk], vt[:, :, ik * bk:(ik + 1) * bk]
+        sc = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+        mask = (qp[:, None] < s) & (kp[None, :] < s)
+        if causal:
+            mask = mask & (qp[:, None] >= kp[None, :])
+        sc = torch.where(mask, sc, NEG_INF)
+        p = torch.exp(sc - lse[:, :, iq * bq:(iq + 1) * bq, None])
+        dp = torch.matmul(dob, vb.transpose(-1, -2))
+        ds = p * (dp - delta[:, :, iq * bq:(iq + 1) * bq, None])
+        return p, ds, qb, dob, kb
+
+    def live(iq, ik):  # the kernels' causal block skip
+        return not causal or ik * bk <= iq * bq + bq - 1
+
+    dq = torch.zeros((b, h, s_pad, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    for iq in range(s_pad // bq if "dq" in sweeps else 0):
+        for ik in range(s_pad // bk):  # _dq_kernel: kv blocks minor
+            if not live(iq, ik):
+                break
+            _, ds, _, _, kb = probs(iq, ik)
+            dq[:, :, iq * bq:(iq + 1) * bq] += torch.matmul(ds, kb) * scale
+    for ik in range(s_pad // bk if "dkv" in sweeps else 0):
+        for iq in range(s_pad // bq):  # _dkv_kernel: q blocks minor
+            if not live(iq, ik):
+                continue
+            p, ds, qb, dob, _ = probs(iq, ik)
+            dv[:, :, ik * bk:(ik + 1) * bk] += torch.matmul(p.transpose(-1, -2), dob)
+            dk[:, :, ik * bk:(ik + 1) * bk] += (
+                torch.matmul(ds.transpose(-1, -2), qb) * scale)
+
+    def unprep(x, like):
+        return x[:, :, :s].permute(0, 2, 1, 3).to(like.dtype)
+
+    return unprep(dq, q), unprep(dk, k), unprep(dv, v)
 
 
 def _kernel_path(q: torch.Tensor) -> bool:
@@ -200,9 +291,111 @@ def flash_attention_fwd(
                                      want_lse)
 
 
+def _launch_bwd(q, k, v, out, lse, do, causal):
+    from sparkrdma_tpu_torch.ops import _build
+
+    global flash_bwd_dq_launches, flash_bwd_dkv_launches
+    b, s, h, d = q.shape
+    if d > MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {d} exceeds the kernel's maximum of {MAX_HEAD_DIM}"
+        )
+    lib = _build.load()
+    dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format)
+                  for x in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    # delta = rowsum(do * out) [B, H, S] f32, a plain torch op as the JAX
+    # package leaves it to XLA; from `out` in the input dtype, as saved
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), out.float()).contiguous()
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    sizes = (b, s, h, d, _DTYPE_CODE[q.dtype], int(bool(causal)))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+
+        def call(name, *outs):
+            rc = getattr(lib, name)(*ins, *(x.data_ptr() for x in outs),
+                                    *sizes, stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"{name} launch failed: "
+                    f"{lib.srt_error_string(rc).decode()} ({rc})"
+                )
+
+        call("srt_flash_attn_bwd_dq", dq)
+        flash_bwd_dq_launches += 1
+        call("srt_flash_attn_bwd_dkv", dk, dv)
+        flash_bwd_dkv_launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool = False,
+    block_q: int = 512, block_k: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients ``(dq, dk, dv)`` of flash attention, in the input dtype,
+    from the forward's inputs, its output ``out`` (input dtype) and
+    ``lse`` (``[B, H, S]`` f32), and the output's cotangent ``do``.
+
+    CUDA tensors: one ``srt_flash_attn_bwd_dq`` and one
+    ``srt_flash_attn_bwd_dkv`` launch on the current stream (D <= 256);
+    strided inputs are copied with ``.contiguous()`` first. CPU tensors:
+    the plain version :func:`flash_attention_bwd_reference`."""
+    _check(q, k, v, block_q, block_k)
+    for name, x in (("out", out), ("do", do)):
+        if not isinstance(x, torch.Tensor) or x.shape != q.shape \
+                or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(
+                f"{name} must be a {q.dtype} tensor of q's shape "
+                f"{tuple(q.shape)} on {q.device}"
+            )
+    b, s, h, _ = q.shape
+    if (not isinstance(lse, torch.Tensor) or lse.shape != (b, h, s)
+            or lse.dtype != torch.float32 or lse.device != q.device):
+        raise ValueError(f"lse must be a float32 [B, H, S] = {(b, h, s)} "
+                         f"tensor on {q.device}")
+    if _kernel_path(q):
+        return _launch_bwd(*(x.contiguous() for x in (q, k, v, out, lse, do)),
+                           causal)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    return flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                         block_q, block_k)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of the JAX ``_flash`` custom VJP: the forward with
+    its lse, saving ``(q, k, v, out, lse)`` with ``out`` in the input
+    dtype as JAX saves it (bf16 ``delta`` comes from the rounded output),
+    and a backward through :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k):
+        out, lse = flash_attention_fwd(q, k, v, causal, block_q, block_k,
+                                       want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocking = (causal, block_q, block_k)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         *ctx.blocking)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, block_q: int = 512,
                     block_k: int = 512) -> torch.Tensor:
     """Exact attention over ``[B, S, H, D]`` inputs; the output has the
-    input's shape and dtype. See :func:`flash_attention_fwd`."""
+    input's shape and dtype. See :func:`flash_attention_fwd`.
+    Differentiable: with grad mode on and an input that requires grad,
+    the backward runs :func:`flash_attention_bwd`."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
     return flash_attention_fwd(q, k, v, causal, block_q, block_k)[0]

@@ -10,7 +10,8 @@ This slice runs one rank: the one-hop schedule, where the rank's own
 kv block is the whole sequence. More ranks need the process groups of
 the host-plane slice and raise ``NotImplementedError``.
 ``reference_attention`` is the dense single-device attention the tests
-hold everything against.
+hold everything against. Both are plain torch ops, differentiated by
+autograd; a tensor already on the class's device keeps its graph.
 """
 
 from __future__ import annotations

@@ -10,6 +10,10 @@ This slice runs one rank, where both exchanges are the identity and the
 schedule *is* :func:`flash_attention`. The two ``all_to_all``s ride
 ``torch.distributed`` once the host-plane slice brings the process
 group; more ranks raise ``NotImplementedError`` until then.
+
+Gradients flow through the schedule: :func:`flash_attention`'s backward
+is the flash kernels' (dq, then dk/dv), and an ``all_to_all`` is its own
+transpose, so the multi-rank form differentiates the same way.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ class UlyssesAttention:
     """All-to-all sequence-parallel attention over ``world_size`` ranks
     (one, in this slice). Inputs are ``[B, S, H, D]``; ``__call__`` moves
     them to ``self.device`` (``cuda`` unless ``device="cpu"`` was asked
-    for)."""
+    for). A tensor already there is used as it is, so its autograd graph
+    is kept."""
 
     def __init__(self, world_size: int = 1, device=None):
         if world_size != 1:

@@ -113,12 +113,21 @@ def test_strided_view_input_matches_contiguous():
 
 
 def test_requires_grad_raises_until_the_training_slice():
-    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 16, 1, 4, seed=1))
+    """The training slice has landed: an input that requires grad no
+    longer raises; its gradient flows and equals the JAX custom VJP's
+    (fp32 2e-4 / 2e-5), and under no_grad the output is the same."""
+    arrays = _inputs(1, 16, 1, 4, seed=1)
+    q, k, v = (torch.from_numpy(x) for x in arrays)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tpa.flash_attention(q, k, v)
+    out = tpa.flash_attention(q, k, v)
+    assert out.requires_grad
+    out.sum().backward()
+    jq, jk, jv = (jnp.asarray(x) for x in arrays)
+    want = jax.grad(lambda q: jpa.flash_attention(q, jk, jv, interpret=True).sum())(jq)
+    np.testing.assert_allclose(q.grad.numpy(), np.asarray(want), **F32_TOL)
     with torch.no_grad():
-        assert tpa.flash_attention(q, k, v).shape == q.shape
+        np.testing.assert_array_equal(tpa.flash_attention(q, k, v).numpy(),
+                                      out.detach().numpy())
 
 
 @pytest.mark.parametrize("bad", ["rank", "shape", "dtype", "mixed_dtype",
@@ -228,7 +237,7 @@ def test_head_dim_above_the_kernel_maximum_raises(kernel_path):
 
 def test_binding_passes_pointers_as_void_p():
     fns = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_flash_attn_fwd",
-           "srt_error_string")
+           "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv", "srt_error_string")
     lib = _build._bind(types.SimpleNamespace(
         **{f: types.SimpleNamespace() for f in fns}))
     fa = lib.srt_flash_attn_fwd

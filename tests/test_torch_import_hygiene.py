@@ -63,8 +63,9 @@ def test_forbidden_pattern_spares_the_port_prefix():
 
 
 def _entry_points():
-    from sparkrdma_tpu_torch.convert import from_jax_state
+    from sparkrdma_tpu_torch.convert import from_jax_state, params_from_jax
     from sparkrdma_tpu_torch.models.terasort import MapShardSorter, TeraSorter
+    from sparkrdma_tpu_torch.models.transformer_step import TransformerStep
     from sparkrdma_tpu_torch.ops import RingAttention, UlyssesAttention
     from sparkrdma_tpu_torch.ops.hbm_arena import DeviceBufferManager
     from sparkrdma_tpu_torch.utils.torch_compat import resolve_device
@@ -79,6 +80,9 @@ def _entry_points():
         "from_jax_state": lambda: from_jax_state(
             {"e": [(1, __import__("numpy").zeros(4, "uint8"), 4)]}, []
         )[0]["e"].device,
+        "TransformerStep": lambda: TransformerStep().device,
+        "params_from_jax": lambda: params_from_jax(
+            {"wq": __import__("numpy").zeros((2, 2), "float32")})["wq"].device,
     }
 
 
@@ -96,9 +100,11 @@ def test_cpu_only_when_asked():
     from sparkrdma_tpu_torch.ops.hbm_arena import DeviceBufferManager
     from sparkrdma_tpu_torch.utils.torch_compat import resolve_device
 
+    from sparkrdma_tpu_torch.models.transformer_step import TransformerStep
     from sparkrdma_tpu_torch.ops import RingAttention, UlyssesAttention
 
     assert resolve_device("cpu").type == "cpu"
     assert DeviceBufferManager("cpu").device.type == "cpu"
     assert UlyssesAttention(device="cpu").device.type == "cpu"
     assert RingAttention(device="cpu").device.type == "cpu"
+    assert TransformerStep(device="cpu").device.type == "cpu"

@@ -116,11 +116,23 @@ def test_more_than_one_rank_waits_for_the_multi_gpu_slice(cls):
 
 
 def test_flash_path_with_grad_inputs_raises():
-    q, k, v = _torch(_inputs(seed=9))
-    k.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        UlyssesAttention(device="cpu")(q, k, v)
-    # the dense path is plain autograd and stays differentiable
-    out = UlyssesAttention(device="cpu")(q, k, v, use_flash=False)
-    out.sum().backward()
-    assert k.grad is not None and torch.isfinite(k.grad).all()
+    """The training slice has landed: gradients flow through the flash
+    path of UlyssesAttention (the flash backward) and through
+    RingAttention (autograd), keep the graph of inputs already on the
+    class's device, and equal the dense path's (fp32 2e-4 / 2e-5)."""
+    arrays = _inputs(seed=9)
+    ct = torch.from_numpy(_inputs(seed=10)[0])
+    grads = {}
+    for name, run in (
+        ("flash", lambda q, k, v: UlyssesAttention(device="cpu")(q, k, v)),
+        ("dense", lambda q, k, v: UlyssesAttention(device="cpu")(
+            q, k, v, use_flash=False)),
+        ("ring", lambda q, k, v: RingAttention(device="cpu")(q, k, v)),
+    ):
+        q, k, v = _torch(arrays)
+        k.requires_grad_(True)
+        run(q, k, v).backward(ct)
+        assert k.grad is not None and torch.isfinite(k.grad).all()
+        grads[name] = k.grad.numpy()
+    np.testing.assert_allclose(grads["flash"], grads["dense"], **F32_TOL)
+    np.testing.assert_allclose(grads["ring"], grads["dense"], **F32_TOL)
