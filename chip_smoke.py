@@ -49,14 +49,33 @@ exits nonzero and prints no result. Phases, each one JSON line:
    the kernels' share of a profiled step and peak device memory. Then
    bench.py's flash training step (B4 S2048 H8 D128 bf16 causal,
    ``flash_attention(...).float().sum()`` backward), its gradients held
-   against the plain backward.
+   against the plain backward;
+8. ``neighbor_pull_kernel``: ``srt_neighbor_pull`` against its plain
+   version (``torch.roll``) byte for byte over 24 stacks: n 1, 2, 3 and
+   8; shards of 1, 15, 4097 and 64 KiB + 3 bytes up to 128 MiB; uint8,
+   int32, float32 and bfloat16; sources and destinations off their
+   16-byte alignment; then both exchange schedules on a 3-shard mesh;
+9. ``spmd_path``: the SPMD shuffle step on ``make_mesh([dev] * 8)``,
+   eight shards on the card: (a) the dryrun's exchange
+   (``__graft_entry__``: 64-byte buckets of ``1+src+dst`` bytes) through
+   ``exchange`` and ``ring_exchange``; (b) the exchange study's 1 GiB
+   send (``benchmarks/exchange_study.py``, 16 MiB buckets) through both
+   schedules, 3 calls each, byte-equal to the sent blocks and to each
+   other, equal stats, 14 neighbor-pull launches a ring call; (c)
+   ``TeraSorter(mesh).sort`` of phase 2's 2^28 keys against one
+   ``torch.sort`` on the card and the input's count, sum and xor, then
+   the warm step; (d) at 2^24 keys the all-zero skew with
+   ``capacity_factor=1.25`` (3 capacity doublings), ``adaptive=True``
+   on it (one run) and a ``(dcn 2, exec 4)`` mesh.
 
 Then the timing phases (every kernel at its main path's shapes: the
-kernel's time against its bound, the plain version's and, for flash
-attention, ``scaled_dot_product_attention``'s forward and backward as
-yardsticks), the card's name and power limit again, the kernels line
-(launches on the main paths), and last ``{"ok": true, "device": ...}``. f32 matrix products run in full f32
-(TF32 off). Any failed check raises and the script exits nonzero.
+kernel's time against its bound, the plain version's and, where one
+PyTorch call computes the same function, its time as a yardstick:
+``scaled_dot_product_attention`` forward and backward, ``torch.roll``),
+the card's name and power limit again, the kernels line (launches on
+the main paths), and last ``{"ok": true, "device": ...}``. f32 matrix
+products run in full f32 (TF32 off). Any failed check raises and the
+script exits nonzero.
 """
 
 import contextlib
@@ -1096,6 +1115,377 @@ def time_flash_attention_bwd(torch, dev):
     return entries
 
 
+# ----------------------------------------------------------------------
+# the SPMD shuffle step: the neighbor-pull kernel, the exchange program's
+# two schedules and TeraSorter over a mesh of shards on one card
+# ----------------------------------------------------------------------
+MESH = 8
+STUDY_BLOCK = 16 << 20  # benchmarks/exchange_study.py's payload, 16 MiB buckets
+SPMD_SMALL_KEYS = 1 << 24
+_SIGN = -(1 << 31)  # uint32 order as int32 order: XOR the sign bit
+
+
+def _np_cases(torch):
+    """(n, shard shape, dtype, source byte offset, destination byte offset)."""
+    u8 = torch.uint8
+    cases = [(n, (sb,), u8, 0, 0) for n in (1, 2, 3, 8)
+             for sb in (1, 15, 4097, (64 << 10) + 3)]
+    return cases + [
+        (3, (1025,), torch.int32, 0, 0),
+        (8, (33, 7), torch.float32, 0, 0),
+        (2, (4097,), torch.bfloat16, 0, 0),     # 8194 B: not a multiple of 16
+        (3, (3,), torch.int32, 0, 0),           # the [E, E] counts at odd E
+        (8, (4097,), u8, 1, 0),                 # source 1 byte past alignment
+        (5, (1000,), u8, 0, 3),                 # destination 3 bytes past
+        (2, (1 << 20,), torch.int32, 4, 4),     # both 4 bytes past: the head loop
+        (8, (32 << 20,), torch.float32, 0, 0),  # 128 MiB a shard
+    ]
+
+
+def _offset_stack(torch, dev, n, shape, dtype, offset, fill=None):
+    """A contiguous [n, *shape] stack starting ``offset`` bytes into a
+    fresh byte buffer, random bytes unless ``fill`` is given."""
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = n * int(np.prod(shape)) * item
+    buf = torch.empty(nbytes + offset, dtype=torch.uint8, device=dev)
+    if fill is None:
+        g = torch.Generator(device=dev).manual_seed(nbytes + offset)
+        buf.random_(0, 256, generator=g)
+    else:
+        buf.fill_(fill)
+    return buf[offset:].view(dtype).view(n, *shape)
+
+
+def phase_neighbor_pull_kernel(torch, dev):
+    """srt_neighbor_pull against its plain version, byte for byte, and
+    both schedules on an odd mesh."""
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+    from sparkrdma_tpu_torch.ops.exchange import ExchangeProgram
+    from sparkrdma_tpu_torch.parallel import make_mesh
+
+    n0 = rc.neighbor_pull_launches
+    cases = []
+    for n, shape, dtype, soff, doff in _np_cases(torch):
+        src = _offset_stack(torch, dev, n, shape, dtype, soff)
+        out = _offset_stack(torch, dev, n, shape, dtype, doff, fill=0xA5)
+        got = rc.neighbor_pull(src, out=out)
+        want = rc.neighbor_pull_reference(src)
+        torch.cuda.synchronize()
+        if got.data_ptr() != out.data_ptr() or not torch.equal(
+                got.reshape(n, -1).view(torch.uint8),
+                want.reshape(n, -1).view(torch.uint8)):
+            raise AssertionError(
+                f"srt_neighbor_pull differs from its plain version: n {n}, "
+                f"shard {shape} {dtype}, offsets {soff}/{doff}")
+        cases.append({"n": n, "shard": list(shape), "dtype": str(dtype),
+                      "shard_bytes": src[0].numel() * src.element_size(),
+                      "src_offset": soff, "dst_offset": doff})
+        del src, out, got, want
+    # both schedules on a 3-shard mesh: the counts' 12-byte shards
+    e = 3
+    prog = ExchangeProgram(make_mesh([dev] * e))
+    g = torch.Generator(device=dev).manual_seed(3)
+    send = torch.randint(0, 1 << 30, (e * e, 77), dtype=torch.int32,
+                         device=dev, generator=g)
+    counts = torch.randint(0, 78, (e * e,), dtype=torch.int32, device=dev,
+                           generator=g)
+    a2a = prog.exchange(send, counts)
+    ring = prog.ring_exchange(send, counts)
+    want = send.view(e, e, 77).transpose(0, 1).reshape(e * e, 77)
+    if not (torch.equal(a2a[0], want) and torch.equal(ring[0], want)
+            and torch.equal(a2a[1], ring[1])):
+        raise AssertionError("the 3-shard exchange schedules disagree")
+    emit(8, name="neighbor_pull_kernel", cases=cases, equal=True,
+         odd_mesh_schedules_equal=True,
+         launches={"srt_neighbor_pull": rc.neighbor_pull_launches - n0})
+
+
+def _study_payload_len(src, dst, block):
+    """benchmarks/exchange_study.py ``_payload``'s length and byte."""
+    n = max(1, (block // 2) + ((37 * src + 11 * dst) % (block // 2)))
+    return n, (src * 16 + dst) % 251
+
+
+def _study_send(torch, dev, e, block):
+    """The exchange study's send ([e*e, block] uint8, row src*e+dst holds
+    its (src, dst) payload), its counts, and the blocks each shard must
+    receive, all built on the card."""
+    send = torch.zeros((e * e, block), dtype=torch.uint8, device=dev)
+    want = torch.zeros_like(send)
+    counts = np.zeros(e * e, np.int32)
+    want_counts = np.zeros(e * e, np.int32)
+    for src in range(e):
+        for dst in range(e):
+            n, v = _study_payload_len(src, dst, block)
+            send[src * e + dst, :n] = v
+            want[dst * e + src, :n] = v
+            counts[src * e + dst] = n
+            want_counts[dst * e + src] = n
+    return (send, torch.from_numpy(counts).to(dev), want,
+            torch.from_numpy(want_counts).to(dev))
+
+
+def _checksums(torch, keys):
+    """(count, sum mod 2^32, xor) of uint32 keys on the card."""
+    bits = keys.view(torch.int32)
+    total = int((bits.to(torch.int64) & 0xFFFFFFFF).sum()) & 0xFFFFFFFF
+    x = bits
+    while x.numel() > 1:
+        if x.numel() % 2:
+            x = torch.cat([x, x.new_zeros(1)])
+        x = x[: x.numel() // 2] ^ x[x.numel() // 2:]
+    return keys.numel(), total, (int(x[0]) & 0xFFFFFFFF) if x.numel() else 0
+
+
+def _card_sort(torch, keys):
+    """One torch.sort of uint32 keys on the card (through the
+    order-preserving int32 view)."""
+    return (torch.sort(keys.view(torch.int32) ^ _SIGN).values ^ _SIGN).view(
+        torch.uint32)
+
+
+def _check_sorted(torch, dev, out, keys_dev, what):
+    got = torch.from_numpy(out).to(dev)
+    if got.numel() != keys_dev.numel() or not torch.equal(
+            got.view(torch.int32), _card_sort(torch, keys_dev).view(torch.int32)):
+        raise AssertionError(f"{what}: differs from torch.sort of its keys")
+    if _checksums(torch, got) != _checksums(torch, keys_dev):
+        raise AssertionError(f"{what}: count, sum or xor differ from the input's")
+
+
+def _profiled(torch, fn):
+    """One profiled call of ``fn``: its wall (ending in a sync), the
+    device busy time and the top device ops by self time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy_ms = device_busy_us(torch, prof) / 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    top = sorted((e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == cuda),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    return {"profiled_wall_s": wall, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / (wall * 1e3) if busy_ms > 0 else None,
+            "top_device_ops_ms": [[e.key[:60], e.self_device_time_total / 1e3,
+                                   e.count] for e in top]}
+
+
+def phase_spmd_path(torch, dev):
+    """The SPMD shuffle step on ``make_mesh([dev] * 8)``: counts from 0
+    just before, read just after."""
+    from sparkrdma_tpu_torch.models.terasort import TeraSorter
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+    from sparkrdma_tpu_torch.ops.exchange import (
+        ExchangeProgram, pack_blocks, unpack_blocks,
+    )
+    from sparkrdma_tpu_torch.parallel import make_mesh
+
+    e = MESH
+    mesh = make_mesh([dev] * e)
+    rc.reset_launch_counts()
+    report = {}
+
+    # ---- (a) the dryrun's exchange: 64-byte buckets of 1+src+dst bytes
+    prog = ExchangeProgram(mesh)
+    blocks = [bytes([(src * 16 + dst) % 256]) * (1 + src + dst)
+              for src in range(e) for dst in range(e)]
+    send, counts = pack_blocks(blocks, 64)
+    for fn in (prog.exchange, prog.ring_exchange):
+        recv, rcounts = fn(torch.from_numpy(send).to(dev),
+                           torch.from_numpy(counts).to(dev))
+        r = recv.cpu().numpy().reshape(e, e, 64)
+        c = rcounts.cpu().numpy().reshape(e, e)
+        for dst in range(e):
+            if unpack_blocks(r[dst], c[dst]) != [
+                    bytes([(src * 16 + dst) % 256]) * (1 + src + dst)
+                    for src in range(e)]:
+                raise AssertionError(f"dryrun exchange misdelivered for shard {dst}")
+    report["dryrun_exchange"] = {"equal": True, "block": 64}
+
+    # ---- (b) the exchange study's 1 GiB send through both schedules
+    send, counts, want, want_counts = _study_send(torch, dev, e, STUDY_BLOCK)
+    torch.cuda.synchronize()
+    prog = ExchangeProgram(mesh)
+    walls, outs, ring_launches = {}, {}, None
+    for label, fn in (("a2a", prog.exchange), ("ring", prog.ring_exchange)):
+        walls[label] = []
+        for i in range(3):
+            n0 = rc.neighbor_pull_launches
+            t = time.perf_counter()
+            recv, rcounts = fn(send, counts)
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t)
+            if label == "ring" and i == 0:
+                ring_launches = rc.neighbor_pull_launches - n0
+            if i == 0:
+                if not (torch.equal(recv, want) and torch.equal(rcounts, want_counts)):
+                    raise AssertionError(f"{label}: received blocks differ from the sent")
+                outs[label] = (recv, rcounts)
+            del recv, rcounts
+    if not (torch.equal(outs["a2a"][0], outs["ring"][0])
+            and torch.equal(outs["a2a"][1], outs["ring"][1])):
+        raise AssertionError("a2a and ring disagree")
+    stats = {k: {f: v for f, v in s.items() if f != "time_s"}
+             for k, s in prog.stats.items()}
+    if stats["a2a"] != stats["ring"]:
+        raise AssertionError(f"schedule stats differ: {stats}")
+    if ring_launches != 2 * (e - 1):
+        raise AssertionError(f"one ring call launched srt_neighbor_pull "
+                             f"{ring_launches} times, not {2 * (e - 1)}")
+    gib = send.numel()
+    report["exchange_study"] = {
+        "block": STUDY_BLOCK, "send_bytes": gib, "equal": True,
+        "wall_s": walls, "stats": prog.stats,
+        "profiled": {label: _profiled(torch, lambda fn=fn: fn(send, counts))
+                     for label, fn in (("a2a", prog.exchange),
+                                       ("ring", prog.ring_exchange))},
+        "ring_neighbor_pull_launches_per_call": ring_launches,
+        "a2a_gbps_warm": gib / min(walls["a2a"][1:]) / 1e9,
+        "ring_gbps_warm": gib / min(walls["ring"][1:]) / 1e9,
+    }
+    del send, counts, want, want_counts, outs
+
+    # ---- (c) TeraSorter on phase 2's 2^28 keys
+    rng = np.random.default_rng(12)
+    keys = np.concatenate([rng.integers(0, 1 << 32, KEYS // EXECUTORS,
+                                        dtype=np.uint32)
+                           for _ in range(EXECUTORS)])
+    keys_dev = torch.from_numpy(keys).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sorter = TeraSorter(mesh)
+    t = time.perf_counter()
+    out = sorter.sort(keys)
+    sort_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    _check_sorted(torch, dev, out, keys_dev, "TeraSorter(8).sort, 2^28 keys")
+    del out
+    fn = sorter.step(KEYS // e, sorter.last_capacities[-1])
+    step_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        merged, totals, overflowed = fn(keys_dev)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        del merged, totals, overflowed
+    report["terasort"] = {
+        "profiled_step": _profiled(torch, lambda: fn(keys_dev)),
+        "keys": KEYS, "shards": e, "capacity": sorter.last_capacities,
+        "sort_s": sort_s, "step_s": step_s, "step_s_warm": min(step_s[1:]),
+        "step_gbps_warm": KEYS * 4 / min(step_s[1:]) / 1e9,
+        "peak_device_bytes": peak, "peak_above_baseline_bytes": peak - base,
+        "equal_to_torch_sort": True, "checksums_equal": True,
+    }
+    del keys, keys_dev
+
+    # ---- (d) 2^24 keys: the skewed overflow retry, adaptive, a 2-D mesh
+    zeros = np.zeros(SPMD_SMALL_KEYS, np.uint32)
+    zeros_dev = torch.from_numpy(zeros).to(dev)
+    skew = {}
+    for adaptive in (False, True):
+        sk = TeraSorter(mesh, capacity_factor=1.25)
+        t = time.perf_counter()
+        out = sk.sort(zeros, adaptive=adaptive)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        _check_sorted(torch, dev, out, zeros_dev, f"all-zero keys, adaptive={adaptive}")
+        skew["adaptive" if adaptive else "static"] = {
+            "capacities": sk.last_capacities, "attempts": len(sk.last_capacities),
+            "sort_s": wall}
+    if skew["static"]["attempts"] != 4 or skew["adaptive"]["attempts"] != 1:
+        raise AssertionError(f"overflow retries: {skew}")
+    uniform = np.random.default_rng(13).integers(0, 1 << 32, SPMD_SMALL_KEYS,
+                                                 dtype=np.uint32)
+    mesh2 = make_mesh([dev] * e, num_slices=2)
+    t = time.perf_counter()
+    out = TeraSorter(mesh2).sort(uniform)
+    wall2 = time.perf_counter() - t
+    _check_sorted(torch, dev, out, torch.from_numpy(uniform).to(dev),
+                  "TeraSorter on the (dcn 2, exec 4) mesh")
+    report["small"] = {"keys": SPMD_SMALL_KEYS, "all_zero": skew,
+                       "mesh_2d": {"shape": mesh2.shape, "sort_s": wall2,
+                                   "equal": True}}
+    launches = rc.neighbor_pull_launches
+    if launches <= 0:
+        raise AssertionError("srt_neighbor_pull never launched on the SPMD path")
+    emit(9, name="spmd_path", launches={"srt_neighbor_pull": launches}, **report)
+    return launches
+
+
+def time_neighbor_pull(torch, dev):
+    """srt_neighbor_pull at the full-width ring hop (the exchange study's
+    [8, 8 x 16 MiB] slab stack): the C entry point alone on a prebuilt
+    table, the wrapper, the plain version (``torch.roll`` into a fresh
+    tensor), ``torch.roll`` itself as the library yardstick, and a
+    same-bytes ``copy_``."""
+    from sparkrdma_tpu_torch.ops import _build
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+
+    e, shard = MESH, MESH * STUDY_BLOCK
+    x = _offset_stack(torch, dev, e, (shard,), torch.uint8, 0)
+    out = torch.empty_like(x)
+    rows = np.arange(e, dtype=np.uint64) * np.uint64(shard)
+    table = torch.from_numpy(np.stack(
+        [np.uint64(x.data_ptr()) + rows, np.uint64(out.data_ptr()) + rows],
+        axis=1).view(np.int64)).to(dev)
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        code = lib.srt_neighbor_pull(table.data_ptr(), e, shard, stream)
+        if code:
+            raise RuntimeError(f"srt_neighbor_pull launch failed ({code})")
+
+    def wrapper():
+        return rc.neighbor_pull(x, out=out)
+
+    def plain():
+        return rc.neighbor_pull_reference(x)
+
+    def library():
+        return torch.roll(x, -1, 0)
+
+    raw()
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain()):
+        raise AssertionError("srt_neighbor_pull differs from its plain version")
+    moved = 2 * x.numel()  # every shard read once, written once
+    a = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
+    b = torch.empty_like(a)
+
+    def copy():
+        b.copy_(a)
+
+    kernel_ms = event_ms_per_call(torch, raw, 20)
+    copy_ms = event_ms_per_call(torch, copy, 20)
+    entry = {
+        "name": "srt_neighbor_pull", "route": "cuda",
+        "source": "sparkrdma_tpu_torch/ops/csrc/neighbor_pull.cu",
+        "replaces": "sparkrdma_tpu/ops/remote_copy.py:115",
+        "max_abs_err": 0,
+        "ms": kernel_ms,
+        "plain_ms": event_ms_per_call(torch, plain, 20),
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": event_ms_per_call(torch, library, 20),
+        "wrapper_event_ms": event_ms_per_call(torch, wrapper, 20),
+        "kernel_profiler_ms": device_ms_per_call(torch, raw, 10),
+        "copy_ms": copy_ms, "copy_gbps": moved / (copy_ms / 1e3) / 1e9,
+        "kernel_gbps": moved / (kernel_ms / 1e3) / 1e9,
+        "timer": "cuda_events",
+        "shape": {"n": e, "shard_bytes": shard, "read_bytes": moved // 2,
+                  "written_bytes": moved // 2},
+    }
+    emit("timing_neighbor_pull", kernels=[entry])
+    return entry
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkrdma_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository")
@@ -1122,8 +1512,12 @@ def main():
     phase_attention_bwd_kernel(torch, dev)
     training = phase_training_path(torch, dev)
     kernels.extend(time_flash_attention_bwd(torch, dev))
+    phase_neighbor_pull_kernel(torch, dev)
+    spmd = phase_spmd_path(torch, dev)
+    kernels.append(time_neighbor_pull(torch, dev))
     launches.update(training)
     launches["srt_flash_attn_fwd"] += serving
+    launches["srt_neighbor_pull"] = spmd
     for k in kernels:
         k["launches"] = launches[k["name"]]
     for r in range(REDUCERS):

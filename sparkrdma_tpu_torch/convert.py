@@ -10,7 +10,9 @@ nothing of it is converted. The training path's state is the
 transformer's parameters: ``params_from_jax`` carries the JAX package's
 ``init_params``/``TransformerStep`` parameters across unchanged (both
 packages keep ``[d_in, d_out]`` weights used as ``x @ w``), and
-``params_to_jax`` carries them back.
+``params_to_jax`` carries them back. The SPMD path's state is arrays
+sharded over a mesh: ``shards_from_jax`` lays a JAX array sharded over
+E devices out as the port's ``[E, ...]`` stack on one device.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from sparkrdma_tpu_torch.locations import (
     ShuffleManagerId,
 )
 from sparkrdma_tpu_torch.ops.hbm_arena import DeviceBufferManager, host_tensor
+from sparkrdma_tpu_torch.parallel.mesh import ShardMesh
 from sparkrdma_tpu_torch.utils.torch_compat import resolve_device
 
 
@@ -76,3 +79,18 @@ def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of :func:`params_from_jax`: numpy arrays the JAX
     package's ``TransformerStep`` takes."""
     return {name: np.array(w.detach().cpu()) for name, w in params.items()}
+
+
+def shards_from_jax(x, mesh: ShardMesh) -> torch.Tensor:
+    """A JAX array sharded over E devices, received as numpy, as the
+    port's ``[E, ...]`` stack on ``mesh``'s device: its leading axis
+    splits into E equal shards and row ``i`` is shard ``i`` (dcn-major,
+    the JAX sharding's order)."""
+    e = mesh.num_shards
+    arr = np.asarray(x)
+    if arr.ndim == 0 or arr.shape[0] % e:
+        raise ValueError(
+            f"an array of shape {arr.shape} does not split into {e} shards"
+        )
+    stack = arr.reshape(e, arr.shape[0] // e, *arr.shape[1:])
+    return torch.from_numpy(np.array(stack, order="C")).to(mesh.device)

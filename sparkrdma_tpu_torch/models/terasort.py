@@ -7,22 +7,33 @@ The PyTorch counterpart of the JAX package's ``models/terasort.py``:
   sort it on the device, and cut it at the reducer range edges with a
   device ``searchsorted`` clamped to the valid count, so the shard
   comes back sorted AND cut and staging is pure slicing;
-- ``TeraSorter``: the global sorter, for a one-device world (the JAX
-  step's ``e == 1`` branch: a single shard sorts locally, no split and
-  no exchange). More than one shard needs the exchange of the
-  multi-GPU slice and raises ``NotImplementedError``;
+- ``TeraSorter``: the global SPMD sorter over a mesh of E shards: local
+  sort, range split into a bucketed send slab, the all-to-all of
+  ``ExchangeProgram``, merge of the received slab; overflow retry with
+  doubled capacity and sampled (adaptive) range edges. One shard sorts
+  locally, no split and no exchange (the JAX step's ``e == 1`` branch);
 - ``merge_blocks``: the reduce side's merge of one partition's landed
   blocks (``merge_received`` over a sentinel-padded slab).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+import math
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from sparkrdma_tpu_torch.ops.sort import device_sort, merge_received, searchsorted
+from sparkrdma_tpu_torch.ops.exchange import ExchangeProgram
+from sparkrdma_tpu_torch.ops.sort import (
+    device_sort,
+    merge_received,
+    searchsorted,
+    split_sorted,
+    split_sorted_edges,
+)
+from sparkrdma_tpu_torch.parallel.mesh import ShardMesh, make_mesh
+from sparkrdma_tpu_torch.shuffle.planner import capacity_from_sample, plan_edges
 from sparkrdma_tpu_torch.utils.torch_compat import resolve_device
 
 KEY_BITS = 32
@@ -85,43 +96,163 @@ def merge_blocks(blocks: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Te
 
 
 class TeraSorter:
-    """Global sorter over a one-device world.
+    """Global sorter over a mesh of E shards (E a power of two).
 
-    ``step(n_local)`` maps ``[n_local]`` uint32 keys on the device to
-    ``(sorted keys [n_local], totals [1] int32, overflowed int32)``, the
-    JAX step's contract for one shard."""
+    ``step(n_local)`` maps ``[E * n_local]`` uint32 keys on the mesh's
+    device (shard ``i``'s keys at ``[i * n_local, (i + 1) * n_local)``)
+    to ``(merged [E * E * capacity], totals [E] int32, overflowed int32
+    scalar)``, the JAX step's contract: shard ``i``'s row of ``merged``
+    (``merged.view(E, -1)[i]``) holds the globally ``i``-th key range,
+    sorted, its ``totals[i]`` valid keys first. One shard short-circuits:
+    ``merged`` is the ``[n_local]`` sorted keys, no split, no exchange.
+    ``mesh`` defaults to one shard on ``device`` (``cuda`` unless
+    ``"cpu"`` is asked for)."""
 
-    def __init__(self, world_size: int = 1, device=None):
-        if world_size != 1:
-            raise NotImplementedError(
-                "TeraSorter over more than one shard needs the exchange "
-                "plane of the multi-GPU slice"
-            )
-        self.num_shards = world_size
-        self.device = resolve_device(device)
+    def __init__(self, mesh: Optional[ShardMesh] = None,
+                 capacity_factor: float = 2.0, device=None):
+        self.mesh = mesh if mesh is not None else make_mesh(
+            None if device is None else [device])
+        self.device = self.mesh.device
+        self.num_shards = self.mesh.num_shards
+        if self.num_shards & (self.num_shards - 1):
+            raise ValueError("TeraSorter requires a power-of-two shard count")
+        self.capacity_factor = capacity_factor
+        self._exchange = ExchangeProgram(self.mesh)
+        self._step_cache = {}
+        # the capacity class of each step the last ``sort`` ran
+        self.last_capacities: List[int] = []
 
-    def step(self, n_local: int) -> Callable:
-        """The sort step for ``[n_local]`` keys (one shard: no split, no
-        exchange, so no capacity class and no overflow)."""
+    # ------------------------------------------------------------------
+    def _build_step(self, n_local: int, capacity: int, adaptive: bool):
+        e = self.num_shards
 
-        def fn(keys: torch.Tensor):
-            if keys.shape != (n_local,):
+        def check(keys: torch.Tensor):
+            if keys.shape != (e * n_local,):
                 raise ValueError(
-                    f"step built for [{n_local}] keys, got {list(keys.shape)}"
+                    f"step built for [{e * n_local}] keys, got {list(keys.shape)}"
                 )
-            merged = device_sort(keys)
-            total = torch.tensor([n_local], dtype=torch.int32,
-                                 device=keys.device)
-            return merged, total, torch.zeros((), dtype=torch.int32,
-                                              device=keys.device)
+            if keys.dtype != torch.uint32:
+                raise ValueError(f"TeraSorter sorts uint32 keys, not {keys.dtype}")
+
+        if e == 1:
+            def short(keys: torch.Tensor, edges=None):
+                # one shard: no split, no exchange
+                check(keys)
+                merged = device_sort(keys)
+                total = torch.tensor([n_local], dtype=torch.int32,
+                                     device=keys.device)
+                return merged, total, torch.zeros((), dtype=torch.int32,
+                                                  device=keys.device)
+
+            return short
+
+        all_to_all = self._exchange.program_for(e, capacity, torch.uint32)
+
+        def fn(keys: torch.Tensor, edges: Optional[torch.Tensor] = None):
+            check(keys)
+            if adaptive and edges is None:
+                raise ValueError("the adaptive step takes the range edges")
+            dev = keys.device
+            shards = keys.view(e, n_local)
+            # uint32 data moves as its int32 bit pattern (ops/sort.py)
+            send = torch.empty((e, e, capacity), dtype=torch.int32, device=dev)
+            counts = torch.empty((e, e), dtype=torch.int32, device=dev)
+            flags = torch.empty((e,), dtype=torch.bool, device=dev)
+            for i in range(e):
+                # local sort first: destinations are key ranges, so the
+                # send slab falls out of range-edge slices
+                local = device_sort(shards[i])
+                if adaptive:
+                    slab, cnt, flags[i] = split_sorted_edges(
+                        local, edges, capacity, fill=SENTINEL)
+                else:
+                    slab, cnt, flags[i] = split_sorted(
+                        local, e, capacity, KEY_BITS, fill=SENTINEL)
+                send[i] = slab.view(torch.int32)
+                counts[i] = cnt
+                del local, slab
+            recv, rcounts = all_to_all(send.view(e * e, capacity),
+                                       counts.view(-1))
+            del send
+            recv = recv.view(e, e, capacity).view(torch.uint32)
+            rcounts = rcounts.view(e, e)
+            merged = torch.empty((e, e * capacity), dtype=torch.int32, device=dev)
+            totals = torch.empty((e,), dtype=torch.int32, device=dev)
+            for i in range(e):
+                m, totals[i] = merge_received(recv[i], rcounts[i], SENTINEL)
+                merged[i] = m.view(torch.int32)
+            # any shard overflowing aborts the round everywhere
+            overflowed = flags.any().to(torch.int32)
+            return merged.view(-1).view(torch.uint32), totals, overflowed
 
         return fn
 
-    def sort(self, keys: np.ndarray) -> np.ndarray:
-        """Host-facing total sort of uint32 keys."""
+    def step(self, n_local: int, capacity: Optional[int] = None,
+             adaptive: bool = False) -> Callable:
+        """The sort step for ``[E * n_local]`` keys: ``fn(keys)``, or
+        ``fn(keys, edges)`` when ``adaptive`` (``edges``: ascending
+        ``[E - 1]`` uint32 range edges on the mesh's device)."""
+        if capacity is None:
+            capacity = self.default_capacity(n_local)
+        key = (n_local, capacity, adaptive)
+        fn = self._step_cache.get(key)
+        if fn is None:
+            fn = self._build_step(n_local, capacity, adaptive)
+            self._step_cache[key] = fn
+        return fn
+
+    def default_capacity(self, n_local: int) -> int:
+        cap = int(math.ceil(n_local / self.num_shards) * self.capacity_factor)
+        return max(8, cap)
+
+    # ------------------------------------------------------------------
+    def sort(self, keys: np.ndarray, adaptive: bool = False,
+             sample_size: int = 4096) -> np.ndarray:
+        """Host-facing total sort of uint32 keys (padded to a shard
+        multiple with the sentinel). A bucket overflow retries with
+        doubled capacity, at most 8 times and capped at ``n_local``. With
+        ``adaptive`` the range edges come from a key sample
+        (``shuffle/planner.py`` ``plan_edges``) and the capacity class
+        from the sampled shares."""
         n = len(keys)
-        dev = torch.from_numpy(np.ascontiguousarray(keys, np.uint32)).to(
-            self.device
-        )
-        merged, totals, _ = self.step(n)(dev)
-        return merged.cpu().numpy()[: int(totals[0])]
+        e = self.num_shards
+        n_local = int(math.ceil(n / e))
+        padded = np.full((e * n_local,), SENTINEL, dtype=np.uint32)
+        padded[:n] = keys
+        dev = torch.from_numpy(padded).to(self.device)
+
+        use_adaptive = adaptive and e > 1 and n > 0
+        if use_adaptive:
+            sample = keys[:: max(1, n // max(1, sample_size))][:sample_size]
+            edges_np = plan_edges(sample, e)
+            # + e covers the injected sentinel padding (< e keys, all
+            # routed to the last shard); a sender holds no more than
+            # n_local
+            capacity = min(
+                n_local,
+                capacity_from_sample(sample, e, n_local, edges=edges_np) + e,
+            )
+        else:
+            edges_np = np.zeros((max(0, e - 1),), dtype=np.uint32)
+            capacity = self.default_capacity(n_local)
+        edges = torch.from_numpy(edges_np).to(self.device)
+
+        self.last_capacities = []
+        for _ in range(8):
+            fn = self.step(n_local, capacity, adaptive=use_adaptive)
+            self.last_capacities.append(capacity)
+            merged, totals, overflowed = (
+                fn(dev, edges) if use_adaptive else fn(dev)
+            )
+            if not bool(overflowed):
+                break
+            # n_local is a hard ceiling: no per-destination run is longer
+            capacity = min(n_local, capacity * 2)
+        else:
+            raise RuntimeError("terasort bucket overflow after 8 capacity doublings")
+
+        merged = merged.cpu().numpy().reshape(e, -1)
+        totals = totals.cpu().numpy().reshape(-1)
+        out = np.concatenate([merged[i, : totals[i]] for i in range(e)])
+        # drop the padding sentinels (they sort to the tail)
+        return out[:n] if n < len(out) else out

@@ -1,8 +1,9 @@
 """Process-wide metrics registry: labeled counters, gauges, histograms.
 
 The part of the JAX package's ``obs/metrics.py`` that the device reduce
-stage records into: one registry per process (``get_registry()``),
-dotted ``layer.metric`` names with low-cardinality labels, and the same
+stage and the exchange plane record into: one registry per process
+(``get_registry()``), dotted ``layer.metric`` names with low-cardinality
+labels, and the same
 family names (``METRIC_FAMILIES`` lists the ones this package records),
 so a snapshot of either package reads the same way.
 """
@@ -42,6 +43,12 @@ METRIC_FAMILIES: Dict[str, Tuple[str, frozenset]] = {
     "device_fetch.plane.fallbacks": ("counter", _L({"role"})),
     "device_fetch.plane.pulls": ("counter", _L({"role"})),
     "device_fetch.plane.plan_ms": ("histogram", _L({"role"})),
+    # device exchange plane (ops/exchange.py)
+    "exchange.exchanges": ("counter", _L({"schedule"})),
+    "exchange.bytes_sent": ("counter", _L({"schedule"})),
+    "exchange.bytes_received": ("counter", _L({"schedule"})),
+    "exchange.bytes_received_valid": ("counter", _L({"schedule"})),
+    "exchange.time_ms": ("histogram", _L({"schedule"})),
     # HBM arena (ops/hbm_arena.py)
     "hbm.pool_hits": ("counter", _L()),
     "hbm.pool_misses": ("counter", _L()),

@@ -101,6 +101,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.srt_wave_pull.restype = ctypes.c_int
     lib.srt_pipelined_wave_pull.argtypes = [vp, vp, ll, ll, ll, vp]
     lib.srt_pipelined_wave_pull.restype = ctypes.c_int
+    lib.srt_neighbor_pull.argtypes = [vp, ll, ll, vp]
+    lib.srt_neighbor_pull.restype = ctypes.c_int
     lib.srt_flash_attn_fwd.argtypes = [vp, vp, vp, vp, vp,
                                        ll, ll, ll, ll, ll, ll, vp]
     lib.srt_flash_attn_fwd.restype = ctypes.c_int

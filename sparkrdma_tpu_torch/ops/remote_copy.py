@@ -10,12 +10,18 @@ The PyTorch counterpart of the JAX package's ``ops/remote_copy.py``.
   which reads the source arena slabs directly; on a CPU destination it
   runs :func:`wave_pull_reference`, the plain version. A kernel that
   does not build or launch raises; nothing falls back.
+- ``neighbor_pull``: the mesh rotation, one hop of the ring exchange. A
+  ``[n, *shard]`` stack comes back rotated left by one shard (row ``i``
+  holds row ``(i + 1) mod n``). On CUDA it launches ``srt_neighbor_pull``
+  (``csrc/neighbor_pull.cu``) over a per-shard pointer table; on the CPU
+  it runs :func:`neighbor_pull_reference`.
 - the emulated issue/wait halves and ``pull_block``: the CPU movers the
   schedule compiler and the per-block planner use off CUDA, each an
   independent copy (``clone``) of the source.
 
 Every wrapper that launches its kernel adds one to its launch count
-(``wave_pull_launches``, ``pipelined_wave_pull_launches``).
+(``wave_pull_launches``, ``pipelined_wave_pull_launches``,
+``neighbor_pull_launches``).
 """
 
 from __future__ import annotations
@@ -29,12 +35,15 @@ from sparkrdma_tpu_torch.utils.torch_compat import torch_dtype
 
 wave_pull_launches = 0
 pipelined_wave_pull_launches = 0
+neighbor_pull_launches = 0
 
 
 def reset_launch_counts() -> None:
     global wave_pull_launches, pipelined_wave_pull_launches
+    global neighbor_pull_launches
     wave_pull_launches = 0
     pipelined_wave_pull_launches = 0
+    neighbor_pull_launches = 0
 
 
 def _bytes_of(src: torch.Tensor) -> torch.Tensor:
@@ -106,6 +115,18 @@ def wave_pull_reference(sources: Sequence[Optional[torch.Tensor]],
     return out.view(dtype).view(depth, rows_b, bucket_elems)
 
 
+def _upload(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A kernel's uint64 table as an int64 tensor on ``device``. To CUDA
+    it is an asynchronous copy from pinned memory (a pageable copy would
+    wait for the stream to drain and stall the pipeline); the stream
+    orders it before the kernel, and the allocators keep both ends
+    alive."""
+    t = torch.from_numpy(table.view(np.int64))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def _launch(pipelined: bool, sources, offsets, nbytes, rows_b: int,
             bucket_elems: int, dtype: torch.dtype, depth: int,
             device: torch.device) -> torch.Tensor:
@@ -120,12 +141,7 @@ def _launch(pipelined: bool, sources, offsets, nbytes, rows_b: int,
     lib = _build.load()
     dst = torch.empty((rows_total, bucket_bytes), dtype=torch.uint8,
                       device=device)
-    # an asynchronous copy from pinned memory (a pageable copy would wait
-    # for the stream to drain and stall the pipeline); the stream orders
-    # it before the kernel, and the allocators keep both ends alive
-    dev_table = torch.from_numpy(table.view(np.int64)).pin_memory().to(
-        device, non_blocking=True
-    )
+    dev_table = _upload(table, device)
     stream = torch.cuda.current_stream(device).cuda_stream
     if pipelined:
         rc = lib.srt_pipelined_wave_pull(
@@ -179,6 +195,86 @@ def pipelined_wave_pull(sources: Sequence[Optional[torch.Tensor]],
                                    bucket_elems, dtype, depth, device)
     return _launch(True, sources, offsets, nbytes, rows_b, bucket_elems,
                    dtype, depth, device)
+
+
+# ----------------------------------------------------------------------
+# the mesh rotation (the JAX package's pallas_neighbor_pull)
+# ----------------------------------------------------------------------
+def _kernel_path(blocks: torch.Tensor) -> bool:
+    """A stack rotates through the kernel iff it lies on CUDA."""
+    return blocks.device.type == "cuda"
+
+
+def neighbor_pull_reference(blocks: torch.Tensor) -> torch.Tensor:
+    """The plain version of the rotation: a fresh stack in which row
+    ``i`` holds row ``(i + 1) mod n`` of ``blocks``."""
+    return torch.roll(blocks, -1, 0)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def neighbor_pull(blocks: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rotate a contiguous ``[n, *shard]`` stack of any dtype left by one
+    shard: row ``i`` of the result holds row ``(i + 1) mod n``. ``out``,
+    if given, receives the result: a contiguous tensor of the same shape,
+    dtype and device that shares no byte with ``blocks``.
+
+    CUDA stack: one ``srt_neighbor_pull`` launch on the current stream,
+    not waited on. CPU stack: the plain version."""
+    if not isinstance(blocks, torch.Tensor) or blocks.dim() < 1:
+        raise ValueError("neighbor_pull takes a tensor with a shard axis")
+    if not blocks.is_contiguous():
+        raise ValueError("neighbor_pull takes a contiguous stack")
+    if out is None:
+        out = torch.empty_like(blocks, memory_format=torch.contiguous_format)
+    else:
+        if (out.shape != blocks.shape or out.dtype != blocks.dtype
+                or out.device != blocks.device or not out.is_contiguous()):
+            raise ValueError(
+                "out must be a contiguous stack of the source's shape, dtype "
+                "and device"
+            )
+        a, b = blocks.data_ptr(), out.data_ptr()
+        if a < b + _nbytes(out) and b < a + _nbytes(blocks):
+            # in place, the rotation would overwrite row i + 1 before
+            # row i reads it
+            raise ValueError("out overlaps the source stack")
+    if _kernel_path(blocks):
+        return _launch_neighbor_pull(blocks, out)
+    if blocks.device.type != "cpu":
+        raise ValueError(f"neighbor_pull runs on cuda or cpu, not {blocks.device}")
+    return out.copy_(neighbor_pull_reference(blocks))
+
+
+def _launch_neighbor_pull(blocks: torch.Tensor,
+                          out: torch.Tensor) -> torch.Tensor:
+    from sparkrdma_tpu_torch.ops import _build
+
+    global neighbor_pull_launches
+    n = blocks.shape[0]
+    shard_bytes = _nbytes(blocks) // n if n else 0
+    if shard_bytes == 0:
+        return out
+    lib = _build.load()
+    # one (src, dst) pair per shard: rows of the two stacks here, another
+    # card's peer-mapped rows in the multi-GPU slice
+    rows = np.arange(n, dtype=np.uint64) * np.uint64(shard_bytes)
+    table = np.stack([np.uint64(blocks.data_ptr()) + rows,
+                      np.uint64(out.data_ptr()) + rows], axis=1)
+    with torch.cuda.device(blocks.device):
+        dev_table = _upload(table, blocks.device)
+        stream = torch.cuda.current_stream(blocks.device).cuda_stream
+        rc = lib.srt_neighbor_pull(dev_table.data_ptr(), n, shard_bytes, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"srt_neighbor_pull launch failed: "
+            f"{lib.srt_error_string(rc).decode()} ({rc})"
+        )
+    neighbor_pull_launches += 1
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -1,0 +1,17 @@
+"""The port's mesh: E shards of one device, laid out as the JAX mesh."""
+
+from sparkrdma_tpu_torch.parallel.mesh import (
+    DCN_AXIS,
+    EXEC_AXIS,
+    ShardMesh,
+    all_exchange_axes,
+    dcn_axis,
+    exec_axis,
+    make_mesh,
+    mesh_axis_size,
+)
+
+__all__ = [
+    "DCN_AXIS", "EXEC_AXIS", "ShardMesh", "all_exchange_axes", "dcn_axis",
+    "exec_axis", "make_mesh", "mesh_axis_size",
+]

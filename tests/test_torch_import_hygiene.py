@@ -66,11 +66,18 @@ def _entry_points():
     from sparkrdma_tpu_torch.convert import from_jax_state, params_from_jax
     from sparkrdma_tpu_torch.models.terasort import MapShardSorter, TeraSorter
     from sparkrdma_tpu_torch.models.transformer_step import TransformerStep
-    from sparkrdma_tpu_torch.ops import RingAttention, UlyssesAttention
+    from sparkrdma_tpu_torch.ops import (
+        ExchangeProgram,
+        RingAttention,
+        UlyssesAttention,
+        make_mesh,
+    )
     from sparkrdma_tpu_torch.ops.hbm_arena import DeviceBufferManager
     from sparkrdma_tpu_torch.utils.torch_compat import resolve_device
 
     return {
+        "make_mesh": lambda: make_mesh().device,
+        "ExchangeProgram": lambda: ExchangeProgram(make_mesh()).mesh.device,
         "resolve_device": lambda: resolve_device(),
         "DeviceBufferManager": lambda: DeviceBufferManager().device,
         "MapShardSorter": lambda: MapShardSorter()._device,

@@ -1,6 +1,8 @@
 """models/terasort.py of the port against the JAX package's on the same
 keys and edges, uniform and zipf-skewed: MapShardSorter's sorted keys
-and bounds, and the one-device TeraSorter step. Exact comparisons."""
+and bounds, the one-device TeraSorter step and a two-shard sort (the
+SPMD path in full: tests/test_torch_spmd_terasort.py). Exact
+comparisons."""
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ from sparkrdma_tpu_torch.models.terasort import (
     TeraSorter,
     merge_blocks,
 )
+from sparkrdma_tpu_torch.parallel import make_mesh as make_port_mesh
 
 torch.set_num_threads(1)
 
@@ -77,8 +80,14 @@ def test_one_device_step_matches_jax(dist):
 
 
 def test_more_than_one_shard_waits_for_the_exchange():
-    with pytest.raises(NotImplementedError):
-        TeraSorter(world_size=2, device="cpu")
+    """More than one shard runs the exchange: a two-shard mesh sorts."""
+    keys = _keys("zipf", 3001)
+    sorter = TeraSorter(make_port_mesh(["cpu"] * 2))
+    assert sorter.num_shards == 2
+    np.testing.assert_array_equal(sorter.sort(keys), np.sort(keys))
+    np.testing.assert_array_equal(
+        sorter.sort(keys), JaxTeraSorter(make_mesh(jax.devices()[:2])).sort(keys)
+    )
 
 
 def test_merge_blocks_sorts_the_partition():
