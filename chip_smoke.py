@@ -19,18 +19,24 @@ exits nonzero and prints no result. Phases, each one JSON line:
    Every reducer's output is checked against ``np.sort`` of its key
    range and against the input's count, sum and xor;
 3. ``TeraSorter.step`` for one device at the ``entry()`` shape;
-4. ``attention_kernel``: ``srt_flash_attn_fwd`` against its plain
-   version (``flash_attention_reference`` on the card) over eight shapes,
-   f32 and bf16, causal and not, S from 1 to 4096, D from 4 to 256, out
-   and lse (fp32 rtol 2e-4 / atol 2e-5, bf16 1e-2 / 1e-2, lse atol 1e-4),
-   plus a misaligned q; together they reach both of the kernel's load
-   paths and all four of its tile variants;
+4. ``attention_kernel``: both forward kernels against their plain
+   version (``flash_attention_reference`` on the card), out and lse
+   (fp32 rtol 2e-4 / atol 2e-5, bf16 1e-2 / 1e-2, lse atol 1e-4):
+   ``srt_flash_attn_fwd`` on seven f32 and odd-D shapes (S 1 to 2000,
+   D 4 to 256) and two misaligned q's (f32 D 64, bf16 D 128), together
+   both of its load paths and all four of its tile variants;
+   ``srt_flash_attn_fwd_sm90`` on ten bf16 shapes, D 64 and 128, S 1,
+   77, 130, 1000 and 4096, causal and not, B and H above 1, each
+   asserted to have gone through it (two launches a shape) and the
+   misaligned q's asserted not to;
 5. ``attention_path``: the attention serving path through its public
    entry points at the repo's two full widths (bench.py's B4 S2048 H8
    D128 bf16 causal, the transformer workload's B4 S2048 H8 D64 fp32
    non-causal): ``UlyssesAttention(1)`` answers 3 calls, each checked
    against the plain version, and ``RingAttention(1)`` against Ulysses;
-   per-call wall, flash launches and peak device memory;
+   per-call wall, flash launches (every bench-shape launch on
+   ``srt_flash_attn_fwd_sm90``, none of the workload's) and peak device
+   memory;
 6. ``attention_bwd_kernel``: ``srt_flash_attn_bwd_dq`` and
    ``srt_flash_attn_bwd_dkv`` against the plain backward
    (``flash_attention_bwd_reference`` on the card) over nine shapes, f32
@@ -48,8 +54,9 @@ exits nonzero and prints no result. Phases, each one JSON line:
    at most 1.01 x the first; per-step wall, kernel launches per step,
    the kernels' share of a profiled step and peak device memory. Then
    bench.py's flash training step (B4 S2048 H8 D128 bf16 causal,
-   ``flash_attention(...).float().sum()`` backward), its gradients held
-   against the plain backward;
+   ``flash_attention(...).float().sum()`` backward; its forward, with
+   the lse, on ``srt_flash_attn_fwd_sm90``), its gradients held against
+   the plain backward;
 8. ``neighbor_pull_kernel``: ``srt_neighbor_pull`` against its plain
    version (``torch.roll``) byte for byte over 24 stacks: n 1, 2, 3 and
    8; shards of 1, 15, 4097 and 64 KiB + 3 bytes up to 128 MiB; uint8,
@@ -71,7 +78,8 @@ exits nonzero and prints no result. Phases, each one JSON line:
 Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, where one
 PyTorch call computes the same function, its time as a yardstick:
-``scaled_dot_product_attention`` forward and backward, ``torch.roll``),
+``scaled_dot_product_attention`` forward and backward, ``torch.roll``;
+at the bench shape both forward kernels, in turns),
 the card's name and power limit again, the kernels line (launches on
 the main paths), and last ``{"ok": true, "device": ...}``. f32 matrix
 products run in full f32 (TF32 off). Any failed check raises and the
@@ -155,7 +163,7 @@ def phase_environment(torch):
          float32_matmul_precision=torch.get_float32_matmul_precision(),
          build_s=_build.build_seconds, load_s=time.perf_counter() - t0,
          ptxas=[ln.strip() for ln in _build.build_log.splitlines()
-                if "ptxas info" in ln or "spill" in ln])
+                if "ptxas info" in ln or "spill" in ln or "warning" in ln])
     return smi
 
 
@@ -548,18 +556,29 @@ ATTN_KERNEL_SHAPES = [
     (1, 1, 1, 4, "float32", False),
     (2, 300, 3, 8, "float32", True),
     (1, 2000, 2, 64, "float32", False),
-    (2, 1000, 4, 128, "bfloat16", True),
-    (1, 4096, 4, 128, "bfloat16", True),
+    (1, 1000, 2, 128, "float32", True),
     (1, 1024, 2, 256, "float32", False),
     # D not a multiple of the 16-byte vector: the kernel's scalar loads
     (1, 77, 2, 6, "float32", True),
     (1, 130, 3, 20, "bfloat16", False),
+    # bf16 with D 64 or 128: the tensor-core kernel, srt_flash_attn_fwd_sm90
+    (2, 1, 3, 64, "bfloat16", False),
+    (1, 1, 2, 128, "bfloat16", True),
+    (2, 77, 2, 128, "bfloat16", True),
+    (3, 130, 2, 64, "bfloat16", True),
+    (2, 130, 3, 128, "bfloat16", False),
+    (2, 1000, 3, 64, "bfloat16", True),
+    (2, 1000, 4, 128, "bfloat16", True),
+    (2, 1000, 2, 128, "bfloat16", False),
+    (1, 4096, 2, 64, "bfloat16", False),
+    (1, 4096, 4, 128, "bfloat16", True),
 ]
 # bench.py's flash headline; the transformer workload's attention
 ATTN_PATH_SHAPES = {
     "bench_bf16_causal": (4, 2048, 8, 128, "bfloat16", True),
     "workload_f32": (4, 2048, 8, 64, "float32", False),
 }
+FWD_KERNELS = ("srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90")
 
 
 def _qkv(torch, dev, shape, seed):
@@ -584,19 +603,30 @@ def _max_err(torch, got, want, dtype, what):
     return float(err.max())
 
 
+def _sm90_shape(shape):
+    """Whether the route rule sends these (aligned) inputs to the
+    tensor-core kernel: bf16 with D 64 or 128."""
+    return shape[4] == "bfloat16" and shape[3] in (64, 128)
+
+
 def phase_attention_kernel(torch, dev):
     from sparkrdma_tpu_torch.ops import pallas_attention as pa
 
     cases = []
     for i, shape in enumerate(ATTN_KERNEL_SHAPES):
         b, s, h, d, dtype, causal = shape
+        entry = FWD_KERNELS[1] if _sm90_shape(shape) else FWD_KERNELS[0]
         q, k, v = _qkv(torch, dev, shape, 100 + i)
         want, want_lse = pa.flash_attention_reference(q, k, v, causal,
                                                       want_lse=True)
+        n90 = pa.flash_fwd_sm90_launches
         got = pa.flash_attention_fwd(q, k, v, causal)[0]
         got2, lse = pa.flash_attention_fwd(q, k, v, causal, want_lse=True)
         torch.cuda.synchronize()
-        what = f"srt_flash_attn_fwd {shape}"
+        what = f"{entry} {shape}"
+        if pa.flash_fwd_sm90_launches - n90 != (2 if entry.endswith("sm90") else 0):
+            raise AssertionError(f"{what}: {pa.flash_fwd_sm90_launches - n90} "
+                                 f"srt_flash_attn_fwd_sm90 launches of 2")
         err = _max_err(torch, got, want, dtype, what)
         err2 = _max_err(torch, got2, want, dtype, what + " (lse variant)")
         if lse.shape != (b, h, s):
@@ -605,19 +635,27 @@ def phase_attention_kernel(torch, dev):
         if not torch.isfinite(lse).all() or float(lse_err.max()) > LSE_ATOL:
             raise AssertionError(f"{what}: lse max abs error {float(lse_err.max())}")
         cases.append({"shape": [b, s, h, d], "dtype": dtype, "causal": causal,
-                      "max_abs_err": max(err, err2),
+                      "entry": entry, "max_abs_err": max(err, err2),
                       "lse_max_abs_err": float(lse_err.max())})
-    # a q 4 bytes past a 16-byte boundary: the scalar loads again
-    shape = (1, 129, 2, 64, "float32", True)
-    q, k, v = _qkv(torch, dev, shape, 99)
-    qm = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view_as(q)
-    qm.copy_(q)
-    got = pa.flash_attention(qm, k, v, causal=True)
-    err = _max_err(torch, got, pa.flash_attention_reference(q, k, v, True)[0],
-                   "float32", "srt_flash_attn_fwd misaligned q")
-    cases.append({"shape": list(shape[:4]), "dtype": "float32", "causal": True,
-                  "misaligned_q": True, "max_abs_err": err})
-    emit(4, name="attention_kernel", cases=cases, launches=pa.flash_fwd_launches)
+    # a q off its 16-byte boundary (4 bytes f32, 2 bytes bf16): the SIMT
+    # kernel and its scalar loads, also for bf16 D 128
+    for shape in ((1, 129, 2, 64, "float32", True),
+                  (1, 1000, 2, 128, "bfloat16", True)):
+        dtype = shape[4]
+        q, k, v = _qkv(torch, dev, shape, 99)
+        qm = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view_as(q)
+        qm.copy_(q)
+        n90 = pa.flash_fwd_sm90_launches
+        got = pa.flash_attention(qm, k, v, causal=True)
+        if pa.flash_fwd_sm90_launches != n90:
+            raise AssertionError(f"misaligned q {shape} took srt_flash_attn_fwd_sm90")
+        err = _max_err(torch, got, pa.flash_attention_reference(q, k, v, True)[0],
+                       dtype, f"srt_flash_attn_fwd misaligned q {shape}")
+        cases.append({"shape": list(shape[:4]), "dtype": dtype, "causal": True,
+                      "entry": "srt_flash_attn_fwd", "misaligned_q": True,
+                      "max_abs_err": err})
+    emit(4, name="attention_kernel", cases=cases, launches=pa.flash_fwd_launches,
+         sm90_launches=pa.flash_fwd_sm90_launches)
 
 
 def phase_attention_path(torch, dev):
@@ -626,7 +664,8 @@ def phase_attention_path(torch, dev):
     from sparkrdma_tpu_torch.ops import RingAttention, UlyssesAttention
     from sparkrdma_tpu_torch.ops import pallas_attention as pa
 
-    report, launches = {}, 0
+    report = {}
+    launches = dict.fromkeys(FWD_KERNELS, 0)
     for name, shape in ATTN_PATH_SHAPES.items():
         b, s, h, d, dtype, causal = shape
         q, k, v = _qkv(torch, dev, shape, 21)
@@ -646,23 +685,29 @@ def phase_attention_path(torch, dev):
         ring_out = RingAttention(1)(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ring_s = time.perf_counter() - t
-        n = pa.flash_fwd_launches
+        n, n90 = pa.flash_fwd_launches, pa.flash_fwd_sm90_launches
         peak = torch.cuda.max_memory_allocated()
         if n <= 0:
-            raise AssertionError(f"{name}: srt_flash_attn_fwd never launched")
+            raise AssertionError(f"{name}: the flash forward never launched")
+        # the bench shape (bf16, D 128) runs the tensor-core kernel only
+        if n90 != (n if _sm90_shape(shape) else 0):
+            raise AssertionError(f"{name}: {n90} of {n} forward launches on "
+                                 f"srt_flash_attn_fwd_sm90")
         errs = []
         for i, out in enumerate(outs):
             if out.shape != q.shape or out.dtype != q.dtype:
                 raise AssertionError(f"{name} call {i}: {out.shape} {out.dtype}")
             errs.append(_max_err(torch, out, want, dtype, f"{name} call {i}"))
         ring_err = _max_err(torch, ring_out, outs[0], dtype, f"{name} ring")
-        launches += n
+        launches["srt_flash_attn_fwd"] += n - n90
+        launches["srt_flash_attn_fwd_sm90"] += n90
         flops = 4 * b * h * d * (s * (s + 1) // 2 if causal else s * s)
         report[name] = {
             "shape": [b, s, h, d], "dtype": dtype, "causal": causal,
             "ulysses_call_s": walls, "ring_call_s": ring_s,
             "ulysses_tflops_warm": flops / min(walls[1:]) / 1e12,
-            "srt_flash_attn_fwd_launches": n, "peak_device_bytes": peak,
+            "flash_fwd_launches": n, "srt_flash_attn_fwd_sm90_launches": n90,
+            "peak_device_bytes": peak,
             "peak_above_baseline_bytes": peak - base,
             "max_abs_err_vs_plain": errs, "ring_vs_ulysses_max_abs_err": ring_err,
         }
@@ -671,10 +716,13 @@ def phase_attention_path(torch, dev):
 
 
 def time_flash_attention(torch, dev):
-    """srt_flash_attn_fwd at the serving path's two shapes: the C entry
-    point alone on prebuilt outputs, the plain version, and
-    ``scaled_dot_product_attention`` on [B, H, S, D] copies (a yardstick
-    the port never calls)."""
+    """The two forward kernels at the serving path's two shapes: each C
+    entry point alone on prebuilt outputs (``srt_flash_attn_fwd_sm90``
+    where the route rule sends the shape, ``srt_flash_attn_fwd`` at
+    both), the plain version, and ``scaled_dot_product_attention`` on
+    [B, H, S, D] copies (a yardstick the port never calls). Where both
+    kernels run one shape they are timed in turns, sm90, SIMT, SIMT,
+    sm90, and each reports the mean of its two readings."""
     from sparkrdma_tpu_torch.ops import _build
     from sparkrdma_tpu_torch.ops import pallas_attention as pa
 
@@ -685,15 +733,18 @@ def time_flash_attention(torch, dev):
     for name, shape in ATTN_PATH_SHAPES.items():
         b, s, h, d, dtype, causal = shape
         q, k, v = _qkv(torch, dev, shape, 21)
-        out = torch.empty_like(q)
         code = {"float32": 0, "bfloat16": 1}[dtype]
+        entries = (FWD_KERNELS[::-1] if _sm90_shape(shape) else FWD_KERNELS[:1])
+        outs = {e: torch.empty_like(q) for e in entries}
 
-        def raw():
-            rc = lib.srt_flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                        out.data_ptr(), None, b, s, h, d, code,
-                                        int(causal), stream)
-            if rc:
-                raise RuntimeError(f"srt_flash_attn_fwd launch failed ({rc})")
+        def raw(entry):
+            def call():
+                rc = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         outs[entry].data_ptr(), None, b, s, h, d,
+                                         code, int(causal), stream)
+                if rc:
+                    raise RuntimeError(f"{entry} launch failed ({rc})")
+            return call
 
         def plain():
             return pa.flash_attention_reference(q, k, v, causal)[0]
@@ -703,14 +754,18 @@ def time_flash_attention(torch, dev):
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
 
-        raw()
         want = plain()
+        for e in entries:
+            raw(e)()
         torch.cuda.synchronize()
-        err = _max_err(torch, out, want, dtype, f"timing {name}")
+        errs = {e: _max_err(torch, outs[e], want, dtype, f"timing {name} {e}")
+                for e in entries}
         # the yardstick's own accuracy is recorded, not gated
         lib_err = float((library().transpose(1, 2).float() - want.float())
                         .abs().max())
-        kernel_ms = event_ms_per_call(torch, raw, 20)
+        readings = {e: [] for e in entries}
+        for e in entries + entries[::-1]:
+            readings[e].append(event_ms_per_call(torch, raw(e), 20))
         plain_ms = event_ms_per_call(torch, plain, 5)
         library_ms = event_ms_per_call(torch, library, 20)
         item = q.element_size()
@@ -719,26 +774,42 @@ def time_flash_attention(torch, dev):
         peak = BF16_TENSOR_FLOPS if dtype == "bfloat16" else F32_FLOPS
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / peak * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        kernels = {}
+        for e in entries:
+            ms = sum(readings[e]) / len(readings[e])
+            kernels[e] = {"ms": ms, "ms_readings": readings[e], "max_abs_err": errs[e],
+                          "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
         rec[name] = {
             "shape": [b, s, h, d], "dtype": dtype, "causal": causal,
-            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "kernels": kernels, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_max_abs_err": lib_err,
-            "bound_ms": max(bytes_ms, ops_ms),
+            "library_tflops": flops / library_ms / 1e9,
+            "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "bytes": moved, "flops": flops, "peak_flops": peak,
-            "tflops": flops / kernel_ms / 1e9,
         }
-    head = rec["bench_bf16_causal"]
-    entry = {
-        "name": "srt_flash_attn_fwd", "route": "cuda",
-        "source": "sparkrdma_tpu_torch/ops/csrc/flash_attn_fwd.cu",
-        "replaces": "sparkrdma_tpu/ops/pallas_attention.py:189",
-        **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")},
-        "timer": "cuda_events", "shapes": rec,
-    }
-    emit("timing_attention", kernels=[entry])
-    return entry
+
+    def entry(kernel, source, shape_name):
+        head = rec[shape_name]
+        return {
+            "name": kernel, "route": "cuda", "source": source,
+            "replaces": "sparkrdma_tpu/ops/pallas_attention.py:189",
+            **{k: head["kernels"][kernel][k] for k in ("max_abs_err", "ms", "tflops")},
+            **{k: head[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "timer": "cuda_events", "shape_name": shape_name,
+        }
+
+    # each kernel's headline is the shape its main path gives it: the bench
+    # shape goes to the tensor-core kernel, the workload's f32 to SIMT
+    out = [entry("srt_flash_attn_fwd", "sparkrdma_tpu_torch/ops/csrc/flash_attn_fwd.cu",
+                 "workload_f32"),
+           entry("srt_flash_attn_fwd_sm90",
+                 "sparkrdma_tpu_torch/ops/csrc/flash_attn_fwd_sm90.cu",
+                 "bench_bf16_causal")]
+    emit("timing_attention", kernels=out, shapes=rec)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -970,8 +1041,10 @@ def phase_training_path(torch, dev):
     torch.cuda.synchronize()
     flash_s = time.perf_counter() - t0
     flash_launches = _flash_launches(pa)
-    if flash_launches != dict.fromkeys(FLASH_KERNELS, 1):
-        raise AssertionError(f"flash training step launches {flash_launches}")
+    flash_sm90 = pa.flash_fwd_sm90_launches
+    if flash_launches != dict.fromkeys(FLASH_KERNELS, 1) or flash_sm90 != 1:
+        raise AssertionError(f"flash training step launches {flash_launches}, "
+                             f"{flash_sm90} on srt_flash_attn_fwd_sm90")
     with torch.no_grad():
         out, lse = pa.flash_attention_fwd(q, k, v, True, want_lse=True)
         want = pa.flash_attention_bwd_reference(q, k, v, out, lse,
@@ -980,9 +1053,15 @@ def phase_training_path(torch, dev):
             for g, w, n in zip((q.grad, k.grad, v.grad), want, ("dq", "dk", "dv"))]
     flash = {"shape": list(shape[:4]), "dtype": "bfloat16", "causal": True,
              "step_s": flash_s, "launches": flash_launches,
+             "srt_flash_attn_fwd_sm90_launches": flash_sm90,
              "max_abs_err_vs_plain": {"dq": errs[0], "dk": errs[1], "dv": errs[2]}}
     emit(7, name="training_path", transformer_step=train, flash_train_step=flash)
-    return {k: launches[k] + flash_launches[k] for k in FLASH_KERNELS}
+    # per kernel: the workload's f32 steps ran SIMT, the flash step's
+    # forward the tensor-core kernel
+    out = {k: launches[k] + flash_launches[k] for k in FLASH_KERNELS}
+    out["srt_flash_attn_fwd"] -= flash_sm90
+    out["srt_flash_attn_fwd_sm90"] = flash_sm90
+    return out
 
 
 def _sdpa_backend(torch, fn):
@@ -1508,7 +1587,7 @@ def main():
     phase_terasort_step(torch, dev)
     phase_attention_kernel(torch, dev)
     serving = phase_attention_path(torch, dev)
-    kernels.append(time_flash_attention(torch, dev))
+    kernels.extend(time_flash_attention(torch, dev))
     phase_attention_bwd_kernel(torch, dev)
     training = phase_training_path(torch, dev)
     kernels.extend(time_flash_attention_bwd(torch, dev))
@@ -1516,7 +1595,8 @@ def main():
     spmd = phase_spmd_path(torch, dev)
     kernels.append(time_neighbor_pull(torch, dev))
     launches.update(training)
-    launches["srt_flash_attn_fwd"] += serving
+    for k, n in serving.items():
+        launches[k] += n
     launches["srt_neighbor_pull"] = spmd
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -9,8 +9,9 @@ wider meshes raise ``NotImplementedError`` until the multi-GPU slice.
 - ``attn="ring"``: the one-hop dense online softmax of the ring schedule,
   under plain autograd, with no kernel.
 - ``attn="ulysses"``: :func:`ulysses_shard_attention`, whose full-sequence
-  attention is the flash kernel: ``srt_flash_attn_fwd`` forward, and
-  ``srt_flash_attn_bwd_dq`` / ``srt_flash_attn_bwd_dkv`` backward.
+  attention is the flash kernel: ``srt_flash_attn_fwd`` forward for the
+  fp32 step (bf16 with D 64 or 128 would take ``srt_flash_attn_fwd_sm90``),
+  and ``srt_flash_attn_bwd_dq`` / ``srt_flash_attn_bwd_dkv`` backward.
 
 Parameters keep the JAX shapes (``[d_in, d_out]``, used as ``x @ w``),
 so weights carry across without a transpose (``convert.params_from_jax``).

@@ -8,10 +8,15 @@ and its FlashAttention-2 backward, which re-materialises the
 probability tiles from ``(q, k, lse)``.
 
 - ``flash_attention`` / ``flash_attention_fwd``: on CUDA tensors one
-  launch of the hand-written kernel of ``csrc/flash_attn_fwd.cu``
-  (``srt_flash_attn_fwd``) on the current stream, not waited on; on CPU
-  tensors :func:`flash_attention_reference`, the plain version. A kernel
-  that does not build or launch raises; nothing falls back.
+  launch of a hand-written forward kernel on the current stream, not
+  waited on; on CPU tensors :func:`flash_attention_reference`, the plain
+  version. The kernel is picked before the launch by :func:`fwd_entry`,
+  a pure function of dtype, head dim and alignment: bf16 with D 64 or
+  128 and 16-byte-aligned q/k/v/out takes the tensor-core kernel of
+  ``csrc/flash_attn_fwd_sm90.cu`` (``srt_flash_attn_fwd_sm90``: wgmma +
+  TMA), everything else the kernel of ``csrc/flash_attn_fwd.cu``
+  (``srt_flash_attn_fwd``: f32 FMA). A kernel that does not build or
+  launch raises; nothing retries on the other kernel or falls back.
 - ``flash_attention_bwd``: on CUDA tensors one launch each of
   ``srt_flash_attn_bwd_dq`` and ``srt_flash_attn_bwd_dkv``
   (``csrc/flash_attn_bwd.cu``); on CPU tensors
@@ -20,12 +25,17 @@ probability tiles from ``(q, k, lse)``.
   that requires grad it runs :class:`_FlashAttention`, the counterpart of
   the JAX ``custom_vjp`` (the forward with lse, then the two backward
   kernels). Inference keeps the forward without lse.
-- fp32 inputs are computed in full fp32 (the JAX ``HIGHEST``); bf16
-  inputs are widened to f32 inside, as the JAX kernel bodies do, and the
-  outputs are rounded back to the input dtype.
+- fp32 inputs are computed in full fp32 (the JAX ``HIGHEST``). bf16
+  inputs on the tensor-core forward compute as the JAX kernel does at
+  its bf16 ``precision=DEFAULT`` (one bf16 MXU pass a product): q.k^T
+  from bf16 operands into f32, ``p`` rounded to bf16 before p.v into
+  f32, ``l`` from the f32 ``p``. The other bf16 kernels widen to f32
+  inside. Outputs are rounded back to the input dtype.
 
-Every launch adds one to its kernel's counter: ``flash_fwd_launches``,
-``flash_bwd_dq_launches``, ``flash_bwd_dkv_launches``.
+Every launch adds one to its kernel's counter: ``flash_fwd_launches``
+(every forward launch, on either kernel), ``flash_fwd_sm90_launches``
+(those of ``srt_flash_attn_fwd_sm90``), ``flash_bwd_dq_launches``,
+``flash_bwd_dkv_launches``.
 """
 
 from __future__ import annotations
@@ -38,16 +48,20 @@ import torch
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256  # the largest D the CUDA kernels take
+SM90_HEAD_DIMS = (64, 128)  # the head dims the tensor-core forward takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 flash_fwd_launches = 0
+flash_fwd_sm90_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 
 
 def reset_launch_counts() -> None:
-    global flash_fwd_launches, flash_bwd_dq_launches, flash_bwd_dkv_launches
+    global flash_fwd_launches, flash_fwd_sm90_launches
+    global flash_bwd_dq_launches, flash_bwd_dkv_launches
     flash_fwd_launches = 0
+    flash_fwd_sm90_launches = 0
     flash_bwd_dq_launches = 0
     flash_bwd_dkv_launches = 0
 
@@ -235,11 +249,23 @@ def _kernel_path(q: torch.Tensor) -> bool:
     return q.device.type == "cuda"
 
 
+def fwd_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor) -> str:
+    """The C entry point a CUDA forward launches: the tensor-core
+    ``srt_flash_attn_fwd_sm90`` for bf16 with D in :data:`SM90_HEAD_DIMS`
+    and q, k, v and out on 16-byte boundaries (its TMA loads and 16-byte
+    stores need them), else ``srt_flash_attn_fwd``."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in SM90_HEAD_DIMS
+            and all(x.data_ptr() % 16 == 0 for x in (q, k, v, out))):
+        return "srt_flash_attn_fwd_sm90"
+    return "srt_flash_attn_fwd"
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             want_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     from sparkrdma_tpu_torch.ops import _build
 
-    global flash_fwd_launches
+    global flash_fwd_launches, flash_fwd_sm90_launches
     b, s, h, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(
@@ -251,19 +277,22 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
            if want_lse else None)
     if q.numel() == 0:
         return out, lse
+    name = fwd_entry(q, k, v, out)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.srt_flash_attn_fwd(
+        rc = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             b, s, h, d, _DTYPE_CODE[q.dtype], int(bool(causal)), stream,
         )
     if rc != 0:
         raise RuntimeError(
-            f"srt_flash_attn_fwd launch failed: "
+            f"{name} launch failed: "
             f"{lib.srt_error_string(rc).decode()} ({rc})"
         )
     flash_fwd_launches += 1
+    if name == "srt_flash_attn_fwd_sm90":
+        flash_fwd_sm90_launches += 1
     return out, lse
 
 
@@ -276,9 +305,9 @@ def flash_attention_fwd(
     None)``; ``lse[b, h, s]`` is the row's logsumexp of the scaled,
     masked scores.
 
-    CUDA tensors: one ``srt_flash_attn_fwd`` launch (D <= 256). The
-    kernel picks its own tiles; ``block_q``/``block_k`` are validated and
-    set only the plain version's blocking. A strided (non-contiguous)
+    CUDA tensors: one launch (D <= 256) of the kernel :func:`fwd_entry`
+    names. The kernel picks its own tiles; ``block_q``/``block_k`` are
+    validated and set only the plain version's blocking. A strided (non-contiguous)
     input is copied with ``.contiguous()`` first. CPU tensors: the plain
     version :func:`flash_attention_reference`."""
     _check(q, k, v, block_q, block_k)

@@ -9,6 +9,7 @@ at 1.0 is 2^-7)."""
 
 import contextlib
 import ctypes
+import math
 import types
 
 import jax
@@ -157,16 +158,25 @@ def test_input_checks(bad):
 # the CUDA route, reached on the CPU by forcing the kernel path
 # ----------------------------------------------------------------------
 class _FakeLib:
-    """Stands in for the built library: records the launch arguments and
-    returns ``rc``."""
+    """Stands in for the built library: records each launch's entry point
+    and arguments and returns ``rc`` (``rc_sm90`` for the tensor-core
+    entry, ``rc`` unless given)."""
 
-    def __init__(self, rc):
+    def __init__(self, rc, rc_sm90=None):
         self.rc = rc
+        self.rc_sm90 = rc if rc_sm90 is None else rc_sm90
         self.calls = []
+        self.entries = []
 
     def srt_flash_attn_fwd(self, *args):
         self.calls.append(args)
+        self.entries.append("srt_flash_attn_fwd")
         return self.rc
+
+    def srt_flash_attn_fwd_sm90(self, *args):
+        self.calls.append(args)
+        self.entries.append("srt_flash_attn_fwd_sm90")
+        return self.rc_sm90
 
     def srt_error_string(self, rc):
         return b"invalid argument"
@@ -237,11 +247,139 @@ def test_head_dim_above_the_kernel_maximum_raises(kernel_path):
 
 def test_binding_passes_pointers_as_void_p():
     fns = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-           "srt_flash_attn_fwd", "srt_flash_attn_bwd_dq",
-           "srt_flash_attn_bwd_dkv", "srt_error_string")
+           "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90",
+           "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
+           "srt_error_string")
     lib = _build._bind(types.SimpleNamespace(
         **{f: types.SimpleNamespace() for f in fns}))
-    fa = lib.srt_flash_attn_fwd
-    assert fa.argtypes[:5] == [ctypes.c_void_p] * 5
-    assert fa.argtypes[5:11] == [ctypes.c_longlong] * 6
-    assert fa.argtypes[11] is ctypes.c_void_p and fa.restype is ctypes.c_int
+    for fa in (lib.srt_flash_attn_fwd, lib.srt_flash_attn_fwd_sm90):
+        assert fa.argtypes[:5] == [ctypes.c_void_p] * 5
+        assert fa.argtypes[5:11] == [ctypes.c_longlong] * 6
+        assert fa.argtypes[11] is ctypes.c_void_p and len(fa.argtypes) == 12
+        assert fa.restype is ctypes.c_int
+
+
+# ----------------------------------------------------------------------
+# the route between the two forward kernels, chosen before the launch
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("want_lse", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_route_takes_the_tensor_core_kernel(kernel_path, d, causal, want_lse):
+    """bf16 with D 64 or 128 on 16-byte boundaries reaches
+    srt_flash_attn_fwd_sm90 with srt_flash_attn_fwd's argument tuple and
+    raises both counters by one."""
+    lib = _FakeLib(0)
+    kernel_path(lambda: lib)
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(2, 24, 3, d, 8))
+    tpa.reset_launch_counts()
+    out, lse = tpa.flash_attention_fwd(q, k, v, causal, want_lse=want_lse)
+    assert lib.entries == ["srt_flash_attn_fwd_sm90"]
+    (args,) = lib.calls
+    assert args == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr() if want_lse else None, 2, 24, 3, d, 1,
+                    int(causal), 77)
+    assert out.dtype == torch.bfloat16 and (lse is not None) == want_lse
+    assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches) == (1, 1)
+
+
+@pytest.mark.parametrize("case", ["fp32", "bf16_d20", "bf16_misaligned_q"])
+def test_other_inputs_take_the_simt_kernel(kernel_path, case):
+    """fp32 (the JAX HIGHEST), other head dims and a q off its 16-byte
+    boundary go to srt_flash_attn_fwd; the sm90 counter stays at 0."""
+    lib = _FakeLib(0)
+    kernel_path(lambda: lib)
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    d = 20 if case == "bf16_d20" else 64
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in _inputs(1, 16, 2, d, 9))
+    if case == "bf16_misaligned_q":  # one element (2 bytes) past the boundary
+        qm = torch.empty(q.numel() + 1, dtype=dtype)[1:].view_as(q)
+        qm.copy_(q)
+        q = qm
+        assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    tpa.reset_launch_counts()
+    out, _ = tpa.flash_attention_fwd(q, k, v, True)
+    assert lib.entries == ["srt_flash_attn_fwd"]
+    assert lib.calls[0][0] == q.data_ptr()  # the view itself, not a copy
+    assert tpa.fwd_entry(q, k, v, out) == "srt_flash_attn_fwd"
+    assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches) == (1, 0)
+
+
+def test_tensor_core_kernel_errors_raise_without_retry(kernel_path):
+    """A nonzero return from the sm90 entry raises; nothing retries on
+    the SIMT kernel or falls back to the plain version."""
+    lib = _FakeLib(0, rc_sm90=1)
+    kernel_path(lambda: lib)
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _inputs(1, 16, 2, 64, 10))
+    tpa.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="srt_flash_attn_fwd_sm90 launch failed"):
+        tpa.flash_attention(q, k, v, causal=True)
+    assert lib.entries == ["srt_flash_attn_fwd_sm90"]
+    assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches) == (0, 0)
+
+
+# ----------------------------------------------------------------------
+# the tensor-core kernel's arithmetic against the TPU kernel
+# ----------------------------------------------------------------------
+def _sm90_emulation(q, k, v, causal):
+    """srt_flash_attn_fwd_sm90's arithmetic in torch (f32 on the CPU):
+    128-row q tiles over 128-key kv tiles in ascending order, stopping
+    after the last live one; scores from the bf16 operands into f32, in
+    base 2 (scale * log2 e folded in); p rounded to bf16 before p.v; l
+    summed from the f32 p. q, k, v: [B, S, H, D] bf16. Returns (out bf16
+    [B, S, H, D], lse f32 [B, H, S])."""
+    b, s, h, d = q.shape
+    c = torch.tensor(math.log2(math.e) / math.sqrt(d), dtype=torch.float32)
+    qt, kt, vt = (x.permute(0, 2, 1, 3).float() for x in (q, k, v))
+    out = torch.empty((b, h, s, d))
+    lse = torch.empty((b, h, s))
+    for q0 in range(0, s, 128):
+        qb = qt[:, :, q0:q0 + 128]
+        rows = q0 + torch.arange(qb.shape[2])[:, None]
+        m = torch.full(qb.shape[:3], tpa.NEG_INF)
+        l = torch.zeros(qb.shape[:3])
+        acc = torch.zeros(qb.shape)
+        n_tiles = -(-s // 128)
+        if causal:
+            n_tiles = min(n_tiles, q0 // 128 + 1)
+        for k0 in range(0, 128 * n_tiles, 128):
+            kb, vb = kt[:, :, k0:k0 + 128], vt[:, :, k0:k0 + 128]
+            x = torch.matmul(qb, kb.transpose(-1, -2)) * c
+            if causal:
+                cols = k0 + torch.arange(kb.shape[2])[None, :]
+                x = torch.where(rows >= cols, x, tpa.NEG_INF)
+            m_new = torch.maximum(m, x.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.matmul(p.bfloat16().float(), vb)
+            m = m_new
+        denom = torch.where(l > 0, l, 1.0)
+        out[:, :, q0:q0 + 128] = acc / denom[..., None]
+        lse[:, :, q0:q0 + 128] = torch.where(
+            l > 0, m * math.log(2) + torch.log(denom), -tpa.NEG_INF)
+    return out.permute(0, 2, 1, 3).bfloat16(), lse
+
+
+@pytest.mark.parametrize("b,s,h,d,causal", [(2, 300, 2, 128, True),
+                                            (1, 257, 3, 64, False)])
+def test_tensor_core_numerics_match_jax_kernel(b, s, h, d, causal):
+    """bf16 p before p.v is the TPU kernel's own rounding at its bf16
+    precision=DEFAULT; here the emulated kernel is held against the Pallas
+    kernel in interpret mode (f32 throughout, the more precise of the two
+    references) at BF16_TOL for out and LSE_TOL for lse, and against the
+    port's plain version at the tolerance chip_smoke.py holds the kernel
+    to."""
+    arrays = _inputs(b, s, h, d, seed=s + d)
+    want, want_lse = _jax_fwd(arrays, causal, 512, 512, jnp.bfloat16)
+    q, k, v = (torch.tensor(x).to(torch.bfloat16) for x in arrays)
+    out, lse = _sm90_emulation(q, k, v, causal)
+    np.testing.assert_allclose(out.float().numpy(), want, **BF16_TOL)
+    np.testing.assert_allclose(lse.numpy(),
+                               _jax_lse(want_lse, b, h, s, 512, 512), **LSE_TOL)
+    plain, plain_lse = tpa.flash_attention_reference(q, k, v, causal, want_lse=True)
+    np.testing.assert_allclose(out.float().numpy(), plain.float().numpy(), **BF16_TOL)
+    np.testing.assert_allclose(lse.numpy(), plain_lse.numpy(), **LSE_TOL)
+    # the rounding of p is in effect: the output is not the f32-p one
+    assert not torch.equal(out, plain)

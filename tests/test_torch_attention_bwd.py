@@ -303,8 +303,9 @@ def test_bwd_head_dim_above_the_kernel_maximum_raises(kernel_path):
 
 def test_binding_declares_bwd_pointers_void_p():
     fns = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-           "srt_flash_attn_fwd", "srt_flash_attn_bwd_dq",
-           "srt_flash_attn_bwd_dkv", "srt_error_string")
+           "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90",
+           "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
+           "srt_error_string")
     lib = _build._bind(types.SimpleNamespace(
         **{f: types.SimpleNamespace() for f in fns}))
     for name, n_ptr in (("srt_flash_attn_bwd_dq", 7), ("srt_flash_attn_bwd_dkv", 8)):

@@ -188,8 +188,9 @@ def test_zero_byte_shards_launch_nothing(kernel_path):
 
 def test_binding_declares_neighbor_pull():
     fns = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-           "srt_flash_attn_fwd", "srt_flash_attn_bwd_dq",
-           "srt_flash_attn_bwd_dkv", "srt_error_string")
+           "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90",
+           "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
+           "srt_error_string")
     lib = _build._bind(types.SimpleNamespace(
         **{f: types.SimpleNamespace() for f in fns}))
     fn = lib.srt_neighbor_pull

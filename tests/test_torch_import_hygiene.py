@@ -24,7 +24,8 @@ FORBIDDEN = re.compile(
 
 
 def _port_sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("*.py")))
 
 
 def test_importing_every_port_module_loads_no_jax():
