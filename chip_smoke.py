@@ -28,7 +28,8 @@ exits nonzero and prints no result. Phases, each one JSON line:
    ``srt_flash_attn_fwd_sm90`` on ten bf16 shapes, D 64 and 128, S 1,
    77, 130, 1000 and 4096, causal and not, B and H above 1, each
    asserted to have gone through it (two launches a shape) and the
-   misaligned q's asserted not to;
+   misaligned q's asserted not to; two float16 shapes on
+   ``srt_flash_attn_fwd`` at the bf16 tolerance;
 5. ``attention_path``: the attention serving path through its public
    entry points at the repo's two full widths (bench.py's B4 S2048 H8
    D128 bf16 causal, the transformer workload's B4 S2048 H8 D64 fp32
@@ -37,11 +38,19 @@ exits nonzero and prints no result. Phases, each one JSON line:
    per-call wall, flash launches (every bench-shape launch on
    ``srt_flash_attn_fwd_sm90``, none of the workload's) and peak device
    memory;
-6. ``attention_bwd_kernel``: ``srt_flash_attn_bwd_dq`` and
-   ``srt_flash_attn_bwd_dkv`` against the plain backward
-   (``flash_attention_bwd_reference`` on the card) over nine shapes, f32
-   and bf16, causal and not, S from 1 to 2048, D from 4 to 256, plus a
-   misaligned ``do`` (fp32 rtol 2e-4 / atol 2e-5, bf16 1e-2 / 1e-2);
+6. ``attention_bwd_kernel``: both backward pairs against the plain
+   backward (``flash_attention_bwd_reference`` on the card; fp32 rtol
+   2e-4 / atol 2e-5, bf16 and float16 1e-2 / 1e-2), each case asserted
+   to have gone through the pair the route rule names. The SIMT pair
+   (``srt_flash_attn_bwd_dq``, ``srt_flash_attn_bwd_dkv``): f32, bf16
+   with D 20 and 256, float16, S from 1 to 2048, D from 4 to 256, and a
+   misaligned ``do`` in f32 and in bf16 D 128. The tensor-core pair
+   (``srt_flash_attn_bwd_dq_sm90``, ``srt_flash_attn_bwd_dkv_sm90``):
+   twelve bf16 shapes, D 64 and 128, causal and not, S 1, 77, 96, 129,
+   1000 and 2048, B and H above 1, each also held against its own plain
+   version (``flash_attention_bwd_sm90_reference``, the same bf16
+   roundings of p and ds) within one bf16 step of the output (2^-7
+   relative) plus 1e-3, the summation order's share;
 7. ``training_path``: ``TransformerStep(attn="ulysses")`` at the
    transformer workload's full width (``benchmarks/run_workloads.py``
    ``bench_transformer_train``: B4 S2048, d_model 512, 8 heads, d_hidden
@@ -54,9 +63,11 @@ exits nonzero and prints no result. Phases, each one JSON line:
    at most 1.01 x the first; per-step wall, kernel launches per step,
    the kernels' share of a profiled step and peak device memory. Then
    bench.py's flash training step (B4 S2048 H8 D128 bf16 causal,
-   ``flash_attention(...).float().sum()`` backward; its forward, with
-   the lse, on ``srt_flash_attn_fwd_sm90``), its gradients held against
-   the plain backward;
+   ``flash_attention(...).float().sum()`` backward: one launch each of
+   ``srt_flash_attn_fwd_sm90`` (with the lse),
+   ``srt_flash_attn_bwd_dq_sm90`` and ``srt_flash_attn_bwd_dkv_sm90``,
+   and none of the SIMT kernels), its gradients held against both plain
+   backwards as in phase 6;
 8. ``neighbor_pull_kernel``: ``srt_neighbor_pull`` against its plain
    version (``torch.roll``) byte for byte over 24 stacks: n 1, 2, 3 and
    8; shards of 1, 15, 4097 and 64 KiB + 3 bytes up to 128 MiB; uint8,
@@ -79,7 +90,11 @@ Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, where one
 PyTorch call computes the same function, its time as a yardstick:
 ``scaled_dot_product_attention`` forward and backward, ``torch.roll``;
-at the bench shape both forward kernels, in turns),
+at the bench shape both forward kernels, in turns, and both backward
+pairs), ``second_device`` (bf16 B1 S256 H2 D128, launches above 48 KiB
+of shared memory, through every flash entry point on ``cuda:1`` after
+``cuda:0``, when there are two devices; with one it prints that it was
+skipped and why),
 the card's name and power limit again, the kernels line (launches on
 the main paths), and last ``{"ok": true, "device": ...}``. f32 matrix
 products run in full f32 (TF32 off). Any failed check raises and the
@@ -549,7 +564,7 @@ def phase_terasort_step(torch, dev):
 # ----------------------------------------------------------------------
 # attention: the flash forward kernel and the serving path above it
 # ----------------------------------------------------------------------
-TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}
+TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2), "float16": (1e-2, 1e-2)}
 LSE_ATOL = 1e-4
 # (B, S, H, D, dtype, causal)
 ATTN_KERNEL_SHAPES = [
@@ -572,6 +587,9 @@ ATTN_KERNEL_SHAPES = [
     (2, 1000, 2, 128, "bfloat16", False),
     (1, 4096, 2, 64, "bfloat16", False),
     (1, 4096, 4, 128, "bfloat16", True),
+    # float16: the SIMT kernel, held at the bf16 tolerance
+    (1, 77, 2, 64, "float16", True),
+    (2, 130, 3, 128, "float16", False),
 ]
 # bench.py's flash headline; the transformer workload's attention
 ATTN_PATH_SHAPES = {
@@ -588,8 +606,8 @@ def _qkv(torch, dev, shape, seed):
             .to(getattr(torch, dtype)).to(dev) for _ in range(3)]
 
 
-def _max_err(torch, got, want, dtype, what):
-    rtol, atol = TOL[dtype]
+def _max_err(torch, got, want, dtype, what, tol=None):
+    rtol, atol = tol or TOL[dtype]
     g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
         raise AssertionError(f"{what}: non-finite values")
@@ -827,7 +845,28 @@ ATTN_BWD_SHAPES = [
     # D not a multiple of the 16-byte vector: the kernels' scalar loads
     (1, 77, 2, 6, "float32", True),
     (1, 130, 3, 20, "bfloat16", False),
+    # bf16 with D 64 or 128: the tensor-core pair, srt_flash_attn_bwd_*_sm90
+    (1, 1, 1, 64, "bfloat16", True),
+    (2, 77, 2, 64, "bfloat16", True),
+    (2, 77, 3, 128, "bfloat16", False),
+    (3, 129, 2, 64, "bfloat16", False),
+    (1, 129, 2, 128, "bfloat16", True),
+    (2, 1000, 3, 64, "bfloat16", True),
+    (2, 1000, 2, 128, "bfloat16", False),
+    (1, 1000, 4, 128, "bfloat16", True),
+    (1, 2048, 2, 64, "bfloat16", False),
+    (2, 2048, 2, 128, "bfloat16", True),
+    # float16: the SIMT pair, held at the bf16 tolerance
+    (1, 77, 2, 64, "float16", True),
+    (2, 130, 2, 128, "float16", False),
 ]
+# The tensor-core pair against its own plain version (the same bf16
+# roundings of p and ds): the two differ only in the order of the f32
+# sums, and a p or ds that lands on the other side of a bf16 rounding
+# boundary. That is one bf16 step of the output (2^-7 relative) plus 1e-3.
+SM90_BWD_TOL = (2.0 ** -7, 1e-3)
+BWD_KERNELS = ("srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
+               "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90")
 # bench_transformer_train's widths (benchmarks/run_workloads.py)
 TRAIN = {"b": 4, "s": 2048, "heads": 8, "d_model": 512, "d_hidden": 2048,
          "lr": 0.01, "steps_after_first": 9}
@@ -839,9 +878,21 @@ FLASH_KERNELS = ("srt_flash_attn_fwd", "srt_flash_attn_bwd_dq",
 
 
 def _flash_launches(pa):
-    return {"srt_flash_attn_fwd": pa.flash_fwd_launches,
-            "srt_flash_attn_bwd_dq": pa.flash_bwd_dq_launches,
-            "srt_flash_attn_bwd_dkv": pa.flash_bwd_dkv_launches}
+    """Launches per C entry point since the last reset: the SIMT kernels'
+    counts are the wrappers' totals less the tensor-core kernels'."""
+    return {"srt_flash_attn_fwd": pa.flash_fwd_launches - pa.flash_fwd_sm90_launches,
+            "srt_flash_attn_fwd_sm90": pa.flash_fwd_sm90_launches,
+            "srt_flash_attn_bwd_dq": pa.flash_bwd_dq_launches - pa.flash_bwd_dq_sm90_launches,
+            "srt_flash_attn_bwd_dkv": (pa.flash_bwd_dkv_launches
+                                       - pa.flash_bwd_dkv_sm90_launches),
+            "srt_flash_attn_bwd_dq_sm90": pa.flash_bwd_dq_sm90_launches,
+            "srt_flash_attn_bwd_dkv_sm90": pa.flash_bwd_dkv_sm90_launches}
+
+
+def _bwd_errs(torch, got, want, dtype, what, tol=None):
+    errs = [_max_err(torch, g, w, dtype, f"{n} {what}", tol)
+            for g, w, n in zip(got, want, ("dq", "dk", "dv"))]
+    return dict(zip(("dq", "dk", "dv"), errs))
 
 
 def _bwd_inputs(torch, dev, shape, seed):
@@ -855,34 +906,53 @@ def _bwd_inputs(torch, dev, shape, seed):
 
 
 def phase_attention_bwd_kernel(torch, dev):
+    """Both backward pairs against the plain backward, each case asserted
+    to have gone through the pair the route rule names; the tensor-core
+    pair also against its own plain version (SM90_BWD_TOL)."""
     from sparkrdma_tpu_torch.ops import pallas_attention as pa
 
     cases = []
     for i, shape in enumerate(ATTN_BWD_SHAPES):
         b, s, h, d, dtype, causal = shape
+        sm90 = _sm90_shape(shape)
         q, k, v, do, out, lse = _bwd_inputs(torch, dev, shape, 200 + i)
         want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+        n90 = (pa.flash_bwd_dq_sm90_launches, pa.flash_bwd_dkv_sm90_launches)
         got = pa.flash_attention_bwd(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
-        errs = [_max_err(torch, g, w, dtype, f"{n} {shape}")
-                for g, w, n in zip(got, want, ("dq", "dk", "dv"))]
-        cases.append({"shape": [b, s, h, d], "dtype": dtype, "causal": causal,
-                      "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]}})
-    # a do 4 bytes past a 16-byte boundary: the scalar loads again
-    shape = (1, 129, 2, 64, "float32", True)
-    q, k, v, do, out, lse = _bwd_inputs(torch, dev, shape, 199)
-    dom = torch.empty(do.numel() + 1, dtype=do.dtype, device=dev)[1:].view_as(do)
-    dom.copy_(do)
-    want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
-    got = pa.flash_attention_bwd(q, k, v, out, lse, dom, True)
-    errs = [_max_err(torch, g, w, "float32", f"{n} misaligned do")
-            for g, w, n in zip(got, want, ("dq", "dk", "dv"))]
-    cases.append({"shape": list(shape[:4]), "dtype": "float32", "causal": True,
-                  "misaligned_do": True,
-                  "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]}})
+        took = (pa.flash_bwd_dq_sm90_launches - n90[0], pa.flash_bwd_dkv_sm90_launches - n90[1])
+        entry = BWD_KERNELS[2:] if sm90 else BWD_KERNELS[:2]
+        if took != ((1, 1) if sm90 else (0, 0)):
+            raise AssertionError(f"{shape}: {took} tensor-core launches, expected {entry}")
+        case = {"shape": [b, s, h, d], "dtype": dtype, "causal": causal,
+                "entry": list(entry),
+                "max_abs_err": _bwd_errs(torch, got, want, dtype, str(shape))}
+        if sm90:
+            own = pa.flash_attention_bwd_sm90_reference(q, k, v, out, lse, do, causal)
+            case["max_abs_err_vs_sm90_plain"] = _bwd_errs(
+                torch, got, own, dtype, f"{shape} vs the sm90 plain version", SM90_BWD_TOL)
+        cases.append(case)
+    # off a 16-byte boundary: a do 4 bytes past it (f32, the scalar loads
+    # again), and a bf16 D 128 do 2 bytes past it (the SIMT bf16 pair)
+    for shape in ((1, 129, 2, 64, "float32", True), (2, 300, 2, 128, "bfloat16", True)):
+        dtype = shape[4]
+        q, k, v, do, out, lse = _bwd_inputs(torch, dev, shape, 199)
+        dom = torch.empty(do.numel() + 1, dtype=do.dtype, device=dev)[1:].view_as(do)
+        dom.copy_(do)
+        want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
+        n90 = pa.flash_bwd_dq_sm90_launches + pa.flash_bwd_dkv_sm90_launches
+        got = pa.flash_attention_bwd(q, k, v, out, lse, dom, True)
+        if pa.flash_bwd_dq_sm90_launches + pa.flash_bwd_dkv_sm90_launches != n90:
+            raise AssertionError(f"misaligned do {shape} took the tensor-core pair")
+        cases.append({"shape": list(shape[:4]), "dtype": dtype, "causal": True,
+                      "misaligned_do": True, "entry": list(BWD_KERNELS[:2]),
+                      "max_abs_err": _bwd_errs(torch, got, want, dtype,
+                                               f"misaligned do {shape}")})
     emit(6, name="attention_bwd_kernel", cases=cases,
          launches={"srt_flash_attn_bwd_dq": pa.flash_bwd_dq_launches,
-                   "srt_flash_attn_bwd_dkv": pa.flash_bwd_dkv_launches})
+                   "srt_flash_attn_bwd_dkv": pa.flash_bwd_dkv_launches,
+                   "srt_flash_attn_bwd_dq_sm90": pa.flash_bwd_dq_sm90_launches,
+                   "srt_flash_attn_bwd_dkv_sm90": pa.flash_bwd_dkv_sm90_launches})
 
 
 def _train_data(torch, dev):
@@ -963,8 +1033,9 @@ def phase_training_path(torch, dev):
     launches = _flash_launches(pa)
     peak = torch.cuda.max_memory_allocated()
     n_steps = 1 + t["steps_after_first"]
-    if after_step1 != dict.fromkeys(FLASH_KERNELS, 1) or launches != dict.fromkeys(
-            FLASH_KERNELS, n_steps):
+    # f32: the SIMT kernels only, one launch each a step
+    simt = {k: int(k in FLASH_KERNELS) for k in launches}
+    if after_step1 != simt or launches != {k: n * n_steps for k, n in simt.items()}:
         raise AssertionError(f"launches not 1/1/1 a step: {after_step1}, {launches}")
     l1, lk = float(loss1), float(loss_k)
     if not (np.isfinite(lk) and lk <= l1 * 1.01):
@@ -1041,27 +1112,40 @@ def phase_training_path(torch, dev):
     torch.cuda.synchronize()
     flash_s = time.perf_counter() - t0
     flash_launches = _flash_launches(pa)
-    flash_sm90 = pa.flash_fwd_sm90_launches
-    if flash_launches != dict.fromkeys(FLASH_KERNELS, 1) or flash_sm90 != 1:
-        raise AssertionError(f"flash training step launches {flash_launches}, "
-                             f"{flash_sm90} on srt_flash_attn_fwd_sm90")
+    # bf16 D 128: the tensor-core kernels only, one launch each
+    want_launches = {k: int(k.endswith("_sm90")) for k in flash_launches}
+    if flash_launches != want_launches:
+        raise AssertionError(f"flash training step launches {flash_launches}")
     with torch.no_grad():
         out, lse = pa.flash_attention_fwd(q, k, v, True, want_lse=True)
-        want = pa.flash_attention_bwd_reference(q, k, v, out, lse,
-                                                torch.ones_like(out), True)
-    errs = [_max_err(torch, g, w, "bfloat16", f"flash training step {n}")
-            for g, w, n in zip((q.grad, k.grad, v.grad), want, ("dq", "dk", "dv"))]
+        ones = torch.ones_like(out)
+        want = pa.flash_attention_bwd_reference(q, k, v, out, lse, ones, True)
+        own = pa.flash_attention_bwd_sm90_reference(q, k, v, out, lse, ones, True)
+    grads = (q.grad, k.grad, v.grad)
+
+    def flash_step():
+        for x_ in (q, k, v):
+            x_.grad = None
+        pa.flash_attention(q, k, v, causal=True).float().sum().backward()
+
+    warm_s = []  # after the checks, so the launch counts above hold the main path alone
+    for _ in range(5):
+        t0 = time.perf_counter()
+        flash_step()
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
     flash = {"shape": list(shape[:4]), "dtype": "bfloat16", "causal": True,
-             "step_s": flash_s, "launches": flash_launches,
-             "srt_flash_attn_fwd_sm90_launches": flash_sm90,
-             "max_abs_err_vs_plain": {"dq": errs[0], "dk": errs[1], "dv": errs[2]}}
+             "step_s": flash_s, "step_s_warm": warm_s,
+             "profiled_step": _profiled(torch, flash_step), "launches": flash_launches,
+             "max_abs_err_vs_plain": _bwd_errs(torch, grads, want, "bfloat16",
+                                               "flash training step"),
+             "max_abs_err_vs_sm90_plain": _bwd_errs(
+                 torch, grads, own, "bfloat16",
+                 "flash training step vs the sm90 plain version", SM90_BWD_TOL)}
     emit(7, name="training_path", transformer_step=train, flash_train_step=flash)
-    # per kernel: the workload's f32 steps ran SIMT, the flash step's
-    # forward the tensor-core kernel
-    out = {k: launches[k] + flash_launches[k] for k in FLASH_KERNELS}
-    out["srt_flash_attn_fwd"] -= flash_sm90
-    out["srt_flash_attn_fwd_sm90"] = flash_sm90
-    return out
+    # per kernel: the workload's f32 steps ran SIMT, the flash step the
+    # tensor-core kernels
+    return {k: launches[k] + flash_launches[k] for k in launches}
 
 
 def _sdpa_backend(torch, fn):
@@ -1087,9 +1171,12 @@ def _sdpa_backend(torch, fn):
 
 
 def time_flash_attention_bwd(torch, dev):
-    """srt_flash_attn_bwd_dq and _dkv at the training path's two shapes:
-    each C entry point alone on prebuilt inputs, each sweep of the plain
-    backward, and ``scaled_dot_product_attention``'s backward (forward +
+    """The backward kernels at the training path's two shapes: each C
+    entry point alone on prebuilt inputs (the SIMT pair at both shapes,
+    the tensor-core pair where the route rule sends the shape), each
+    sweep of its plain version (``pa._bwd_reference(..., sweeps=...)``,
+    with the bf16 roundings for the tensor-core pair), and
+    ``scaled_dot_product_attention``'s backward (forward +
     ``autograd.grad``, less the forward) on [B, H, S, D] copies, a
     yardstick the port never calls, for dq and dk/dv together."""
     from sparkrdma_tpu_torch.ops import _build
@@ -1098,32 +1185,41 @@ def time_flash_attention_bwd(torch, dev):
     F = torch.nn.functional
     lib = _build.load()
     stream = torch.cuda.current_stream().cuda_stream
-    rec = {"srt_flash_attn_bwd_dq": {}, "srt_flash_attn_bwd_dkv": {}}
+    rec = {k: {} for k in BWD_KERNELS}
     for name, shape in ATTN_PATH_SHAPES.items():
         b, s, h, d, dtype, causal = shape
         q, k, v, do, out, lse = _bwd_inputs(torch, dev, shape, 41)
         delta = torch.einsum("bshd,bshd->bhs", do.float(), out.float()).contiguous()
-        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         code = {"float32": 0, "bfloat16": 1}[dtype]
         ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                lse.data_ptr(), delta.data_ptr())
         tail = (b, s, h, d, code, int(causal), stream)
-
-        def raw_dq():
-            if lib.srt_flash_attn_bwd_dq(*ins, dq.data_ptr(), *tail):
-                raise RuntimeError("srt_flash_attn_bwd_dq launch failed")
-
-        def raw_dkv():
-            if lib.srt_flash_attn_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *tail):
-                raise RuntimeError("srt_flash_attn_bwd_dkv launch failed")
-
-        raw_dq()
-        raw_dkv()
+        pairs = [BWD_KERNELS[:2]] + ([BWD_KERNELS[2:]] if _sm90_shape(shape) else [])
         want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
-        torch.cuda.synchronize()
-        errs = [_max_err(torch, g, w, dtype, f"timing {name} {n}")
-                for g, w, n in zip((dq, dk, dv), want, ("dq", "dk", "dv"))]
-        del want
+        own = (pa.flash_attention_bwd_sm90_reference(q, k, v, out, lse, do, causal)
+               if _sm90_shape(shape) else None)
+        runs = {}
+        for dq_name, dkv_name in pairs:
+            dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+
+            def raw_dq(dq_name=dq_name, dq=dq):
+                if getattr(lib, dq_name)(*ins, dq.data_ptr(), *tail):
+                    raise RuntimeError(f"{dq_name} launch failed")
+
+            def raw_dkv(dkv_name=dkv_name, dk=dk, dv=dv):
+                if getattr(lib, dkv_name)(*ins, dk.data_ptr(), dv.data_ptr(), *tail):
+                    raise RuntimeError(f"{dkv_name} launch failed")
+
+            raw_dq()
+            raw_dkv()
+            torch.cuda.synchronize()
+            errs = _bwd_errs(torch, (dq, dk, dv), want, dtype, f"timing {name} {dq_name}")
+            if dq_name.endswith("_sm90"):
+                _bwd_errs(torch, (dq, dk, dv), own, dtype,
+                          f"timing {name} {dq_name} vs the sm90 plain version", SM90_BWD_TOL)
+            runs[dq_name] = (raw_dq, "dq", 1, 3, errs["dq"])
+            runs[dkv_name] = (raw_dkv, "dkv", 2, 4, max(errs["dk"], errs["dv"]))
+        del want, own
 
         # the yardstick: SDPA forward + backward, less its forward
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
@@ -1147,51 +1243,103 @@ def time_flash_attention_bwd(torch, dev):
         item = q.element_size()
         elems = b * s * h * d
         rows = b * h * s
-        pairs = s * (s + 1) // 2 if causal else s * s
+        n_pairs = s * (s + 1) // 2 if causal else s * s
         peak = BF16_TENSOR_FLOPS if dtype == "bfloat16" else F32_FLOPS
-        for kname, run, n_out, fma_per_d, sweep, err in (
-                ("srt_flash_attn_bwd_dq", raw_dq, 1, 3, "dq", errs[0]),
-                ("srt_flash_attn_bwd_dkv", raw_dkv, 2, 4, "dkv", max(errs[1:]))):
+        for kname, (run, sweep, n_out, fma_per_d, err) in runs.items():
             kernel_ms = event_ms_per_call(torch, run, 20)
+            rounded = kname.endswith("_sm90")
 
-            def plain():
+            def plain(sweep=sweep, rounded=rounded):
                 return pa._bwd_reference(q, k, v, out, lse, do, causal, 512, 512,
-                                         sweeps=(sweep,))
+                                         sweeps=(sweep,), round_bf16=rounded)
 
             plain_ms = event_ms_per_call(torch, plain, 5)
             # q, k, v, do read once, lse and delta read once, outputs written once
             moved = (4 + n_out) * elems * item + 2 * rows * 4
-            flops = 2 * fma_per_d * b * h * d * pairs
+            flops = 2 * fma_per_d * b * h * d * n_pairs
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / peak * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
             rec[kname][name] = {
                 "shape": [b, s, h, d], "dtype": dtype, "causal": causal,
                 "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                "plain": "sm90 roundings" if rounded else "f32",
                 "library_ms": library_ms, "library_scope": "dq+dkv",
                 "library_backend": backend,
                 "library_fwd_ms": lib_fwd_ms, "library_fwd_bwd_ms": lib_total_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_ms": bound_ms, "bound_share": bound_ms / kernel_ms,
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "bytes": moved, "flops": flops, "peak_flops": peak,
                 "tflops": flops / kernel_ms / 1e9,
             }
         del qt, kt, vt, dot
     entries = []
-    for kname, replaces in (("srt_flash_attn_bwd_dq",
-                             "sparkrdma_tpu/ops/pallas_attention.py:364"),
-                            ("srt_flash_attn_bwd_dkv",
-                             "sparkrdma_tpu/ops/pallas_attention.py:394")):
-        head = rec[kname]["bench_bf16_causal"]
+    # each kernel's headline is the shape its main path gives it: the
+    # workload's f32 to the SIMT pair, the bench shape to the tensor-core pair
+    for kname, source, replaces, headline in (
+            ("srt_flash_attn_bwd_dq", "flash_attn_bwd.cu", 364, "workload_f32"),
+            ("srt_flash_attn_bwd_dkv", "flash_attn_bwd.cu", 394, "workload_f32"),
+            ("srt_flash_attn_bwd_dq_sm90", "flash_attn_bwd_sm90.cu", 364, "bench_bf16_causal"),
+            ("srt_flash_attn_bwd_dkv_sm90", "flash_attn_bwd_sm90.cu", 394,
+             "bench_bf16_causal")):
+        head = rec[kname][headline]
         entries.append({
             "name": kname, "route": "cuda",
-            "source": "sparkrdma_tpu_torch/ops/csrc/flash_attn_bwd.cu",
-            "replaces": replaces,
+            "source": f"sparkrdma_tpu_torch/ops/csrc/{source}",
+            "replaces": f"sparkrdma_tpu/ops/pallas_attention.py:{replaces}",
             **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
-            "timer": "cuda_events", "shapes": rec[kname],
+                                    "bound_by", "library_ms", "tflops")},
+            "timer": "cuda_events", "shape_name": headline, "shapes": rec[kname],
         })
     emit("timing_attention_bwd", kernels=entries)
     return entries
+
+
+def phase_second_device(torch):
+    """bf16 B1 S256 H2 D128, causal (launches above 48 KiB of shared
+    memory) through every flash entry point on cuda:1 after cuda:0, in
+    one process: each kernel's shared-memory limit is raised per device.
+    Needs two devices; with one it says so."""
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        emit("second_device", skipped=True,
+             reason=f"{n} CUDA device: the per-device kernel configuration "
+                    "needs two to be shown")
+        return
+    shape = (1, 256, 2, 128, "bfloat16", True)
+    results = {}
+    for i in (0, 1):
+        dev = torch.device("cuda", i)
+        with torch.cuda.device(dev):
+            q, k, v = _qkv(torch, dev, shape, 51)
+            do = _qkv(torch, dev, shape, 52)[0]
+            pa.reset_launch_counts()
+            got = {}
+            for precision in ("default", "highest"):  # tensor-core, then SIMT
+                out, lse = pa.flash_attention_fwd(q, k, v, True, want_lse=True,
+                                                  precision=precision)
+                out0 = pa.flash_attention_fwd(q, k, v, True, precision=precision)[0]
+                grads = pa.flash_attention_bwd(q, k, v, out, lse, do, True,
+                                               precision=precision)
+                torch.cuda.synchronize()
+                want = pa.flash_attention_reference(q, k, v, True)[0]
+                _max_err(torch, out, want, "bfloat16", f"cuda:{i} {precision} fwd")
+                _max_err(torch, out0, want, "bfloat16", f"cuda:{i} {precision} fwd")
+                _bwd_errs(torch, grads, pa.flash_attention_bwd_reference(
+                    q, k, v, out, lse, do, True), "bfloat16", f"cuda:{i} {precision}")
+                got[precision] = [x.cpu() for x in (out, out0, *grads)]
+            launches = _flash_launches(pa)
+            if any(count != (2 if entry.startswith("srt_flash_attn_fwd") else 1)
+                   for entry, count in launches.items()):
+                raise AssertionError(f"cuda:{i}: launches {launches}")
+            results[i] = got
+    equal = all(torch.equal(a, b) for p in results[0]
+                for a, b in zip(results[0][p], results[1][p]))
+    emit("second_device", skipped=False, devices=[torch.cuda.get_device_name(i)
+                                                  for i in (0, 1)],
+         bitwise_equal_across_devices=equal)
 
 
 # ----------------------------------------------------------------------
@@ -1591,6 +1739,7 @@ def main():
     phase_attention_bwd_kernel(torch, dev)
     training = phase_training_path(torch, dev)
     kernels.extend(time_flash_attention_bwd(torch, dev))
+    phase_second_device(torch)
     phase_neighbor_pull_kernel(torch, dev)
     spmd = phase_spmd_path(torch, dev)
     kernels.append(time_neighbor_pull(torch, dev))

@@ -4,9 +4,9 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
 (all started together; ``csrc/*.cuh`` are their shared headers), and
 the objects are linked into one shared library with a plain C
 interface, loaded with ``ctypes``. Nothing links ``-lcuda``: the one
-driver function a kernel needs (``cuTensorMapEncodeTiled``, in
-``flash_attn_fwd_sm90.cu``) is reached through the runtime's
-``cudaGetDriverEntryPoint``. The library goes to
+driver function a kernel needs (``cuTensorMapEncodeTiled``, for the
+tensor-core kernels' TMA maps, ``flash_attn_sm90_common.cuh``) is
+reached through the runtime's ``cudaGetDriverEntryPoint``. The library goes to
 ``build/torch_kernels/libsrt_torch_kernels.so`` under the checkout
 root, beside a stamp holding the hash of the sources and headers it was
 built from; it is rebuilt at first use whenever they change. Nothing is
@@ -115,6 +115,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.srt_flash_attn_bwd_dq.restype = ctypes.c_int
     lib.srt_flash_attn_bwd_dkv.argtypes = [vp] * 8 + [ll] * 6 + [vp]
     lib.srt_flash_attn_bwd_dkv.restype = ctypes.c_int
+    lib.srt_flash_attn_bwd_dq_sm90.argtypes = [vp] * 7 + [ll] * 6 + [vp]
+    lib.srt_flash_attn_bwd_dq_sm90.restype = ctypes.c_int
+    lib.srt_flash_attn_bwd_dkv_sm90.argtypes = [vp] * 8 + [ll] * 6 + [vp]
+    lib.srt_flash_attn_bwd_dkv_sm90.restype = ctypes.c_int
     lib.srt_error_string.argtypes = [ctypes.c_int]
     lib.srt_error_string.restype = ctypes.c_char_p
     return lib

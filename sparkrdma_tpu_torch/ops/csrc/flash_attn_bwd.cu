@@ -5,8 +5,8 @@
 //   srt_flash_attn_bwd_dq   <- _dq_kernel  (pallas_call at :364)
 //   srt_flash_attn_bwd_dkv  <- _dkv_kernel (pallas_call at :394)
 //
-// What they compute, on q, k, v, do laid out [B, S, H, D] (contiguous, f32
-// or bf16), the forward's lse[b, h, s] and delta[b, h, s] = rowsum(do * out)
+// What they compute, on q, k, v, do laid out [B, S, H, D] (contiguous, f32,
+// bf16 or fp16), the forward's lse[b, h, s] and delta[b, h, s] = rowsum(do * out)
 // (both f32), with scale = 1/sqrt(D):
 //   p  = exp(scale * q k^T + mask - lse)   re-materialised tile by tile
 //   ds = p * (do v^T - delta)
@@ -14,15 +14,17 @@
 // The mask drops kv positions >= S, q positions >= S and, if causal, kv > q.
 // Masked scores take the TPU kernels' sentinel NEG_INF = -1e30; a row
 // whose lse is the forward's +1e30 pin gets p = exp(-1e30 - 1e30) = 0,
-// never NaN. Outputs round to the input dtype (bf16 to nearest even).
+// never NaN. Outputs round to the input dtype (bf16 and fp16 to nearest
+// even).
 //
 // What bounds them on this card: arithmetic. Per (q, kv) pair dq costs
 // 3*D FMAs (q.k, do.v, ds.k) and dk/dv 4*D (k.q, v.do, p.do, ds.q):
 // 6*B*H*D*S^2 and 8*B*H*D*S^2 flops (about half causal), against a few
-// bytes per element of each [B, S, H, D] operand. Like the forward, this
-// first version computes in f32 FMA on the CUDA cores for both dtypes (the
-// TPU kernel bodies upcast to f32), so the bound is the 67 TFLOP/s
-// non-tensor f32 peak. Tensor cores (wgmma with TMA staging) are later work.
+// bytes per element of each [B, S, H, D] operand. Like the forward, these
+// kernels compute in f32 FMA on the CUDA cores for every dtype (the TPU
+// kernel bodies upcast to f32), so the bound is the 67 TFLOP/s non-tensor
+// f32 peak. They take f32, fp16, bf16 at precision "high"/"highest", and
+// the bf16 inputs the tensor-core pair (flash_attn_bwd_sm90.cu) does not.
 //
 // What the design does about it:
 //   - dq: one CTA owns a (b, h, q tile) and walks the kv tiles in ascending
@@ -41,7 +43,7 @@
 //     forward's accumulator load, so the kv tile shrinks (R = 8, 32 keys)
 //     instead of spilling, and the dv and dk sums run as two passes.
 //   - Every block over 48 KB of shared memory takes it as dynamic shared
-//     memory (cudaFuncSetAttribute, once per instantiation).
+//     memory (cudaFuncSetAttribute, once per instantiation and device).
 //   - No host-side pad or transpose; the ragged edge is masked in the
 //     kernel; no atomics, so results are deterministic run to run.
 
@@ -406,22 +408,13 @@ int vector_ok(const Args& a) {
   return a.D % V == 0 && aligned(a.q) && aligned(a.k) && aligned(a.v) && aligned(a.dout);
 }
 
-template <typename Kernel>
-int configure(Kernel kernel, size_t smem, bool& configured) {
-  if (configured) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  configured = true;
-  return 0;
-}
-
 template <typename T, int KPER, int R, int TK>
 int launch_dq(const Args& a) {
   using C = DqTile<KPER, R, TK>;
   auto kernel = flash_bwd_dq_kernel<T, KPER, R, TK>;
-  static bool configured = false;
-  if (const int e = configure(kernel, C::kSmemBytes, configured)) return e;
+  static PerDevice raised;
+  if (const cudaError_t e = raise_smem_limit(kernel, static_cast<int>(C::kSmemBytes), raised))
+    return static_cast<int>(e);
   const long long tiles = (a.S + C::kTq - 1) / C::kTq;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(a.D)));
   kernel<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(a.H),
@@ -438,8 +431,9 @@ template <typename T, int KPER, int R, int TQ>
 int launch_dkv(const Args& a) {
   using C = DkvTile<KPER, R, TQ>;
   auto kernel = flash_bwd_dkv_kernel<T, KPER, R, TQ>;
-  static bool configured = false;
-  if (const int e = configure(kernel, C::kSmemBytes, configured)) return e;
+  static PerDevice raised;
+  if (const cudaError_t e = raise_smem_limit(kernel, static_cast<int>(C::kSmemBytes), raised))
+    return static_cast<int>(e);
   const long long tiles = (a.S + C::kTk - 1) / C::kTk;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(a.D)));
   kernel<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(a.H),
@@ -474,7 +468,7 @@ constexpr int kNothingToDo = -1;
 
 // 0: launch; kNothingToDo: an empty problem; else a cudaError_t
 int check(const Args& a, long long dtype) {
-  if (a.B < 0 || a.S < 0 || a.H < 0 || a.D < 1 || a.D > 256 || (dtype != 0 && dtype != 1))
+  if (a.B < 0 || a.S < 0 || a.H < 0 || a.D < 1 || a.D > 256 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.S > 0x7fffffffLL || a.H > 65535 || a.B > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -486,7 +480,8 @@ int check(const Args& a, long long dtype) {
 extern "C" {
 
 // q, k, v, dout, dq: contiguous [B, S, H, D]; lse, delta: [B, H, S] f32;
-// dtype 0 = f32, 1 = bf16; 1 <= D <= 256. Enqueued on `stream`, not waited.
+// dtype 0 = f32, 1 = bf16, 2 = fp16; 1 <= D <= 256. Enqueued on `stream`,
+// not waited.
 int srt_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, void* dq, long long B,
                           long long S, long long H, long long D, long long dtype,
@@ -495,7 +490,8 @@ int srt_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const voi
                B, S, H, D, causal, static_cast<cudaStream_t>(stream)};
   const int c = check(a, dtype);
   if (c != 0) return c == kNothingToDo ? 0 : c;
-  return dtype == 0 ? dispatch_dq<float>(a) : dispatch_dq<__nv_bfloat16>(a);
+  if (dtype == 0) return dispatch_dq<float>(a);
+  return dtype == 1 ? dispatch_dq<__nv_bfloat16>(a) : dispatch_dq<__half>(a);
 }
 
 // as srt_flash_attn_bwd_dq, writing dk and dv ([B, S, H, D], input dtype)
@@ -507,7 +503,8 @@ int srt_flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const vo
                B, S, H, D, causal, static_cast<cudaStream_t>(stream)};
   const int c = check(a, dtype);
   if (c != 0) return c == kNothingToDo ? 0 : c;
-  return dtype == 0 ? dispatch_dkv<float>(a) : dispatch_dkv<__nv_bfloat16>(a);
+  if (dtype == 0) return dispatch_dkv<float>(a);
+  return dtype == 1 ? dispatch_dkv<__nv_bfloat16>(a) : dispatch_dkv<__half>(a);
 }
 
 }  // extern "C"

@@ -1,12 +1,16 @@
-// flash_attn_common.cuh — staging helpers shared by the flash-attention
+// flash_attn_common.cuh — staging helpers shared by the SIMT flash-attention
 // kernels (flash_attn_fwd.cu, flash_attn_bwd.cu): 128-thread CTAs, the TPU
-// kernels' NEG_INF sentinel, and [B, S, H, D] rows staged into shared
-// memory as f32. Each .cu file includes it into its own translation unit.
+// kernels' NEG_INF sentinel, and [B, S, H, D] rows of f32, bf16 or fp16
+// staged into shared memory as f32. Each .cu file includes it into its own
+// translation unit.
 #pragma once
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "launch_config.cuh"
 
 namespace {
 
@@ -16,9 +20,11 @@ constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-// __float2bfloat16 rounds to nearest even, as torch and XLA do
+// __float2bfloat16 and __float2half_rn round to nearest even, as torch and XLA do
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store_as(__half* p, float x) { *p = __float2half_rn(x); }
 
 // 16 bytes of T widened to f32
 __device__ __forceinline__ void widen(const uint4& raw, float* f, float) {
@@ -30,6 +36,15 @@ __device__ __forceinline__ void widen(const uint4& raw, float* f, __nv_bfloat16)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void widen(const uint4& raw, float* f, __half) {
+  const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __half22float2(h[i]);
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }

@@ -5,8 +5,8 @@
 //   srt_flash_attn_fwd  <- _fwd_impl's pallas_call (_kernel with the
 //                          per-row logsumexp, _kernel_no_lse without)
 //
-// What it computes, on q, k, v laid out [B, S, H, D] (contiguous, f32 or
-// bf16) with scale = 1/sqrt(D):
+// What it computes, on q, k, v laid out [B, S, H, D] (contiguous, f32,
+// bf16 or fp16) with scale = 1/sqrt(D):
 //   out[b, s, h, :] = softmax(scale * q k^T + mask) v      (input dtype)
 //   lse[b, h, s]    = m + log(l)                           (f32, optional)
 // The mask drops kv positions >= S and, if causal, kv > q. Masked scores
@@ -17,7 +17,7 @@
 // What bounds it on this card: arithmetic. Each (q, kv) pair costs 2*D
 // FMAs (scores and p.v), 4*B*H*S^2*D flops in all (half of that causal),
 // against 2*B*S*H*D*size bytes of q/out and of k/v each read once. This
-// first version computes in f32 FMA on the CUDA cores for both dtypes, as
+// kernel computes in f32 FMA on the CUDA cores for every dtype, as
 // the TPU kernel body does (operands upcast to f32, f32 products), so its
 // bound is the 67 TFLOP/s non-tensor f32 peak, not the tensor cores.
 //
@@ -39,7 +39,8 @@
 //     are issued longest first so the short ones fill the tail;
 //   - the ragged edge is masked in the kernel: no host-side pad or
 //     transpose. Rows q >= S are computed on zeros and never written.
-// Tensor cores (wgmma/mma.sync with TMA staging) are later work.
+// bf16 with D 64 or 128 at precision "default" takes the tensor-core kernel
+// (flash_attn_fwd_sm90.cu) instead.
 
 #include "flash_attn_common.cuh"
 
@@ -231,13 +232,9 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            cudaStream_t stream) {
   using C = Tile<KPER, R, TK>;
   auto kernel = flash_fwd_kernel<T, KPER, R, TK>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmemBytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
+  static PerDevice raised;
+  if (const cudaError_t e = raise_smem_limit(kernel, static_cast<int>(C::kSmemBytes), raised))
+    return static_cast<int>(e);
   const long long q_tiles = (S + C::kTq - 1) / C::kTq;
   if (S > 0x7fffffffLL || H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -268,17 +265,18 @@ int dispatch(const void* q, const void* k, const void* v, void* out, void* lse,
 
 extern "C" {
 
-// q, k, v, out: contiguous [B, S, H, D]; dtype 0 = f32, 1 = bf16; lse:
-// [B, H, S] f32 or null; 1 <= D <= 256. Enqueued on `stream`, not waited.
+// q, k, v, out: contiguous [B, S, H, D]; dtype 0 = f32, 1 = bf16, 2 = fp16;
+// lse: [B, H, S] f32 or null; 1 <= D <= 256. Enqueued on `stream`, not waited.
 int srt_flash_attn_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                        long long B, long long S, long long H, long long D, long long dtype,
                        long long causal, void* stream) {
-  if (B < 0 || S < 0 || H < 0 || D < 1 || D > 256 || (dtype != 0 && dtype != 1))
+  if (B < 0 || S < 0 || H < 0 || D < 1 || D > 256 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0 || H == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? dispatch<float>(q, k, v, out, lse, B, S, H, D, causal, st)
-                    : dispatch<__nv_bfloat16>(q, k, v, out, lse, B, S, H, D, causal, st);
+  if (dtype == 0) return dispatch<float>(q, k, v, out, lse, B, S, H, D, causal, st);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, out, lse, B, S, H, D, causal, st);
+  return dispatch<__half>(q, k, v, out, lse, B, S, H, D, causal, st);
 }
 
 }  // extern "C"

@@ -11,31 +11,46 @@ probability tiles from ``(q, k, lse)``.
   launch of a hand-written forward kernel on the current stream, not
   waited on; on CPU tensors :func:`flash_attention_reference`, the plain
   version. The kernel is picked before the launch by :func:`fwd_entry`,
-  a pure function of dtype, head dim and alignment: bf16 with D 64 or
-  128 and 16-byte-aligned q/k/v/out takes the tensor-core kernel of
+  a pure function of dtype, precision, head dim and alignment: bf16 at
+  precision ``"default"`` with D 64 or 128 and 16-byte-aligned
+  q/k/v/out takes the tensor-core kernel of
   ``csrc/flash_attn_fwd_sm90.cu`` (``srt_flash_attn_fwd_sm90``: wgmma +
   TMA), everything else the kernel of ``csrc/flash_attn_fwd.cu``
   (``srt_flash_attn_fwd``: f32 FMA). A kernel that does not build or
   launch raises; nothing retries on the other kernel or falls back.
-- ``flash_attention_bwd``: on CUDA tensors one launch each of
-  ``srt_flash_attn_bwd_dq`` and ``srt_flash_attn_bwd_dkv``
+- ``flash_attention_bwd``: on CUDA tensors one dq launch and one dk/dv
+  launch, of the pair :func:`bwd_entry` names the same way: the
+  tensor-core ``srt_flash_attn_bwd_dq_sm90`` and
+  ``srt_flash_attn_bwd_dkv_sm90`` (``csrc/flash_attn_bwd_sm90.cu``) or
+  the SIMT ``srt_flash_attn_bwd_dq`` and ``srt_flash_attn_bwd_dkv``
   (``csrc/flash_attn_bwd.cu``); on CPU tensors
   :func:`flash_attention_bwd_reference`.
 - ``flash_attention`` is differentiable: with grad mode on and an input
   that requires grad it runs :class:`_FlashAttention`, the counterpart of
   the JAX ``custom_vjp`` (the forward with lse, then the two backward
   kernels). Inference keeps the forward without lse.
-- fp32 inputs are computed in full fp32 (the JAX ``HIGHEST``). bf16
-  inputs on the tensor-core forward compute as the JAX kernel does at
-  its bf16 ``precision=DEFAULT`` (one bf16 MXU pass a product): q.k^T
-  from bf16 operands into f32, ``p`` rounded to bf16 before p.v into
-  f32, ``l`` from the f32 ``p``. The other bf16 kernels widen to f32
-  inside. Outputs are rounded back to the input dtype.
+- Inputs are float32, bfloat16 or float16. ``precision`` takes None,
+  ``"default"``, ``"high"`` or ``"highest"``; None picks as JAX does:
+  ``"highest"`` for float32, ``"default"`` otherwise. bf16 at
+  ``"default"`` takes the tensor-core kernels (where D and alignment
+  allow), which compute as the JAX kernels do at the bf16
+  ``precision=DEFAULT`` (one bf16 MXU pass a product): products from
+  bf16 operands into f32, ``p`` rounded to bf16 before p.v (and p^T.do),
+  ``ds`` rounded to bf16 before ds.k and ds^T.q, ``l`` and ``ds`` from
+  the f32 ``p``. Every other input takes the SIMT kernels, which widen
+  to f32 and compute full-f32 products: float32 at every precision,
+  float16, and bf16 at ``"high"`` or ``"highest"``. Outputs are rounded
+  back to the input dtype (to nearest even).
+- CPU tensors run the plain versions in f32 whatever the precision. The
+  JAX ``interpret=`` argument has no counterpart: the plain version is
+  the port's interpret mode.
 
 Every launch adds one to its kernel's counter: ``flash_fwd_launches``
 (every forward launch, on either kernel), ``flash_fwd_sm90_launches``
-(those of ``srt_flash_attn_fwd_sm90``), ``flash_bwd_dq_launches``,
-``flash_bwd_dkv_launches``.
+(those of ``srt_flash_attn_fwd_sm90``), ``flash_bwd_dq_launches`` and
+``flash_bwd_dkv_launches`` (every backward launch, on either pair),
+``flash_bwd_dq_sm90_launches`` and ``flash_bwd_dkv_sm90_launches``
+(those of the tensor-core pair).
 """
 
 from __future__ import annotations
@@ -48,22 +63,41 @@ import torch
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256  # the largest D the CUDA kernels take
-SM90_HEAD_DIMS = (64, 128)  # the head dims the tensor-core forward takes
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+SM90_HEAD_DIMS = (64, 128)  # the head dims the tensor-core kernels take
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+PRECISIONS = ("default", "high", "highest")
 
 flash_fwd_launches = 0
 flash_fwd_sm90_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+flash_bwd_dq_sm90_launches = 0
+flash_bwd_dkv_sm90_launches = 0
 
 
 def reset_launch_counts() -> None:
     global flash_fwd_launches, flash_fwd_sm90_launches
     global flash_bwd_dq_launches, flash_bwd_dkv_launches
+    global flash_bwd_dq_sm90_launches, flash_bwd_dkv_sm90_launches
     flash_fwd_launches = 0
     flash_fwd_sm90_launches = 0
     flash_bwd_dq_launches = 0
     flash_bwd_dkv_launches = 0
+    flash_bwd_dq_sm90_launches = 0
+    flash_bwd_dkv_sm90_launches = 0
+
+
+def resolve_precision(precision, dtype: torch.dtype) -> str:
+    """``precision`` as one of :data:`PRECISIONS`: None picks as the JAX
+    ``flash_attention`` does, ``"highest"`` for float32 and ``"default"``
+    otherwise. Raises ``ValueError`` for anything else."""
+    if precision is None:
+        return "highest" if dtype == torch.float32 else "default"
+    if not isinstance(precision, str) or precision not in PRECISIONS:
+        raise ValueError(
+            f"precision must be None or one of {PRECISIONS}, got {precision!r}"
+        )
+    return precision
 
 
 def _resolve_blocks(s: int, block_q: int, block_k: int):
@@ -97,8 +131,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         )
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
-            f"q, k and v must all be float32 or bfloat16, got {q.dtype}, "
-            f"{k.dtype}, {v.dtype}"
+            f"q, k and v must all be float32, bfloat16 or float16, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
     if k.device != q.device or v.device != q.device:
         raise ValueError(
@@ -182,9 +216,28 @@ def flash_attention_bwd_reference(
     return _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k)
 
 
+def flash_attention_bwd_sm90_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool = False,
+    block_q: int = 512, block_k: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The function of the tensor-core backward pair
+    (``srt_flash_attn_bwd_dq_sm90``, ``srt_flash_attn_bwd_dkv_sm90``):
+    :func:`flash_attention_bwd_reference`'s blocking and masks, with the
+    JAX kernels' bf16 ``precision=DEFAULT`` roundings: ``p`` rounded to
+    bf16 before ``p^T do``, ``ds`` (formed from the f32 ``p``) rounded to
+    bf16 before ``ds k`` and ``ds^T q``, to nearest even. For bf16 inputs,
+    whose other operands are bf16 already. Used by the tests and by
+    ``chip_smoke.py`` to hold the kernels to their own arithmetic; nothing
+    on the main path calls it."""
+    return _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k,
+                          round_bf16=True)
+
+
 def _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k,
-                   sweeps=("dq", "dkv")):
-    """:func:`flash_attention_bwd_reference`, running only the named
+                   sweeps=("dq", "dkv"), round_bf16=False):
+    """:func:`flash_attention_bwd_reference` (or, with ``round_bf16``,
+    :func:`flash_attention_bwd_sm90_reference`), running only the named
     sweeps (the others' gradients stay zero), so each sweep can be timed
     beside its kernel."""
     b, s, h, d = q.shape
@@ -220,6 +273,9 @@ def _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k,
     def live(iq, ik):  # the kernels' causal block skip
         return not causal or ik * bk <= iq * bq + bq - 1
 
+    def rnd(x):  # a product's bf16 operand, rounded to nearest even
+        return x.bfloat16().float() if round_bf16 else x
+
     dq = torch.zeros((b, h, s_pad, d), dtype=torch.float32, device=dev)
     dk = torch.zeros_like(dq)
     dv = torch.zeros_like(dq)
@@ -228,15 +284,16 @@ def _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k,
             if not live(iq, ik):
                 break
             _, ds, _, _, kb = probs(iq, ik)
-            dq[:, :, iq * bq:(iq + 1) * bq] += torch.matmul(ds, kb) * scale
+            dq[:, :, iq * bq:(iq + 1) * bq] += torch.matmul(rnd(ds), kb) * scale
     for ik in range(s_pad // bk if "dkv" in sweeps else 0):
         for iq in range(s_pad // bq):  # _dkv_kernel: q blocks minor
             if not live(iq, ik):
                 continue
             p, ds, qb, dob, _ = probs(iq, ik)
-            dv[:, :, ik * bk:(ik + 1) * bk] += torch.matmul(p.transpose(-1, -2), dob)
+            dv[:, :, ik * bk:(ik + 1) * bk] += torch.matmul(
+                rnd(p).transpose(-1, -2), dob)
             dk[:, :, ik * bk:(ik + 1) * bk] += (
-                torch.matmul(ds.transpose(-1, -2), qb) * scale)
+                torch.matmul(rnd(ds).transpose(-1, -2), qb) * scale)
 
     def unprep(x, like):
         return x[:, :, :s].permute(0, 2, 1, 3).to(like.dtype)
@@ -249,20 +306,46 @@ def _kernel_path(q: torch.Tensor) -> bool:
     return q.device.type == "cuda"
 
 
+def _sm90_route(q: torch.Tensor, precision, tensors) -> bool:
+    """Whether the tensor-core kernels take these inputs: bf16 at
+    precision ``"default"`` with D in :data:`SM90_HEAD_DIMS` and every
+    tensor on a 16-byte boundary (their TMA loads and 16-byte stores need
+    it)."""
+    return (q.dtype == torch.bfloat16
+            and resolve_precision(precision, q.dtype) == "default"
+            and q.shape[-1] in SM90_HEAD_DIMS
+            and all(x.data_ptr() % 16 == 0 for x in tensors))
+
+
 def fwd_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              out: torch.Tensor) -> str:
+              out: torch.Tensor, precision=None) -> str:
     """The C entry point a CUDA forward launches: the tensor-core
-    ``srt_flash_attn_fwd_sm90`` for bf16 with D in :data:`SM90_HEAD_DIMS`
-    and q, k, v and out on 16-byte boundaries (its TMA loads and 16-byte
-    stores need them), else ``srt_flash_attn_fwd``."""
-    if (q.dtype == torch.bfloat16 and q.shape[-1] in SM90_HEAD_DIMS
-            and all(x.data_ptr() % 16 == 0 for x in (q, k, v, out))):
+    ``srt_flash_attn_fwd_sm90`` for bf16 at precision ``"default"`` with
+    D in :data:`SM90_HEAD_DIMS` and q, k, v and out on 16-byte boundaries,
+    else ``srt_flash_attn_fwd``."""
+    if _sm90_route(q, precision, (q, k, v, out)):
         return "srt_flash_attn_fwd_sm90"
     return "srt_flash_attn_fwd"
 
 
+def bwd_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              do: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
+              dv: torch.Tensor, precision=None) -> Tuple[str, str]:
+    """The C entry points ``(dq, dk/dv)`` a CUDA backward launches: the
+    tensor-core pair ``srt_flash_attn_bwd_dq_sm90`` and
+    ``srt_flash_attn_bwd_dkv_sm90`` for bf16 at precision ``"default"``
+    with D in :data:`SM90_HEAD_DIMS` and q, k, v, do, dq, dk and dv on
+    16-byte boundaries, else ``srt_flash_attn_bwd_dq`` and
+    ``srt_flash_attn_bwd_dkv``. A pure function of dtype, precision, D
+    and alignment, as :func:`fwd_entry` is."""
+    if _sm90_route(q, precision, (q, k, v, do, dq, dk, dv)):
+        return "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90"
+    return "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv"
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            want_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+            want_lse: bool, precision=None
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     from sparkrdma_tpu_torch.ops import _build
 
     global flash_fwd_launches, flash_fwd_sm90_launches
@@ -277,7 +360,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
            if want_lse else None)
     if q.numel() == 0:
         return out, lse
-    name = fwd_entry(q, k, v, out)
+    name = fwd_entry(q, k, v, out, precision)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, name)(
@@ -299,31 +382,37 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
     block_q: int = 512, block_k: int = 512, want_lse: bool = False,
+    precision=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Exact attention over ``[B, S, H, D]`` float32 or bfloat16 inputs.
-    Returns ``(out [B, S, H, D] in the input dtype, lse [B, H, S] f32 or
-    None)``; ``lse[b, h, s]`` is the row's logsumexp of the scaled,
-    masked scores.
+    """Exact attention over ``[B, S, H, D]`` float32, bfloat16 or float16
+    inputs. Returns ``(out [B, S, H, D] in the input dtype, lse [B, H, S]
+    f32 or None)``; ``lse[b, h, s]`` is the row's logsumexp of the
+    scaled, masked scores.
 
     CUDA tensors: one launch (D <= 256) of the kernel :func:`fwd_entry`
-    names. The kernel picks its own tiles; ``block_q``/``block_k`` are
-    validated and set only the plain version's blocking. A strided (non-contiguous)
-    input is copied with ``.contiguous()`` first. CPU tensors: the plain
-    version :func:`flash_attention_reference`."""
+    names from the dtype, ``precision`` (see :func:`resolve_precision`),
+    D and alignment. The kernel picks its own tiles; ``block_q``/``block_k``
+    are validated and set only the plain version's blocking. A strided
+    (non-contiguous) input is copied with ``.contiguous()`` first. CPU
+    tensors: the plain version :func:`flash_attention_reference`, in f32
+    at every precision (there is no ``interpret=``: the plain version is
+    the port's interpret mode)."""
     _check(q, k, v, block_q, block_k)
+    resolve_precision(precision, q.dtype)
     if _kernel_path(q):
         q, k, v = (x.contiguous() for x in (q, k, v))
-        return _launch(q, k, v, causal, want_lse)
+        return _launch(q, k, v, causal, want_lse, precision)
     if q.device.type != "cpu":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     return flash_attention_reference(q, k, v, causal, block_q, block_k,
                                      want_lse)
 
 
-def _launch_bwd(q, k, v, out, lse, do, causal):
+def _launch_bwd(q, k, v, out, lse, do, causal, precision=None):
     from sparkrdma_tpu_torch.ops import _build
 
     global flash_bwd_dq_launches, flash_bwd_dkv_launches
+    global flash_bwd_dq_sm90_launches, flash_bwd_dkv_sm90_launches
     b, s, h, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(
@@ -352,27 +441,33 @@ def _launch_bwd(q, k, v, out, lse, do, causal):
                     f"{lib.srt_error_string(rc).decode()} ({rc})"
                 )
 
-        call("srt_flash_attn_bwd_dq", dq)
+        dq_name, dkv_name = bwd_entry(q, k, v, do, dq, dk, dv, precision)
+        call(dq_name, dq)
         flash_bwd_dq_launches += 1
-        call("srt_flash_attn_bwd_dkv", dk, dv)
+        flash_bwd_dq_sm90_launches += int(dq_name.endswith("_sm90"))
+        call(dkv_name, dk, dv)
         flash_bwd_dkv_launches += 1
+        flash_bwd_dkv_sm90_launches += int(dkv_name.endswith("_sm90"))
     return dq, dk, dv
 
 
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, causal: bool = False,
-    block_q: int = 512, block_k: int = 512,
+    block_q: int = 512, block_k: int = 512, precision=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients ``(dq, dk, dv)`` of flash attention, in the input dtype,
     from the forward's inputs, its output ``out`` (input dtype) and
     ``lse`` (``[B, H, S]`` f32), and the output's cotangent ``do``.
 
-    CUDA tensors: one ``srt_flash_attn_bwd_dq`` and one
-    ``srt_flash_attn_bwd_dkv`` launch on the current stream (D <= 256);
-    strided inputs are copied with ``.contiguous()`` first. CPU tensors:
-    the plain version :func:`flash_attention_bwd_reference`."""
+    CUDA tensors: one dq and one dk/dv launch on the current stream (D <=
+    256), of the pair :func:`bwd_entry` names; strided inputs are copied
+    with ``.contiguous()`` first. A launch that fails raises with the
+    kernel's name; nothing retries on the other pair. CPU tensors: the
+    plain version :func:`flash_attention_bwd_reference`, in f32 at every
+    precision."""
     _check(q, k, v, block_q, block_k)
+    resolve_precision(precision, q.dtype)
     for name, x in (("out", out), ("do", do)):
         if not isinstance(x, torch.Tensor) or x.shape != q.shape \
                 or x.dtype != q.dtype or x.device != q.device:
@@ -387,7 +482,7 @@ def flash_attention_bwd(
                          f"tensor on {q.device}")
     if _kernel_path(q):
         return _launch_bwd(*(x.contiguous() for x in (q, k, v, out, lse, do)),
-                           causal)
+                           causal, precision)
     if q.device.type != "cpu":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     return flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
@@ -401,11 +496,11 @@ class _FlashAttention(torch.autograd.Function):
     and a backward through :func:`flash_attention_bwd`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, block_q, block_k):
+    def forward(ctx, q, k, v, causal, block_q, block_k, precision):
         out, lse = flash_attention_fwd(q, k, v, causal, block_q, block_k,
-                                       want_lse=True)
+                                       want_lse=True, precision=precision)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.blocking = (causal, block_q, block_k)
+        ctx.blocking = (causal, block_q, block_k, precision)
         return out
 
     @staticmethod
@@ -414,17 +509,20 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
                                          *ctx.blocking)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, block_q: int = 512,
-                    block_k: int = 512) -> torch.Tensor:
+                    block_k: int = 512, precision=None) -> torch.Tensor:
     """Exact attention over ``[B, S, H, D]`` inputs; the output has the
-    input's shape and dtype. See :func:`flash_attention_fwd`.
-    Differentiable: with grad mode on and an input that requires grad,
-    the backward runs :func:`flash_attention_bwd`."""
+    input's shape and dtype. See :func:`flash_attention_fwd`, and
+    :func:`resolve_precision` for ``precision``. Differentiable: with
+    grad mode on and an input that requires grad, the backward runs
+    :func:`flash_attention_bwd` at the same precision."""
     if torch.is_grad_enabled() and any(
             isinstance(x, torch.Tensor) and x.requires_grad for x in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
-    return flash_attention_fwd(q, k, v, causal, block_q, block_k)[0]
+        return _FlashAttention.apply(q, k, v, causal, block_q, block_k,
+                                     precision)
+    return flash_attention_fwd(q, k, v, causal, block_q, block_k,
+                               precision=precision)[0]

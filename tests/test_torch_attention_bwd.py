@@ -305,6 +305,7 @@ def test_binding_declares_bwd_pointers_void_p():
     fns = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
            "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90",
            "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
+           "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
            "srt_error_string")
     lib = _build._bind(types.SimpleNamespace(
         **{f: types.SimpleNamespace() for f in fns}))
