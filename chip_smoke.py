@@ -38,19 +38,24 @@ exits nonzero and prints no result. Phases, each one JSON line:
    per-call wall, flash launches (every bench-shape launch on
    ``srt_flash_attn_fwd_sm90``, none of the workload's) and peak device
    memory;
-6. ``attention_bwd_kernel``: both backward pairs against the plain
+6. ``attention_bwd_kernel``: the three backward pairs against the plain
    backward (``flash_attention_bwd_reference`` on the card; fp32 rtol
    2e-4 / atol 2e-5, bf16 and float16 1e-2 / 1e-2), each case asserted
    to have gone through the pair the route rule names. The SIMT pair
-   (``srt_flash_attn_bwd_dq``, ``srt_flash_attn_bwd_dkv``): f32, bf16
-   with D 20 and 256, float16, S from 1 to 2048, D from 4 to 256, and a
-   misaligned ``do`` in f32 and in bf16 D 128. The tensor-core pair
-   (``srt_flash_attn_bwd_dq_sm90``, ``srt_flash_attn_bwd_dkv_sm90``):
-   twelve bf16 shapes, D 64 and 128, causal and not, S 1, 77, 96, 129,
-   1000 and 2048, B and H above 1, each also held against its own plain
-   version (``flash_attention_bwd_sm90_reference``, the same bf16
-   roundings of p and ds) within one bf16 step of the output (2^-7
-   relative) plus 1e-3, the summation order's share;
+   (``srt_flash_attn_bwd_dq``, ``srt_flash_attn_bwd_dkv``): f32 with D
+   4, 6 and 256, bf16 with D 20 and 256, float16, S from 1 to 2048, and
+   a misaligned ``do`` in f32 D 64 and in bf16 D 128. The bf16
+   tensor-core pair (``srt_flash_attn_bwd_dq_sm90``,
+   ``srt_flash_attn_bwd_dkv_sm90``): twelve bf16 shapes, D 64 and 128,
+   causal and not, S 1, 77, 96, 129, 1000 and 2048, B and H above 1,
+   each also held against its own plain version
+   (``flash_attention_bwd_sm90_reference``, the same bf16 roundings of p
+   and ds) within one bf16 step of the output (2^-7 relative) plus 1e-3,
+   the summation order's share. The 3xTF32 pair
+   (``srt_flash_attn_bwd_dq_tf32x3``, ``srt_flash_attn_bwd_dkv_tf32x3``):
+   22 f32 shapes, D 64 and 128, causal and not, S 1, 50, 77, 129, 1000
+   and 2048, each also held against its own plain version
+   (``flash_attention_bwd_tf32x3_reference``) at the fp32 tolerance;
 7. ``training_path``: ``TransformerStep(attn="ulysses")`` at the
    transformer workload's full width (``benchmarks/run_workloads.py``
    ``bench_transformer_train``: B4 S2048, d_model 512, 8 heads, d_hidden
@@ -60,7 +65,9 @@ exits nonzero and prints no result. Phases, each one JSON line:
    / atol 1e-6; the block's gradients through the flash kernels within
    1e-3 of their largest value of the ring schedule's), then
    ``run_steps`` of 9 more with the workload's check that the loss ends
-   at most 1.01 x the first; per-step wall, kernel launches per step,
+   at most 1.01 x the first; one launch a step each of
+   ``srt_flash_attn_fwd``, ``srt_flash_attn_bwd_dq_tf32x3`` and
+   ``srt_flash_attn_bwd_dkv_tf32x3``; per-step wall, kernel launches per step,
    the kernels' share of a profiled step and peak device memory. Then
    bench.py's flash training step (B4 S2048 H8 D128 bf16 causal,
    ``flash_attention(...).float().sum()`` backward: one launch each of
@@ -91,7 +98,8 @@ kernel's time against its bound, the plain version's and, where one
 PyTorch call computes the same function, its time as a yardstick:
 ``scaled_dot_product_attention`` forward and backward, ``torch.roll``;
 at the bench shape both forward kernels, in turns, and both backward
-pairs), ``second_device`` (bf16 B1 S256 H2 D128, launches above 48 KiB
+pairs; at the workload shape the SIMT and the 3xTF32 backward pairs,
+the latter's bound 3 x its flops at the TF32 peak), ``second_device`` (bf16 B1 S256 H2 D128, launches above 48 KiB
 of shared memory, through every flash entry point on ``cuda:1`` after
 ``cuda:0``, when there are two devices; with one it prints that it was
 skipped and why),
@@ -114,6 +122,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak, same sheet
 F32_FLOPS = 67e12  # f32 outside the tensor cores, same sheet
+TF32_TENSOR_FLOPS = 495e12  # dense TF32 tensor-core peak, same sheet
 KEYS = 1 << 28
 EXECUTORS = 8
 REDUCERS = 8
@@ -859,22 +868,42 @@ ATTN_BWD_SHAPES = [
     # float16: the SIMT pair, held at the bf16 tolerance
     (1, 77, 2, 64, "float16", True),
     (2, 130, 2, 128, "float16", False),
+] + [
+    # f32 with D 64 or 128: the 3xTF32 pair, srt_flash_attn_bwd_*_tf32x3
+    (b, s, h, d, "float32", causal)
+    for d in (64, 128) for causal in (False, True)
+    for b, s, h in ((1, 1, 1), (2, 77, 2), (3, 129, 2), (2, 1000, 3), (1, 2048, 2))
 ]
 # The tensor-core pair against its own plain version (the same bf16
 # roundings of p and ds): the two differ only in the order of the f32
 # sums, and a p or ds that lands on the other side of a bf16 rounding
 # boundary. That is one bf16 step of the output (2^-7 relative) plus 1e-3.
 SM90_BWD_TOL = (2.0 ** -7, 1e-3)
-BWD_KERNELS = ("srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
-               "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90")
+# the backward's (dq, dk/dv) pair on each route of pallas_attention.bwd_entry
+BWD_PAIRS = {
+    "simt": ("srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv"),
+    "sm90": ("srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90"),
+    "tf32x3": ("srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3"),
+}
 # bench_transformer_train's widths (benchmarks/run_workloads.py)
 TRAIN = {"b": 4, "s": 2048, "heads": 8, "d_model": 512, "d_hidden": 2048,
          "lr": 0.01, "steps_after_first": 9}
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_PARAM_TOL = (1e-4, 1e-6)
 TRAIN_GRAD_REL = 1e-3
-FLASH_KERNELS = ("srt_flash_attn_fwd", "srt_flash_attn_bwd_dq",
-                 "srt_flash_attn_bwd_dkv")
+# the workload's f32 step: each C entry point and its device kernel's name
+FLASH_KERNELS = {"srt_flash_attn_fwd": "flash_fwd_kernel",
+                 "srt_flash_attn_bwd_dq_tf32x3": "flash_bwd_dq_tf32x3_kernel",
+                 "srt_flash_attn_bwd_dkv_tf32x3": "flash_bwd_dkv_tf32x3_kernel"}
+
+
+def _bwd_route(shape):
+    """The route pallas_attention.bwd_entry takes for these (aligned)
+    inputs: bf16 with D 64 or 128 the tensor-core pair, f32 with D 64 or
+    128 the 3xTF32 pair, the rest SIMT."""
+    if shape[3] in (64, 128) and shape[4] in ("bfloat16", "float32"):
+        return "sm90" if shape[4] == "bfloat16" else "tf32x3"
+    return "simt"
 
 
 def _flash_launches(pa):
@@ -882,11 +911,20 @@ def _flash_launches(pa):
     counts are the wrappers' totals less the tensor-core kernels'."""
     return {"srt_flash_attn_fwd": pa.flash_fwd_launches - pa.flash_fwd_sm90_launches,
             "srt_flash_attn_fwd_sm90": pa.flash_fwd_sm90_launches,
-            "srt_flash_attn_bwd_dq": pa.flash_bwd_dq_launches - pa.flash_bwd_dq_sm90_launches,
+            "srt_flash_attn_bwd_dq": (pa.flash_bwd_dq_launches - pa.flash_bwd_dq_sm90_launches
+                                      - pa.flash_bwd_dq_tf32x3_launches),
             "srt_flash_attn_bwd_dkv": (pa.flash_bwd_dkv_launches
-                                       - pa.flash_bwd_dkv_sm90_launches),
+                                       - pa.flash_bwd_dkv_sm90_launches
+                                       - pa.flash_bwd_dkv_tf32x3_launches),
             "srt_flash_attn_bwd_dq_sm90": pa.flash_bwd_dq_sm90_launches,
-            "srt_flash_attn_bwd_dkv_sm90": pa.flash_bwd_dkv_sm90_launches}
+            "srt_flash_attn_bwd_dkv_sm90": pa.flash_bwd_dkv_sm90_launches,
+            "srt_flash_attn_bwd_dq_tf32x3": pa.flash_bwd_dq_tf32x3_launches,
+            "srt_flash_attn_bwd_dkv_tf32x3": pa.flash_bwd_dkv_tf32x3_launches}
+
+
+def _bwd_took(pa, before):
+    """The entry points launched since ``before`` (a :func:`_flash_launches`)."""
+    return {k: n - before[k] for k, n in _flash_launches(pa).items() if n != before[k]}
 
 
 def _bwd_errs(torch, got, want, dtype, what, tol=None):
@@ -906,31 +944,35 @@ def _bwd_inputs(torch, dev, shape, seed):
 
 
 def phase_attention_bwd_kernel(torch, dev):
-    """Both backward pairs against the plain backward, each case asserted
-    to have gone through the pair the route rule names; the tensor-core
-    pair also against its own plain version (SM90_BWD_TOL)."""
+    """The three backward pairs against the plain backward, each case
+    asserted to have gone through the pair the route rule names; the
+    tensor-core pairs also against their own plain versions (sm90 at
+    SM90_BWD_TOL, 3xTF32 at the fp32 tolerance)."""
     from sparkrdma_tpu_torch.ops import pallas_attention as pa
 
+    own_plain = {"sm90": (pa.flash_attention_bwd_sm90_reference, SM90_BWD_TOL),
+                 "tf32x3": (pa.flash_attention_bwd_tf32x3_reference, None)}
     cases = []
     for i, shape in enumerate(ATTN_BWD_SHAPES):
         b, s, h, d, dtype, causal = shape
-        sm90 = _sm90_shape(shape)
+        route = _bwd_route(shape)
         q, k, v, do, out, lse = _bwd_inputs(torch, dev, shape, 200 + i)
         want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
-        n90 = (pa.flash_bwd_dq_sm90_launches, pa.flash_bwd_dkv_sm90_launches)
+        before = _flash_launches(pa)
         got = pa.flash_attention_bwd(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
-        took = (pa.flash_bwd_dq_sm90_launches - n90[0], pa.flash_bwd_dkv_sm90_launches - n90[1])
-        entry = BWD_KERNELS[2:] if sm90 else BWD_KERNELS[:2]
-        if took != ((1, 1) if sm90 else (0, 0)):
-            raise AssertionError(f"{shape}: {took} tensor-core launches, expected {entry}")
+        took = _bwd_took(pa, before)
+        entry = BWD_PAIRS[route]
+        if took != dict.fromkeys(entry, 1):
+            raise AssertionError(f"{shape}: launched {took}, expected {entry}")
         case = {"shape": [b, s, h, d], "dtype": dtype, "causal": causal,
                 "entry": list(entry),
                 "max_abs_err": _bwd_errs(torch, got, want, dtype, str(shape))}
-        if sm90:
-            own = pa.flash_attention_bwd_sm90_reference(q, k, v, out, lse, do, causal)
-            case["max_abs_err_vs_sm90_plain"] = _bwd_errs(
-                torch, got, own, dtype, f"{shape} vs the sm90 plain version", SM90_BWD_TOL)
+        if route in own_plain:
+            fn, tol = own_plain[route]
+            case[f"max_abs_err_vs_{route}_plain"] = _bwd_errs(
+                torch, got, fn(q, k, v, out, lse, do, causal), dtype,
+                f"{shape} vs the {route} plain version", tol)
         cases.append(case)
     # off a 16-byte boundary: a do 4 bytes past it (f32, the scalar loads
     # again), and a bf16 D 128 do 2 bytes past it (the SIMT bf16 pair)
@@ -940,19 +982,17 @@ def phase_attention_bwd_kernel(torch, dev):
         dom = torch.empty(do.numel() + 1, dtype=do.dtype, device=dev)[1:].view_as(do)
         dom.copy_(do)
         want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
-        n90 = pa.flash_bwd_dq_sm90_launches + pa.flash_bwd_dkv_sm90_launches
+        before = _flash_launches(pa)
         got = pa.flash_attention_bwd(q, k, v, out, lse, dom, True)
-        if pa.flash_bwd_dq_sm90_launches + pa.flash_bwd_dkv_sm90_launches != n90:
-            raise AssertionError(f"misaligned do {shape} took the tensor-core pair")
+        took = _bwd_took(pa, before)
+        if took != dict.fromkeys(BWD_PAIRS["simt"], 1):
+            raise AssertionError(f"misaligned do {shape}: launched {took}, not the SIMT pair")
         cases.append({"shape": list(shape[:4]), "dtype": dtype, "causal": True,
-                      "misaligned_do": True, "entry": list(BWD_KERNELS[:2]),
+                      "misaligned_do": True, "entry": list(BWD_PAIRS["simt"]),
                       "max_abs_err": _bwd_errs(torch, got, want, dtype,
                                                f"misaligned do {shape}")})
     emit(6, name="attention_bwd_kernel", cases=cases,
-         launches={"srt_flash_attn_bwd_dq": pa.flash_bwd_dq_launches,
-                   "srt_flash_attn_bwd_dkv": pa.flash_bwd_dkv_launches,
-                   "srt_flash_attn_bwd_dq_sm90": pa.flash_bwd_dq_sm90_launches,
-                   "srt_flash_attn_bwd_dkv_sm90": pa.flash_bwd_dkv_sm90_launches})
+         launches={k: n for k, n in _flash_launches(pa).items() if "_bwd_" in k})
 
 
 def _train_data(torch, dev):
@@ -1033,9 +1073,9 @@ def phase_training_path(torch, dev):
     launches = _flash_launches(pa)
     peak = torch.cuda.max_memory_allocated()
     n_steps = 1 + t["steps_after_first"]
-    # f32: the SIMT kernels only, one launch each a step
-    simt = {k: int(k in FLASH_KERNELS) for k in launches}
-    if after_step1 != simt or launches != {k: n * n_steps for k, n in simt.items()}:
+    # f32 D 64: the SIMT forward and the 3xTF32 backward pair, one launch each a step
+    per_step = {k: int(k in FLASH_KERNELS) for k in launches}
+    if after_step1 != per_step or launches != {k: n * n_steps for k, n in per_step.items()}:
         raise AssertionError(f"launches not 1/1/1 a step: {after_step1}, {launches}")
     l1, lk = float(loss1), float(loss_k)
     if not (np.isfinite(lk) and lk <= l1 * 1.01):
@@ -1075,8 +1115,8 @@ def phase_training_path(torch, dev):
                if getattr(e, "device_type", None) == cuda]
     busy_ms = sum(e.self_device_time_total for e in dev_ops) / 1e3
     kernel_ms = {name: sum(e.self_device_time_total for e in dev_ops
-                           if f"flash_{part}_kernel" in e.key) / 1e3
-                 for name, part in zip(FLASH_KERNELS, ("fwd", "bwd_dq", "bwd_dkv"))}
+                           if kernel in e.key) / 1e3
+                 for name, kernel in FLASH_KERNELS.items()}
     top = sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:8]
 
     train = {
@@ -1143,8 +1183,8 @@ def phase_training_path(torch, dev):
                  torch, grads, own, "bfloat16",
                  "flash training step vs the sm90 plain version", SM90_BWD_TOL)}
     emit(7, name="training_path", transformer_step=train, flash_train_step=flash)
-    # per kernel: the workload's f32 steps ran SIMT, the flash step the
-    # tensor-core kernels
+    # per kernel: the workload's f32 steps ran the SIMT forward and the
+    # 3xTF32 backward, the flash step the bf16 tensor-core kernels
     return {k: launches[k] + flash_launches[k] for k in launches}
 
 
@@ -1173,19 +1213,24 @@ def _sdpa_backend(torch, fn):
 def time_flash_attention_bwd(torch, dev):
     """The backward kernels at the training path's two shapes: each C
     entry point alone on prebuilt inputs (the SIMT pair at both shapes,
-    the tensor-core pair where the route rule sends the shape), each
-    sweep of its plain version (``pa._bwd_reference(..., sweeps=...)``,
-    with the bf16 roundings for the tensor-core pair), and
-    ``scaled_dot_product_attention``'s backward (forward +
+    the tensor-core pair of the route rule at each), each sweep of its
+    plain version (``pa._bwd_reference(..., sweeps=...)``, with the bf16
+    roundings for the sm90 pair and the 3xTF32 products for the tf32x3
+    pair), and ``scaled_dot_product_attention``'s backward (forward +
     ``autograd.grad``, less the forward) on [B, H, S, D] copies, a
-    yardstick the port never calls, for dq and dk/dv together."""
+    yardstick the port never calls, for dq and dk/dv together. A 3xTF32
+    kernel's bound is 3 x its flops at the TF32 peak (``bound_f32_ms``
+    its flops at the f32 peak, as the SIMT rows)."""
     from sparkrdma_tpu_torch.ops import _build
     from sparkrdma_tpu_torch.ops import pallas_attention as pa
 
     F = torch.nn.functional
     lib = _build.load()
     stream = torch.cuda.current_stream().cuda_stream
-    rec = {k: {} for k in BWD_KERNELS}
+    rec = {k: {} for pair in BWD_PAIRS.values() for k in pair}
+    own = {"sm90": (pa.flash_attention_bwd_sm90_reference, SM90_BWD_TOL),
+           "tf32x3": (pa.flash_attention_bwd_tf32x3_reference, None)}
+    plains = {"simt": "f32", "sm90": "sm90 roundings", "tf32x3": "3xTF32 products"}
     for name, shape in ATTN_PATH_SHAPES.items():
         b, s, h, d, dtype, causal = shape
         q, k, v, do, out, lse = _bwd_inputs(torch, dev, shape, 41)
@@ -1194,12 +1239,11 @@ def time_flash_attention_bwd(torch, dev):
         ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                lse.data_ptr(), delta.data_ptr())
         tail = (b, s, h, d, code, int(causal), stream)
-        pairs = [BWD_KERNELS[:2]] + ([BWD_KERNELS[2:]] if _sm90_shape(shape) else [])
+        routes = ["simt"] + ([_bwd_route(shape)] if _bwd_route(shape) != "simt" else [])
         want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
-        own = (pa.flash_attention_bwd_sm90_reference(q, k, v, out, lse, do, causal)
-               if _sm90_shape(shape) else None)
         runs = {}
-        for dq_name, dkv_name in pairs:
+        for route in routes:
+            dq_name, dkv_name = BWD_PAIRS[route]
             dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
 
             def raw_dq(dq_name=dq_name, dq=dq):
@@ -1214,12 +1258,13 @@ def time_flash_attention_bwd(torch, dev):
             raw_dkv()
             torch.cuda.synchronize()
             errs = _bwd_errs(torch, (dq, dk, dv), want, dtype, f"timing {name} {dq_name}")
-            if dq_name.endswith("_sm90"):
-                _bwd_errs(torch, (dq, dk, dv), own, dtype,
-                          f"timing {name} {dq_name} vs the sm90 plain version", SM90_BWD_TOL)
-            runs[dq_name] = (raw_dq, "dq", 1, 3, errs["dq"])
-            runs[dkv_name] = (raw_dkv, "dkv", 2, 4, max(errs["dk"], errs["dv"]))
-        del want, own
+            if route in own:
+                fn, tol = own[route]
+                _bwd_errs(torch, (dq, dk, dv), fn(q, k, v, out, lse, do, causal), dtype,
+                          f"timing {name} {dq_name} vs the {route} plain version", tol)
+            runs[dq_name] = (route, raw_dq, "dq", 1, 3, errs["dq"])
+            runs[dkv_name] = (route, raw_dkv, "dkv", 2, 4, max(errs["dk"], errs["dv"]))
+        del want
 
         # the yardstick: SDPA forward + backward, less its forward
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
@@ -1244,51 +1289,59 @@ def time_flash_attention_bwd(torch, dev):
         elems = b * s * h * d
         rows = b * h * s
         n_pairs = s * (s + 1) // 2 if causal else s * s
-        peak = BF16_TENSOR_FLOPS if dtype == "bfloat16" else F32_FLOPS
-        for kname, (run, sweep, n_out, fma_per_d, err) in runs.items():
+        for kname, (route, run, sweep, n_out, fma_per_d, err) in runs.items():
             kernel_ms = event_ms_per_call(torch, run, 20)
-            rounded = kname.endswith("_sm90")
 
-            def plain(sweep=sweep, rounded=rounded):
+            def plain(sweep=sweep, route=route):
                 return pa._bwd_reference(q, k, v, out, lse, do, causal, 512, 512,
-                                         sweeps=(sweep,), round_bf16=rounded)
+                                         sweeps=(sweep,), round_bf16=route == "sm90",
+                                         split_tf32=route == "tf32x3")
 
             plain_ms = event_ms_per_call(torch, plain, 5)
             # q, k, v, do read once, lse and delta read once, outputs written once
             moved = (4 + n_out) * elems * item + 2 * rows * 4
             flops = 2 * fma_per_d * b * h * d * n_pairs
+            # the operations this kernel does on the card: 3 TF32 products
+            # a product for tf32x3, one f32 or bf16 product otherwise
+            ops, peak = {"tf32x3": (3 * flops, TF32_TENSOR_FLOPS),
+                         "sm90": (flops, BF16_TENSOR_FLOPS)}.get(route, (flops, F32_FLOPS))
             bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-            ops_ms = flops / peak * 1e3
+            ops_ms = ops / peak * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             rec[kname][name] = {
                 "shape": [b, s, h, d], "dtype": dtype, "causal": causal,
                 "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                "plain": "sm90 roundings" if rounded else "f32",
+                "plain": plains[route],
                 "library_ms": library_ms, "library_scope": "dq+dkv",
                 "library_backend": backend,
                 "library_fwd_ms": lib_fwd_ms, "library_fwd_bwd_ms": lib_total_ms,
                 "bound_ms": bound_ms, "bound_share": bound_ms / kernel_ms,
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "bytes": moved, "flops": flops, "peak_flops": peak,
+                "bound_f32_ms": max(bytes_ms, flops / F32_FLOPS * 1e3),
+                "bytes": moved, "flops": flops, "device_ops": ops, "peak_flops": peak,
                 "tflops": flops / kernel_ms / 1e9,
             }
         del qt, kt, vt, dot
     entries = []
     # each kernel's headline is the shape its main path gives it: the
-    # workload's f32 to the SIMT pair, the bench shape to the tensor-core pair
+    # workload's f32 to the 3xTF32 pair (the SIMT pair keeps the other
+    # inputs), the bench shape to the bf16 tensor-core pair
     for kname, source, replaces, headline in (
             ("srt_flash_attn_bwd_dq", "flash_attn_bwd.cu", 364, "workload_f32"),
             ("srt_flash_attn_bwd_dkv", "flash_attn_bwd.cu", 394, "workload_f32"),
             ("srt_flash_attn_bwd_dq_sm90", "flash_attn_bwd_sm90.cu", 364, "bench_bf16_causal"),
             ("srt_flash_attn_bwd_dkv_sm90", "flash_attn_bwd_sm90.cu", 394,
-             "bench_bf16_causal")):
+             "bench_bf16_causal"),
+            ("srt_flash_attn_bwd_dq_tf32x3", "flash_attn_bwd_tf32x3.cu", 364, "workload_f32"),
+            ("srt_flash_attn_bwd_dkv_tf32x3", "flash_attn_bwd_tf32x3.cu", 394,
+             "workload_f32")):
         head = rec[kname][headline]
         entries.append({
             "name": kname, "route": "cuda",
             "source": f"sparkrdma_tpu_torch/ops/csrc/{source}",
             "replaces": f"sparkrdma_tpu/ops/pallas_attention.py:{replaces}",
             **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms", "tflops")},
+                                    "bound_by", "library_ms", "tflops", "bound_f32_ms")},
             "timer": "cuda_events", "shape_name": headline, "shapes": rec[kname],
         })
     emit("timing_attention_bwd", kernels=entries)
@@ -1331,7 +1384,8 @@ def phase_second_device(torch):
                     q, k, v, out, lse, do, True), "bfloat16", f"cuda:{i} {precision}")
                 got[precision] = [x.cpu() for x in (out, out0, *grads)]
             launches = _flash_launches(pa)
-            if any(count != (2 if entry.startswith("srt_flash_attn_fwd") else 1)
+            if any(count != (2 if entry.startswith("srt_flash_attn_fwd")
+                             else 0 if entry.endswith("_tf32x3") else 1)
                    for entry, count in launches.items()):
                 raise AssertionError(f"cuda:{i}: launches {launches}")
             results[i] = got

@@ -15,9 +15,11 @@ times, at the serving path's two full widths (``chip_smoke.py``'s
 - ``UlyssesAttention(1)`` calls at bench.py's B4 S2048 H8 D128 bf16
   causal shape and at the transformer workload's B4 S2048 H8 D64 fp32
   shape: host clock around each call, which ends in a device sync;
-- bench.py's flash training step at the bench shape:
-  ``flash_attention(q, k, v, causal=True).float().sum().backward()``,
-  host clock around each step, which ends in a device sync.
+- the flash training step, ``flash_attention(q, k, v,
+  causal=...).float().sum().backward()``, at bench.py's shape (bf16
+  causal, the tensor-core kernels) and at the transformer workload's
+  (fp32, not causal: the SIMT forward and the fp32 backward pair), host
+  clock around each step, which ends in a device sync.
 
 Prints the card's name and power limit, one JSON line per turn, and a
 last JSON line with each side's median of its two turns' medians.
@@ -78,16 +80,17 @@ def one_turn(root):
         call = lambda: ul(q, k, v, causal=shape[5])  # noqa: E731
         _walls(torch, call, WARMUP)
         rec[f"ulysses_{name}_s"] = _walls(torch, call, CALLS)
-    q, k, v = (x.requires_grad_(True)
-               for x in _qkv(torch, dev, SHAPES["bench_bf16_causal"], 31))
+    for name, tag in (("bench_bf16_causal", "bench"), ("workload_f32", "workload")):
+        shape = SHAPES[name]
+        q, k, v = (x.requires_grad_(True) for x in _qkv(torch, dev, shape, 31))
 
-    def step():
-        for x in (q, k, v):
-            x.grad = None
-        pa.flash_attention(q, k, v, causal=True).float().sum().backward()
+        def step(q=q, k=k, v=v, causal=shape[5]):
+            for x in (q, k, v):
+                x.grad = None
+            pa.flash_attention(q, k, v, causal=causal).float().sum().backward()
 
-    _walls(torch, step, WARMUP)
-    rec["flash_step_bench_s"] = _walls(torch, step, STEPS)
+        _walls(torch, step, WARMUP)
+        rec[f"flash_step_{tag}_s"] = _walls(torch, step, STEPS)
     print(json.dumps(rec), flush=True)
 
 

@@ -119,6 +119,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.srt_flash_attn_bwd_dq_sm90.restype = ctypes.c_int
     lib.srt_flash_attn_bwd_dkv_sm90.argtypes = [vp] * 8 + [ll] * 6 + [vp]
     lib.srt_flash_attn_bwd_dkv_sm90.restype = ctypes.c_int
+    lib.srt_flash_attn_bwd_dq_tf32x3.argtypes = [vp] * 7 + [ll] * 6 + [vp]
+    lib.srt_flash_attn_bwd_dq_tf32x3.restype = ctypes.c_int
+    lib.srt_flash_attn_bwd_dkv_tf32x3.argtypes = [vp] * 8 + [ll] * 6 + [vp]
+    lib.srt_flash_attn_bwd_dkv_tf32x3.restype = ctypes.c_int
     lib.srt_error_string.argtypes = [ctypes.c_int]
     lib.srt_error_string.restype = ctypes.c_char_p
     return lib

@@ -19,11 +19,14 @@ probability tiles from ``(q, k, lse)``.
   (``srt_flash_attn_fwd``: f32 FMA). A kernel that does not build or
   launch raises; nothing retries on the other kernel or falls back.
 - ``flash_attention_bwd``: on CUDA tensors one dq launch and one dk/dv
-  launch, of the pair :func:`bwd_entry` names the same way: the
+  launch, of the pair :func:`bwd_entry` names the same way: for bf16 the
   tensor-core ``srt_flash_attn_bwd_dq_sm90`` and
-  ``srt_flash_attn_bwd_dkv_sm90`` (``csrc/flash_attn_bwd_sm90.cu``) or
-  the SIMT ``srt_flash_attn_bwd_dq`` and ``srt_flash_attn_bwd_dkv``
-  (``csrc/flash_attn_bwd.cu``); on CPU tensors
+  ``srt_flash_attn_bwd_dkv_sm90`` (``csrc/flash_attn_bwd_sm90.cu``), for
+  float32 the 3xTF32 tensor-core ``srt_flash_attn_bwd_dq_tf32x3`` and
+  ``srt_flash_attn_bwd_dkv_tf32x3`` (``csrc/flash_attn_bwd_tf32x3.cu``),
+  where D and alignment allow; otherwise the SIMT
+  ``srt_flash_attn_bwd_dq`` and ``srt_flash_attn_bwd_dkv``
+  (``csrc/flash_attn_bwd.cu``). On CPU tensors
   :func:`flash_attention_bwd_reference`.
 - ``flash_attention`` is differentiable: with grad mode on and an input
   that requires grad it runs :class:`_FlashAttention`, the counterpart of
@@ -37,10 +40,15 @@ probability tiles from ``(q, k, lse)``.
   ``precision=DEFAULT`` (one bf16 MXU pass a product): products from
   bf16 operands into f32, ``p`` rounded to bf16 before p.v (and p^T.do),
   ``ds`` rounded to bf16 before ds.k and ds^T.q, ``l`` and ``ds`` from
-  the f32 ``p``. Every other input takes the SIMT kernels, which widen
-  to f32 and compute full-f32 products: float32 at every precision,
-  float16, and bf16 at ``"high"`` or ``"highest"``. Outputs are rounded
-  back to the input dtype (to nearest even).
+  the f32 ``p``. The float32 backward (every precision, D 64 or 128,
+  16-byte-aligned tensors) takes the 3xTF32 kernels: each f32 operand
+  split into a TF32 ``hi`` and ``lo`` and each product taken as
+  ``hi*lo + lo*hi + hi*hi`` on the tensor cores, about 22 bits of each
+  operand, the accuracy of an f32 product (plain TF32 would not be).
+  Every other input takes the SIMT kernels, which widen to f32 and
+  compute full-f32 products: the float32 forward, float16, and bf16 at
+  ``"high"`` or ``"highest"``. Outputs are rounded back to the input
+  dtype (to nearest even).
 - CPU tensors run the plain versions in f32 whatever the precision. The
   JAX ``interpret=`` argument has no counterpart: the plain version is
   the port's interpret mode.
@@ -48,9 +56,10 @@ probability tiles from ``(q, k, lse)``.
 Every launch adds one to its kernel's counter: ``flash_fwd_launches``
 (every forward launch, on either kernel), ``flash_fwd_sm90_launches``
 (those of ``srt_flash_attn_fwd_sm90``), ``flash_bwd_dq_launches`` and
-``flash_bwd_dkv_launches`` (every backward launch, on either pair),
+``flash_bwd_dkv_launches`` (every backward launch, on any pair),
 ``flash_bwd_dq_sm90_launches`` and ``flash_bwd_dkv_sm90_launches``
-(those of the tensor-core pair).
+(those of the bf16 tensor-core pair), ``flash_bwd_dq_tf32x3_launches``
+and ``flash_bwd_dkv_tf32x3_launches`` (those of the 3xTF32 pair).
 """
 
 from __future__ import annotations
@@ -73,18 +82,23 @@ flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 flash_bwd_dq_sm90_launches = 0
 flash_bwd_dkv_sm90_launches = 0
+flash_bwd_dq_tf32x3_launches = 0
+flash_bwd_dkv_tf32x3_launches = 0
 
 
 def reset_launch_counts() -> None:
     global flash_fwd_launches, flash_fwd_sm90_launches
     global flash_bwd_dq_launches, flash_bwd_dkv_launches
     global flash_bwd_dq_sm90_launches, flash_bwd_dkv_sm90_launches
+    global flash_bwd_dq_tf32x3_launches, flash_bwd_dkv_tf32x3_launches
     flash_fwd_launches = 0
     flash_fwd_sm90_launches = 0
     flash_bwd_dq_launches = 0
     flash_bwd_dkv_launches = 0
     flash_bwd_dq_sm90_launches = 0
     flash_bwd_dkv_sm90_launches = 0
+    flash_bwd_dq_tf32x3_launches = 0
+    flash_bwd_dkv_tf32x3_launches = 0
 
 
 def resolve_precision(precision, dtype: torch.dtype) -> str:
@@ -234,10 +248,43 @@ def flash_attention_bwd_sm90_reference(
                           round_bf16=True)
 
 
+def flash_attention_bwd_tf32x3_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool = False,
+    block_q: int = 512, block_k: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The function of the 3xTF32 backward pair
+    (``srt_flash_attn_bwd_dq_tf32x3``, ``srt_flash_attn_bwd_dkv_tf32x3``):
+    :func:`flash_attention_bwd_reference`'s blocking and masks, with each
+    of its five products ``a @ b`` taken as ``hi_a @ lo_b + lo_a @ hi_b +
+    hi_a @ hi_b`` of the operands' TF32 split (:func:`_tf32_split`), the
+    ``lo @ lo`` term dropped. For float32 inputs. Used by the tests and by
+    ``chip_smoke.py`` to hold the kernels to their own arithmetic; nothing
+    on the main path calls it."""
+    return _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k,
+                          split_tf32=True)
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits'
+    range to the int32 view, then clear them."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)``: ``hi`` is x rounded to TF32, ``lo`` the exact
+    remainder ``x - hi`` rounded to TF32; ``hi + lo`` carries about 22
+    bits of x."""
+    hi = _tf32_round(x)
+    return hi, _tf32_round(x - hi)
+
+
 def _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k,
-                   sweeps=("dq", "dkv"), round_bf16=False):
+                   sweeps=("dq", "dkv"), round_bf16=False, split_tf32=False):
     """:func:`flash_attention_bwd_reference` (or, with ``round_bf16``,
-    :func:`flash_attention_bwd_sm90_reference`), running only the named
+    :func:`flash_attention_bwd_sm90_reference`; with ``split_tf32``,
+    :func:`flash_attention_bwd_tf32x3_reference`), running only the named
     sweeps (the others' gradients stay zero), so each sweep can be timed
     beside its kernel."""
     b, s, h, d = q.shape
@@ -255,18 +302,24 @@ def _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k,
     dev = q.device
     pos = torch.arange(s_pad, device=dev)
 
+    def mm(a, b):  # one product: f32, or 3xTF32 with split_tf32
+        if not split_tf32:
+            return torch.matmul(a, b)
+        (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+        return torch.matmul(ah, bl) + torch.matmul(al, bh) + torch.matmul(ah, bh)
+
     def probs(iq, ik):
         """p [B, H, bq, bk] and ds of the (iq, ik) tile pair."""
         qp, kp = pos[iq * bq:(iq + 1) * bq], pos[ik * bk:(ik + 1) * bk]
         qb, dob = qt[:, :, iq * bq:(iq + 1) * bq], dot[:, :, iq * bq:(iq + 1) * bq]
         kb, vb = kt[:, :, ik * bk:(ik + 1) * bk], vt[:, :, ik * bk:(ik + 1) * bk]
-        sc = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+        sc = mm(qb, kb.transpose(-1, -2)) * scale
         mask = (qp[:, None] < s) & (kp[None, :] < s)
         if causal:
             mask = mask & (qp[:, None] >= kp[None, :])
         sc = torch.where(mask, sc, NEG_INF)
         p = torch.exp(sc - lse[:, :, iq * bq:(iq + 1) * bq, None])
-        dp = torch.matmul(dob, vb.transpose(-1, -2))
+        dp = mm(dob, vb.transpose(-1, -2))
         ds = p * (dp - delta[:, :, iq * bq:(iq + 1) * bq, None])
         return p, ds, qb, dob, kb
 
@@ -284,16 +337,15 @@ def _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k,
             if not live(iq, ik):
                 break
             _, ds, _, _, kb = probs(iq, ik)
-            dq[:, :, iq * bq:(iq + 1) * bq] += torch.matmul(rnd(ds), kb) * scale
+            dq[:, :, iq * bq:(iq + 1) * bq] += mm(rnd(ds), kb) * scale
     for ik in range(s_pad // bk if "dkv" in sweeps else 0):
         for iq in range(s_pad // bq):  # _dkv_kernel: q blocks minor
             if not live(iq, ik):
                 continue
             p, ds, qb, dob, _ = probs(iq, ik)
-            dv[:, :, ik * bk:(ik + 1) * bk] += torch.matmul(
-                rnd(p).transpose(-1, -2), dob)
+            dv[:, :, ik * bk:(ik + 1) * bk] += mm(rnd(p).transpose(-1, -2), dob)
             dk[:, :, ik * bk:(ik + 1) * bk] += (
-                torch.matmul(rnd(ds).transpose(-1, -2), qb) * scale)
+                mm(rnd(ds).transpose(-1, -2), qb) * scale)
 
     def unprep(x, like):
         return x[:, :, :s].permute(0, 2, 1, 3).to(like.dtype)
@@ -306,15 +358,19 @@ def _kernel_path(q: torch.Tensor) -> bool:
     return q.device.type == "cuda"
 
 
+def _aligned(tensors) -> bool:
+    """Every tensor on a 16-byte boundary (the tensor-core kernels' TMA and
+    16-byte loads and stores need it)."""
+    return all(x.data_ptr() % 16 == 0 for x in tensors)
+
+
 def _sm90_route(q: torch.Tensor, precision, tensors) -> bool:
-    """Whether the tensor-core kernels take these inputs: bf16 at
+    """Whether the bf16 tensor-core kernels take these inputs: bf16 at
     precision ``"default"`` with D in :data:`SM90_HEAD_DIMS` and every
-    tensor on a 16-byte boundary (their TMA loads and 16-byte stores need
-    it)."""
+    tensor on a 16-byte boundary."""
     return (q.dtype == torch.bfloat16
             and resolve_precision(precision, q.dtype) == "default"
-            and q.shape[-1] in SM90_HEAD_DIMS
-            and all(x.data_ptr() % 16 == 0 for x in tensors))
+            and q.shape[-1] in SM90_HEAD_DIMS and _aligned(tensors))
 
 
 def fwd_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -331,15 +387,21 @@ def fwd_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def bwd_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               do: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
               dv: torch.Tensor, precision=None) -> Tuple[str, str]:
-    """The C entry points ``(dq, dk/dv)`` a CUDA backward launches: the
-    tensor-core pair ``srt_flash_attn_bwd_dq_sm90`` and
-    ``srt_flash_attn_bwd_dkv_sm90`` for bf16 at precision ``"default"``
-    with D in :data:`SM90_HEAD_DIMS` and q, k, v, do, dq, dk and dv on
-    16-byte boundaries, else ``srt_flash_attn_bwd_dq`` and
+    """The C entry points ``(dq, dk/dv)`` a CUDA backward launches, where
+    D is in :data:`SM90_HEAD_DIMS` and q, k, v, do, dq, dk and dv lie on
+    16-byte boundaries: the tensor-core pair ``srt_flash_attn_bwd_dq_sm90``
+    and ``srt_flash_attn_bwd_dkv_sm90`` for bf16 at precision
+    ``"default"``, the 3xTF32 pair ``srt_flash_attn_bwd_dq_tf32x3`` and
+    ``srt_flash_attn_bwd_dkv_tf32x3`` for float32 at every precision.
+    Everything else takes ``srt_flash_attn_bwd_dq`` and
     ``srt_flash_attn_bwd_dkv``. A pure function of dtype, precision, D
     and alignment, as :func:`fwd_entry` is."""
-    if _sm90_route(q, precision, (q, k, v, do, dq, dk, dv)):
+    tensors = (q, k, v, do, dq, dk, dv)
+    if _sm90_route(q, precision, tensors):
         return "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90"
+    if (q.dtype == torch.float32 and q.shape[-1] in SM90_HEAD_DIMS
+            and _aligned(tensors)):
+        return "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3"
     return "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv"
 
 
@@ -413,6 +475,7 @@ def _launch_bwd(q, k, v, out, lse, do, causal, precision=None):
 
     global flash_bwd_dq_launches, flash_bwd_dkv_launches
     global flash_bwd_dq_sm90_launches, flash_bwd_dkv_sm90_launches
+    global flash_bwd_dq_tf32x3_launches, flash_bwd_dkv_tf32x3_launches
     b, s, h, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(
@@ -445,9 +508,11 @@ def _launch_bwd(q, k, v, out, lse, do, causal, precision=None):
         call(dq_name, dq)
         flash_bwd_dq_launches += 1
         flash_bwd_dq_sm90_launches += int(dq_name.endswith("_sm90"))
+        flash_bwd_dq_tf32x3_launches += int(dq_name.endswith("_tf32x3"))
         call(dkv_name, dk, dv)
         flash_bwd_dkv_launches += 1
         flash_bwd_dkv_sm90_launches += int(dkv_name.endswith("_sm90"))
+        flash_bwd_dkv_tf32x3_launches += int(dkv_name.endswith("_tf32x3"))
     return dq, dk, dv
 
 

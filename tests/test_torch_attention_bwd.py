@@ -306,6 +306,7 @@ def test_binding_declares_bwd_pointers_void_p():
            "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90",
            "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
            "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
+           "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3",
            "srt_error_string")
     lib = _build._bind(types.SimpleNamespace(
         **{f: types.SimpleNamespace() for f in fns}))

@@ -33,10 +33,12 @@ torch.set_num_threads(1)
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 SM90 = ("srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90")
 SIMT = ("srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv")
+TF32X3 = ("srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3")
 BOUND = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
          "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90",
          "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
          "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
+         "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3",
          "srt_error_string")
 
 
@@ -61,7 +63,9 @@ def _misaligned(x):
 def test_bwd_entry_by_dtype_and_head_dim(dtype, d):
     q, k, v, do = (torch.zeros((1, 8, 2, d), dtype=dtype) for _ in range(4))
     grads = [torch.empty_like(q) for _ in range(3)]
-    want = SM90 if dtype == torch.bfloat16 and d in (64, 128) else SIMT
+    want = SIMT
+    if d in (64, 128):
+        want = {torch.bfloat16: SM90, torch.float32: TF32X3}.get(dtype, SIMT)
     assert tpa.bwd_entry(q, k, v, do, *grads) == want
 
 
@@ -184,9 +188,11 @@ def test_sm90_launch_arguments_and_counters(kernel_path, d, causal):
 
 @pytest.mark.parametrize("case", ["fp32", "bf16_d32", "bf16_misaligned_do"])
 def test_other_inputs_keep_the_simt_pair(kernel_path, case):
+    """fp32 at D 32 (D 64 and 128 take the 3xTF32 pair), bf16 at D 32,
+    and a bf16 ``do`` off its 16-byte boundary."""
     lib = kernel_path(_FakeLib())
     dtype = torch.float32 if case == "fp32" else torch.bfloat16
-    d = 32 if case == "bf16_d32" else 64
+    d = 64 if case == "bf16_misaligned_do" else 32
     q, k, v, do, out = (torch.from_numpy(x).to(dtype)
                         for x in _inputs(1, 16, 2, d, seed=5, n=5))
     if case == "bf16_misaligned_do":
