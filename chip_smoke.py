@@ -19,25 +19,28 @@ exits nonzero and prints no result. Phases, each one JSON line:
    Every reducer's output is checked against ``np.sort`` of its key
    range and against the input's count, sum and xor;
 3. ``TeraSorter.step`` for one device at the ``entry()`` shape;
-4. ``attention_kernel``: both forward kernels against their plain
+4. ``attention_kernel``: the three forward kernels against their plain
    version (``flash_attention_reference`` on the card), out and lse
-   (fp32 rtol 2e-4 / atol 2e-5, bf16 1e-2 / 1e-2, lse atol 1e-4):
-   ``srt_flash_attn_fwd`` on seven f32 and odd-D shapes (S 1 to 2000,
-   D 4 to 256) and two misaligned q's (f32 D 64, bf16 D 128), together
-   both of its load paths and all four of its tile variants;
-   ``srt_flash_attn_fwd_sm90`` on ten bf16 shapes, D 64 and 128, S 1,
-   77, 130, 1000 and 4096, causal and not, B and H above 1, each
-   asserted to have gone through it (two launches a shape) and the
-   misaligned q's asserted not to; two float16 shapes on
-   ``srt_flash_attn_fwd`` at the bf16 tolerance;
+   (fp32 rtol 2e-4 / atol 2e-5, bf16 1e-2 / 1e-2, lse atol 1e-4), each
+   case asserted to have gone through the kernel the route rule names
+   (two launches a shape): ``srt_flash_attn_fwd`` on f32 and bf16 at
+   odd D (4 to 256, S 1 to 1024) and two misaligned q's (f32 D 64, bf16
+   D 128), together both of its load paths and all four of its tile
+   variants; ``srt_flash_attn_fwd_sm90`` on ten bf16 shapes, D 64 and
+   128, S 1, 77, 130, 1000 and 4096, causal and not, B and H above 1;
+   ``srt_flash_attn_fwd_tf32x3`` on thirteen f32 shapes, D 64 and 128,
+   causal and not, S 1, 77, 129, 1000 and 2048 (the workload's B4 S2048
+   H8 D64 among them), each also held against its own plain version
+   (``flash_attention_tf32x3_reference``) at the fp32 tolerance; two
+   float16 shapes on ``srt_flash_attn_fwd`` at the bf16 tolerance;
 5. ``attention_path``: the attention serving path through its public
    entry points at the repo's two full widths (bench.py's B4 S2048 H8
    D128 bf16 causal, the transformer workload's B4 S2048 H8 D64 fp32
    non-causal): ``UlyssesAttention(1)`` answers 3 calls, each checked
    against the plain version, and ``RingAttention(1)`` against Ulysses;
    per-call wall, flash launches (every bench-shape launch on
-   ``srt_flash_attn_fwd_sm90``, none of the workload's) and peak device
-   memory;
+   ``srt_flash_attn_fwd_sm90``, every workload launch on
+   ``srt_flash_attn_fwd_tf32x3``) and peak device memory;
 6. ``attention_bwd_kernel``: the three backward pairs against the plain
    backward (``flash_attention_bwd_reference`` on the card; fp32 rtol
    2e-4 / atol 2e-5, bf16 and float16 1e-2 / 1e-2), each case asserted
@@ -66,8 +69,9 @@ exits nonzero and prints no result. Phases, each one JSON line:
    1e-3 of their largest value of the ring schedule's), then
    ``run_steps`` of 9 more with the workload's check that the loss ends
    at most 1.01 x the first; one launch a step each of
-   ``srt_flash_attn_fwd``, ``srt_flash_attn_bwd_dq_tf32x3`` and
-   ``srt_flash_attn_bwd_dkv_tf32x3``; per-step wall, kernel launches per step,
+   ``srt_flash_attn_fwd_tf32x3``, ``srt_flash_attn_bwd_dq_tf32x3`` and
+   ``srt_flash_attn_bwd_dkv_tf32x3`` and none of the SIMT forward;
+   per-step wall, kernel launches per step,
    the kernels' share of a profiled step and peak device memory. Then
    bench.py's flash training step (B4 S2048 H8 D128 bf16 causal,
    ``flash_attention(...).float().sum()`` backward: one launch each of
@@ -97,9 +101,10 @@ Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, where one
 PyTorch call computes the same function, its time as a yardstick:
 ``scaled_dot_product_attention`` forward and backward, ``torch.roll``;
-at the bench shape both forward kernels, in turns, and both backward
-pairs; at the workload shape the SIMT and the 3xTF32 backward pairs,
-the latter's bound 3 x its flops at the TF32 peak), ``second_device`` (bf16 B1 S256 H2 D128, launches above 48 KiB
+at the bench shape the sm90 and SIMT forward kernels, in turns, and
+both backward pairs; at the workload shape the 3xTF32 and SIMT forward
+kernels, in turns, and the SIMT and the 3xTF32 backward pairs, a 3xTF32
+kernel's bound 3 x its flops at the TF32 peak), ``second_device`` (bf16 B1 S256 H2 D128, launches above 48 KiB
 of shared memory, through every flash entry point on ``cuda:1`` after
 ``cuda:0``, when there are two devices; with one it prints that it was
 skipped and why),
@@ -112,6 +117,7 @@ script exits nonzero.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -169,6 +175,28 @@ def event_ms_per_call(torch, fn, n):
     return a.elapsed_time(b) / n
 
 
+def ptxas_summary(log, key):
+    """Registers, stack frame and spill bytes of each kernel whose mangled
+    name holds ``key``, from the build's ``-Xptxas -v`` lines."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn is None or key not in fn:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(fn, {}).update(zip(("stack", "spill_stores", "spill_loads"),
+                                              map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
+    return out
+
+
 # ----------------------------------------------------------------------
 def phase_environment(torch):
     smi = subprocess.run(
@@ -187,7 +215,8 @@ def phase_environment(torch):
          float32_matmul_precision=torch.get_float32_matmul_precision(),
          build_s=_build.build_seconds, load_s=time.perf_counter() - t0,
          ptxas=[ln.strip() for ln in _build.build_log.splitlines()
-                if "ptxas info" in ln or "spill" in ln or "warning" in ln])
+                if "ptxas info" in ln or "spill" in ln or "warning" in ln],
+         tf32x3_ptxas=ptxas_summary(_build.build_log, "tf32x3"))
     return smi
 
 
@@ -577,14 +606,28 @@ TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2), "float16": (1e-2, 1e-2
 LSE_ATOL = 1e-4
 # (B, S, H, D, dtype, causal)
 ATTN_KERNEL_SHAPES = [
+    # the SIMT kernel, srt_flash_attn_fwd: f32 at D other than 64 and 128
     (1, 1, 1, 4, "float32", False),
     (2, 300, 3, 8, "float32", True),
-    (1, 2000, 2, 64, "float32", False),
-    (1, 1000, 2, 128, "float32", True),
+    (1, 1000, 2, 96, "float32", True),
     (1, 1024, 2, 256, "float32", False),
     # D not a multiple of the 16-byte vector: the kernel's scalar loads
     (1, 77, 2, 6, "float32", True),
     (1, 130, 3, 20, "bfloat16", False),
+    # f32 with D 64 or 128: the 3xTF32 kernel, srt_flash_attn_fwd_tf32x3
+    (1, 1, 1, 64, "float32", False),
+    (2, 77, 2, 64, "float32", True),
+    (3, 129, 2, 64, "float32", False),
+    (2, 1000, 3, 64, "float32", True),
+    (1, 2000, 2, 64, "float32", False),
+    (1, 2048, 2, 64, "float32", True),
+    (4, 2048, 8, 64, "float32", False),  # the transformer workload's attention
+    (1, 1, 2, 128, "float32", True),
+    (2, 77, 3, 128, "float32", False),
+    (1, 129, 2, 128, "float32", True),
+    (1, 1000, 2, 128, "float32", True),
+    (2, 1000, 2, 128, "float32", False),
+    (1, 2048, 2, 128, "float32", True),
     # bf16 with D 64 or 128: the tensor-core kernel, srt_flash_attn_fwd_sm90
     (2, 1, 3, 64, "bfloat16", False),
     (1, 1, 2, 128, "bfloat16", True),
@@ -605,7 +648,7 @@ ATTN_PATH_SHAPES = {
     "bench_bf16_causal": (4, 2048, 8, 128, "bfloat16", True),
     "workload_f32": (4, 2048, 8, 64, "float32", False),
 }
-FWD_KERNELS = ("srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90")
+FWD_KERNELS = ("srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90", "srt_flash_attn_fwd_tf32x3")
 
 
 def _qkv(torch, dev, shape, seed):
@@ -630,59 +673,81 @@ def _max_err(torch, got, want, dtype, what, tol=None):
     return float(err.max())
 
 
-def _sm90_shape(shape):
-    """Whether the route rule sends these (aligned) inputs to the
-    tensor-core kernel: bf16 with D 64 or 128."""
-    return shape[4] == "bfloat16" and shape[3] in (64, 128)
+def _fwd_entry(shape):
+    """The forward kernel pallas_attention.fwd_entry names for these
+    (aligned) inputs: bf16 with D 64 or 128 the tensor-core kernel, f32
+    with D 64 or 128 the 3xTF32 kernel, the rest SIMT."""
+    if shape[3] in (64, 128) and shape[4] in ("bfloat16", "float32"):
+        return FWD_KERNELS[1] if shape[4] == "bfloat16" else FWD_KERNELS[2]
+    return FWD_KERNELS[0]
+
+
+def _lse_err(torch, lse, want, what):
+    err = (lse - want).abs()
+    if not torch.isfinite(lse).all() or float(err.max()) > LSE_ATOL:
+        raise AssertionError(f"{what}: lse max abs error {float(err.max())}")
+    return float(err.max())
 
 
 def phase_attention_kernel(torch, dev):
+    """The three forward kernels against the plain forward, each case
+    asserted to have gone through the kernel the route rule names; the
+    3xTF32 kernel also against its own plain version at the fp32
+    tolerance."""
     from sparkrdma_tpu_torch.ops import pallas_attention as pa
 
     cases = []
     for i, shape in enumerate(ATTN_KERNEL_SHAPES):
         b, s, h, d, dtype, causal = shape
-        entry = FWD_KERNELS[1] if _sm90_shape(shape) else FWD_KERNELS[0]
+        entry = _fwd_entry(shape)
         q, k, v = _qkv(torch, dev, shape, 100 + i)
         want, want_lse = pa.flash_attention_reference(q, k, v, causal,
                                                       want_lse=True)
-        n90 = pa.flash_fwd_sm90_launches
+        before = _flash_launches(pa)
         got = pa.flash_attention_fwd(q, k, v, causal)[0]
         got2, lse = pa.flash_attention_fwd(q, k, v, causal, want_lse=True)
         torch.cuda.synchronize()
+        took = _took(pa, before)
         what = f"{entry} {shape}"
-        if pa.flash_fwd_sm90_launches - n90 != (2 if entry.endswith("sm90") else 0):
-            raise AssertionError(f"{what}: {pa.flash_fwd_sm90_launches - n90} "
-                                 f"srt_flash_attn_fwd_sm90 launches of 2")
-        err = _max_err(torch, got, want, dtype, what)
-        err2 = _max_err(torch, got2, want, dtype, what + " (lse variant)")
+        if took != {entry: 2}:
+            raise AssertionError(f"{what}: launched {took}, expected 2 of {entry}")
         if lse.shape != (b, h, s):
             raise AssertionError(f"{what}: lse shape {tuple(lse.shape)}")
-        lse_err = (lse - want_lse).abs()
-        if not torch.isfinite(lse).all() or float(lse_err.max()) > LSE_ATOL:
-            raise AssertionError(f"{what}: lse max abs error {float(lse_err.max())}")
-        cases.append({"shape": [b, s, h, d], "dtype": dtype, "causal": causal,
-                      "entry": entry, "max_abs_err": max(err, err2),
-                      "lse_max_abs_err": float(lse_err.max())})
+        case = {"shape": [b, s, h, d], "dtype": dtype, "causal": causal,
+                "entry": entry,
+                "max_abs_err": max(_max_err(torch, got, want, dtype, what),
+                                   _max_err(torch, got2, want, dtype,
+                                            what + " (lse variant)")),
+                "lse_max_abs_err": _lse_err(torch, lse, want_lse, what)}
+        if entry == "srt_flash_attn_fwd_tf32x3":
+            own, own_lse = pa.flash_attention_tf32x3_reference(q, k, v, causal,
+                                                               want_lse=True)
+            what += " vs the tf32x3 plain version"
+            case["max_abs_err_vs_tf32x3_plain"] = max(
+                _max_err(torch, got, own, dtype, what),
+                _max_err(torch, got2, own, dtype, what + " (lse variant)"))
+            case["lse_max_abs_err_vs_tf32x3_plain"] = _lse_err(torch, lse, own_lse, what)
+        cases.append(case)
     # a q off its 16-byte boundary (4 bytes f32, 2 bytes bf16): the SIMT
-    # kernel and its scalar loads, also for bf16 D 128
+    # kernel and its scalar loads, also for f32 D 64 and bf16 D 128
     for shape in ((1, 129, 2, 64, "float32", True),
                   (1, 1000, 2, 128, "bfloat16", True)):
         dtype = shape[4]
         q, k, v = _qkv(torch, dev, shape, 99)
         qm = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view_as(q)
         qm.copy_(q)
-        n90 = pa.flash_fwd_sm90_launches
+        before = _flash_launches(pa)
         got = pa.flash_attention(qm, k, v, causal=True)
-        if pa.flash_fwd_sm90_launches != n90:
-            raise AssertionError(f"misaligned q {shape} took srt_flash_attn_fwd_sm90")
+        took = _took(pa, before)
+        if took != {"srt_flash_attn_fwd": 1}:
+            raise AssertionError(f"misaligned q {shape}: launched {took}, not the SIMT kernel")
         err = _max_err(torch, got, pa.flash_attention_reference(q, k, v, True)[0],
                        dtype, f"srt_flash_attn_fwd misaligned q {shape}")
         cases.append({"shape": list(shape[:4]), "dtype": dtype, "causal": True,
                       "entry": "srt_flash_attn_fwd", "misaligned_q": True,
                       "max_abs_err": err})
-    emit(4, name="attention_kernel", cases=cases, launches=pa.flash_fwd_launches,
-         sm90_launches=pa.flash_fwd_sm90_launches)
+    emit(4, name="attention_kernel", cases=cases,
+         launches={k: n for k, n in _flash_launches(pa).items() if k in FWD_KERNELS})
 
 
 def phase_attention_path(torch, dev):
@@ -694,6 +759,7 @@ def phase_attention_path(torch, dev):
     report = {}
     launches = dict.fromkeys(FWD_KERNELS, 0)
     for name, shape in ATTN_PATH_SHAPES.items():
+        entry = _fwd_entry(shape)
         b, s, h, d, dtype, causal = shape
         q, k, v = _qkv(torch, dev, shape, 21)
         want = pa.flash_attention_reference(q, k, v, causal)[0]
@@ -712,28 +778,28 @@ def phase_attention_path(torch, dev):
         ring_out = RingAttention(1)(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ring_s = time.perf_counter() - t
-        n, n90 = pa.flash_fwd_launches, pa.flash_fwd_sm90_launches
+        n = pa.flash_fwd_launches
+        took = {k: c for k, c in _flash_launches(pa).items() if c}
         peak = torch.cuda.max_memory_allocated()
         if n <= 0:
             raise AssertionError(f"{name}: the flash forward never launched")
-        # the bench shape (bf16, D 128) runs the tensor-core kernel only
-        if n90 != (n if _sm90_shape(shape) else 0):
-            raise AssertionError(f"{name}: {n90} of {n} forward launches on "
-                                 f"srt_flash_attn_fwd_sm90")
+        # the bench shape (bf16, D 128) runs the tensor-core kernel only, the
+        # workload's (f32, D 64) the 3xTF32 kernel only
+        if took != {entry: n}:
+            raise AssertionError(f"{name}: forward launches {took}, not {n} of {entry}")
         errs = []
         for i, out in enumerate(outs):
             if out.shape != q.shape or out.dtype != q.dtype:
                 raise AssertionError(f"{name} call {i}: {out.shape} {out.dtype}")
             errs.append(_max_err(torch, out, want, dtype, f"{name} call {i}"))
         ring_err = _max_err(torch, ring_out, outs[0], dtype, f"{name} ring")
-        launches["srt_flash_attn_fwd"] += n - n90
-        launches["srt_flash_attn_fwd_sm90"] += n90
+        launches[entry] += n
         flops = 4 * b * h * d * (s * (s + 1) // 2 if causal else s * s)
         report[name] = {
             "shape": [b, s, h, d], "dtype": dtype, "causal": causal,
             "ulysses_call_s": walls, "ring_call_s": ring_s,
             "ulysses_tflops_warm": flops / min(walls[1:]) / 1e12,
-            "flash_fwd_launches": n, "srt_flash_attn_fwd_sm90_launches": n90,
+            "flash_fwd_launches": n, "launches": took,
             "peak_device_bytes": peak,
             "peak_above_baseline_bytes": peak - base,
             "max_abs_err_vs_plain": errs, "ring_vs_ulysses_max_abs_err": ring_err,
@@ -743,13 +809,17 @@ def phase_attention_path(torch, dev):
 
 
 def time_flash_attention(torch, dev):
-    """The two forward kernels at the serving path's two shapes: each C
-    entry point alone on prebuilt outputs (``srt_flash_attn_fwd_sm90``
-    where the route rule sends the shape, ``srt_flash_attn_fwd`` at
-    both), the plain version, and ``scaled_dot_product_attention`` on
-    [B, H, S, D] copies (a yardstick the port never calls). Where both
-    kernels run one shape they are timed in turns, sm90, SIMT, SIMT,
-    sm90, and each reports the mean of its two readings."""
+    """The forward kernels at the serving path's two shapes: each C entry
+    point alone on prebuilt outputs (the tensor-core kernel the route rule
+    names for the shape, ``srt_flash_attn_fwd_sm90`` at the bench shape
+    and ``srt_flash_attn_fwd_tf32x3`` at the workload's, and the SIMT
+    ``srt_flash_attn_fwd`` at both), each kernel's plain version (the
+    3xTF32 products for tf32x3, f32 otherwise), and
+    ``scaled_dot_product_attention`` on [B, H, S, D] copies (a yardstick
+    the port never calls). The two kernels of a shape are timed in turns,
+    tensor-core, SIMT, SIMT, tensor-core, and each reports the mean of its
+    two readings. A 3xTF32 kernel's bound is 3 x its flops at the TF32
+    peak (``bound_f32_ms`` its flops at the f32 peak, as the SIMT rows)."""
     from sparkrdma_tpu_torch.ops import _build
     from sparkrdma_tpu_torch.ops import pallas_attention as pa
 
@@ -761,8 +831,10 @@ def time_flash_attention(torch, dev):
         b, s, h, d, dtype, causal = shape
         q, k, v = _qkv(torch, dev, shape, 21)
         code = {"float32": 0, "bfloat16": 1}[dtype]
-        entries = (FWD_KERNELS[::-1] if _sm90_shape(shape) else FWD_KERNELS[:1])
+        entries = (_fwd_entry(shape), FWD_KERNELS[0])
         outs = {e: torch.empty_like(q) for e in entries}
+        plains = {e: (pa.flash_attention_tf32x3_reference if e.endswith("_tf32x3")
+                      else pa.flash_attention_reference) for e in entries}
 
         def raw(entry):
             def call():
@@ -773,48 +845,58 @@ def time_flash_attention(torch, dev):
                     raise RuntimeError(f"{entry} launch failed ({rc})")
             return call
 
-        def plain():
-            return pa.flash_attention_reference(q, k, v, causal)[0]
+        def plain(fn):
+            return lambda: fn(q, k, v, causal)[0]
 
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
 
-        want = plain()
+        want = pa.flash_attention_reference(q, k, v, causal)[0]
         for e in entries:
             raw(e)()
         torch.cuda.synchronize()
         errs = {e: _max_err(torch, outs[e], want, dtype, f"timing {name} {e}")
                 for e in entries}
+        for e in entries:
+            if plains[e] is not pa.flash_attention_reference:
+                _max_err(torch, outs[e], plain(plains[e])(), dtype,
+                         f"timing {name} {e} vs its own plain version")
         # the yardstick's own accuracy is recorded, not gated
         lib_err = float((library().transpose(1, 2).float() - want.float())
                         .abs().max())
         readings = {e: [] for e in entries}
         for e in entries + entries[::-1]:
             readings[e].append(event_ms_per_call(torch, raw(e), 20))
-        plain_ms = event_ms_per_call(torch, plain, 5)
+        plain_ms = {e: event_ms_per_call(torch, plain(plains[e]), 5) for e in entries}
         library_ms = event_ms_per_call(torch, library, 20)
         item = q.element_size()
         moved = 4 * b * s * h * d * item  # q, k, v read once, out written once
         flops = 4 * b * h * d * (s * (s + 1) // 2 if causal else s * s)
-        peak = BF16_TENSOR_FLOPS if dtype == "bfloat16" else F32_FLOPS
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / peak * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
         kernels = {}
         for e in entries:
+            # the operations this kernel does on the card: 3 TF32 products a
+            # product for tf32x3, one bf16 or f32 product otherwise
+            ops, peak = {"srt_flash_attn_fwd_tf32x3": (3 * flops, TF32_TENSOR_FLOPS),
+                         "srt_flash_attn_fwd_sm90": (flops, BF16_TENSOR_FLOPS)
+                         }.get(e, (flops, F32_FLOPS))
+            ops_ms = ops / peak * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
             ms = sum(readings[e]) / len(readings[e])
             kernels[e] = {"ms": ms, "ms_readings": readings[e], "max_abs_err": errs[e],
-                          "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
+                          "tflops": flops / ms / 1e9, "plain_ms": plain_ms[e],
+                          "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                          "bound_f32_ms": max(bytes_ms, flops / F32_FLOPS * 1e3),
+                          "device_ops": ops, "peak_flops": peak}
         rec[name] = {
             "shape": [b, s, h, d], "dtype": dtype, "causal": causal,
-            "kernels": kernels, "plain_ms": plain_ms,
+            "kernels": kernels,
             "library_ms": library_ms, "library_max_abs_err": lib_err,
             "library_tflops": flops / library_ms / 1e9,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "bytes": moved, "flops": flops, "peak_flops": peak,
+            "bytes": moved, "flops": flops,
         }
 
     def entry(kernel, source, shape_name):
@@ -822,19 +904,23 @@ def time_flash_attention(torch, dev):
         return {
             "name": kernel, "route": "cuda", "source": source,
             "replaces": "sparkrdma_tpu/ops/pallas_attention.py:189",
-            **{k: head["kernels"][kernel][k] for k in ("max_abs_err", "ms", "tflops")},
-            **{k: head[k] for k in ("plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
+            **{k: head["kernels"][kernel][k]
+               for k in ("max_abs_err", "ms", "tflops", "plain_ms", "bound_ms",
+                         "bound_by", "bound_f32_ms")},
+            "library_ms": head["library_ms"],
             "timer": "cuda_events", "shape_name": shape_name,
         }
 
     # each kernel's headline is the shape its main path gives it: the bench
-    # shape goes to the tensor-core kernel, the workload's f32 to SIMT
-    out = [entry("srt_flash_attn_fwd", "sparkrdma_tpu_torch/ops/csrc/flash_attn_fwd.cu",
-                 "workload_f32"),
-           entry("srt_flash_attn_fwd_sm90",
-                 "sparkrdma_tpu_torch/ops/csrc/flash_attn_fwd_sm90.cu",
-                 "bench_bf16_causal")]
+    # shape goes to the bf16 tensor-core kernel, the workload's f32 to the
+    # 3xTF32 kernel; the SIMT kernel keeps its workload_f32 reading, which
+    # no main path runs now
+    src = "sparkrdma_tpu_torch/ops/csrc/"
+    out = [entry("srt_flash_attn_fwd", src + "flash_attn_fwd.cu", "workload_f32"),
+           entry("srt_flash_attn_fwd_sm90", src + "flash_attn_fwd_sm90.cu",
+                 "bench_bf16_causal"),
+           entry("srt_flash_attn_fwd_tf32x3", src + "flash_attn_fwd_tf32x3.cu",
+                 "workload_f32")]
     emit("timing_attention", kernels=out, shapes=rec)
     return out
 
@@ -892,7 +978,7 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_PARAM_TOL = (1e-4, 1e-6)
 TRAIN_GRAD_REL = 1e-3
 # the workload's f32 step: each C entry point and its device kernel's name
-FLASH_KERNELS = {"srt_flash_attn_fwd": "flash_fwd_kernel",
+FLASH_KERNELS = {"srt_flash_attn_fwd_tf32x3": "flash_fwd_tf32x3_kernel",
                  "srt_flash_attn_bwd_dq_tf32x3": "flash_bwd_dq_tf32x3_kernel",
                  "srt_flash_attn_bwd_dkv_tf32x3": "flash_bwd_dkv_tf32x3_kernel"}
 
@@ -909,8 +995,10 @@ def _bwd_route(shape):
 def _flash_launches(pa):
     """Launches per C entry point since the last reset: the SIMT kernels'
     counts are the wrappers' totals less the tensor-core kernels'."""
-    return {"srt_flash_attn_fwd": pa.flash_fwd_launches - pa.flash_fwd_sm90_launches,
+    return {"srt_flash_attn_fwd": (pa.flash_fwd_launches - pa.flash_fwd_sm90_launches
+                                   - pa.flash_fwd_tf32x3_launches),
             "srt_flash_attn_fwd_sm90": pa.flash_fwd_sm90_launches,
+            "srt_flash_attn_fwd_tf32x3": pa.flash_fwd_tf32x3_launches,
             "srt_flash_attn_bwd_dq": (pa.flash_bwd_dq_launches - pa.flash_bwd_dq_sm90_launches
                                       - pa.flash_bwd_dq_tf32x3_launches),
             "srt_flash_attn_bwd_dkv": (pa.flash_bwd_dkv_launches
@@ -922,8 +1010,9 @@ def _flash_launches(pa):
             "srt_flash_attn_bwd_dkv_tf32x3": pa.flash_bwd_dkv_tf32x3_launches}
 
 
-def _bwd_took(pa, before):
-    """The entry points launched since ``before`` (a :func:`_flash_launches`)."""
+def _took(pa, before):
+    """The entry points launched since ``before`` (a :func:`_flash_launches`),
+    with their counts."""
     return {k: n - before[k] for k, n in _flash_launches(pa).items() if n != before[k]}
 
 
@@ -961,7 +1050,7 @@ def phase_attention_bwd_kernel(torch, dev):
         before = _flash_launches(pa)
         got = pa.flash_attention_bwd(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
-        took = _bwd_took(pa, before)
+        took = _took(pa, before)
         entry = BWD_PAIRS[route]
         if took != dict.fromkeys(entry, 1):
             raise AssertionError(f"{shape}: launched {took}, expected {entry}")
@@ -984,7 +1073,7 @@ def phase_attention_bwd_kernel(torch, dev):
         want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
         before = _flash_launches(pa)
         got = pa.flash_attention_bwd(q, k, v, out, lse, dom, True)
-        took = _bwd_took(pa, before)
+        took = _took(pa, before)
         if took != dict.fromkeys(BWD_PAIRS["simt"], 1):
             raise AssertionError(f"misaligned do {shape}: launched {took}, not the SIMT pair")
         cases.append({"shape": list(shape[:4]), "dtype": dtype, "causal": True,
@@ -1073,7 +1162,7 @@ def phase_training_path(torch, dev):
     launches = _flash_launches(pa)
     peak = torch.cuda.max_memory_allocated()
     n_steps = 1 + t["steps_after_first"]
-    # f32 D 64: the SIMT forward and the 3xTF32 backward pair, one launch each a step
+    # f32 D 64: the 3xTF32 forward and backward pair, one launch each a step
     per_step = {k: int(k in FLASH_KERNELS) for k in launches}
     if after_step1 != per_step or launches != {k: n * n_steps for k, n in per_step.items()}:
         raise AssertionError(f"launches not 1/1/1 a step: {after_step1}, {launches}")
@@ -1183,8 +1272,8 @@ def phase_training_path(torch, dev):
                  torch, grads, own, "bfloat16",
                  "flash training step vs the sm90 plain version", SM90_BWD_TOL)}
     emit(7, name="training_path", transformer_step=train, flash_train_step=flash)
-    # per kernel: the workload's f32 steps ran the SIMT forward and the
-    # 3xTF32 backward, the flash step the bf16 tensor-core kernels
+    # per kernel: the workload's f32 steps ran the 3xTF32 forward and
+    # backward, the flash step the bf16 tensor-core kernels
     return {k: launches[k] + flash_launches[k] for k in launches}
 
 
@@ -1384,8 +1473,9 @@ def phase_second_device(torch):
                     q, k, v, out, lse, do, True), "bfloat16", f"cuda:{i} {precision}")
                 got[precision] = [x.cpu() for x in (out, out0, *grads)]
             launches = _flash_launches(pa)
-            if any(count != (2 if entry.startswith("srt_flash_attn_fwd")
-                             else 0 if entry.endswith("_tf32x3") else 1)
+            # bf16: no 3xTF32 launch; each forward twice, each backward once
+            if any(count != (0 if entry.endswith("_tf32x3")
+                             else 2 if entry.startswith("srt_flash_attn_fwd") else 1)
                    for entry, count in launches.items()):
                 raise AssertionError(f"cuda:{i}: launches {launches}")
             results[i] = got

@@ -18,8 +18,8 @@ times, at the serving path's two full widths (``chip_smoke.py``'s
 - the flash training step, ``flash_attention(q, k, v,
   causal=...).float().sum().backward()``, at bench.py's shape (bf16
   causal, the tensor-core kernels) and at the transformer workload's
-  (fp32, not causal: the SIMT forward and the fp32 backward pair), host
-  clock around each step, which ends in a device sync.
+  (fp32, not causal: the 3xTF32 forward and backward), host clock around
+  each step, which ends in a device sync.
 
 Prints the card's name and power limit, one JSON line per turn, and a
 last JSON line with each side's median of its two turns' medians.

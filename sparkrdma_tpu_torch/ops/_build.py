@@ -111,6 +111,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.srt_flash_attn_fwd.restype = ctypes.c_int
     lib.srt_flash_attn_fwd_sm90.argtypes = [vp] * 5 + [ll] * 6 + [vp]
     lib.srt_flash_attn_fwd_sm90.restype = ctypes.c_int
+    lib.srt_flash_attn_fwd_tf32x3.argtypes = [vp] * 5 + [ll] * 6 + [vp]
+    lib.srt_flash_attn_fwd_tf32x3.restype = ctypes.c_int
     lib.srt_flash_attn_bwd_dq.argtypes = [vp] * 7 + [ll] * 6 + [vp]
     lib.srt_flash_attn_bwd_dq.restype = ctypes.c_int
     lib.srt_flash_attn_bwd_dkv.argtypes = [vp] * 8 + [ll] * 6 + [vp]

@@ -1,6 +1,7 @@
 // launch_config.cuh — launch configuration shared by the kernel launchers
 // that take more than 48 KiB of dynamic shared memory (flash_attn_fwd.cu,
-// flash_attn_bwd.cu, flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu).
+// flash_attn_bwd.cu, flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu,
+// flash_attn_fwd_tf32x3.cu, flash_attn_bwd_tf32x3.cu).
 //
 // cudaFuncSetAttribute(..., MaxDynamicSharedMemorySize, ...) applies to the
 // function in the current device's context only. So the flag that saves

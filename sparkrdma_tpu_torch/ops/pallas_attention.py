@@ -11,13 +11,16 @@ probability tiles from ``(q, k, lse)``.
   launch of a hand-written forward kernel on the current stream, not
   waited on; on CPU tensors :func:`flash_attention_reference`, the plain
   version. The kernel is picked before the launch by :func:`fwd_entry`,
-  a pure function of dtype, precision, head dim and alignment: bf16 at
-  precision ``"default"`` with D 64 or 128 and 16-byte-aligned
-  q/k/v/out takes the tensor-core kernel of
+  a pure function of dtype, precision, head dim and alignment, where D
+  is 64 or 128 and q/k/v/out lie on 16-byte boundaries: bf16 at
+  precision ``"default"`` takes the tensor-core kernel of
   ``csrc/flash_attn_fwd_sm90.cu`` (``srt_flash_attn_fwd_sm90``: wgmma +
-  TMA), everything else the kernel of ``csrc/flash_attn_fwd.cu``
-  (``srt_flash_attn_fwd``: f32 FMA). A kernel that does not build or
-  launch raises; nothing retries on the other kernel or falls back.
+  TMA), float32 at every precision the 3xTF32 tensor-core kernel of
+  ``csrc/flash_attn_fwd_tf32x3.cu`` (``srt_flash_attn_fwd_tf32x3``:
+  warp-level mma.sync); everything else takes the kernel of
+  ``csrc/flash_attn_fwd.cu`` (``srt_flash_attn_fwd``: f32 FMA). A kernel
+  that does not build or launch raises; nothing retries on another
+  kernel or falls back.
 - ``flash_attention_bwd``: on CUDA tensors one dq launch and one dk/dv
   launch, of the pair :func:`bwd_entry` names the same way: for bf16 the
   tensor-core ``srt_flash_attn_bwd_dq_sm90`` and
@@ -40,22 +43,23 @@ probability tiles from ``(q, k, lse)``.
   ``precision=DEFAULT`` (one bf16 MXU pass a product): products from
   bf16 operands into f32, ``p`` rounded to bf16 before p.v (and p^T.do),
   ``ds`` rounded to bf16 before ds.k and ds^T.q, ``l`` and ``ds`` from
-  the f32 ``p``. The float32 backward (every precision, D 64 or 128,
-  16-byte-aligned tensors) takes the 3xTF32 kernels: each f32 operand
-  split into a TF32 ``hi`` and ``lo`` and each product taken as
+  the f32 ``p``. float32 (every precision, D 64 or 128, 16-byte-aligned
+  tensors) takes the 3xTF32 kernels, forward and backward: each f32
+  operand split into a TF32 ``hi`` and ``lo`` and each product taken as
   ``hi*lo + lo*hi + hi*hi`` on the tensor cores, about 22 bits of each
   operand, the accuracy of an f32 product (plain TF32 would not be).
   Every other input takes the SIMT kernels, which widen to f32 and
-  compute full-f32 products: the float32 forward, float16, and bf16 at
-  ``"high"`` or ``"highest"``. Outputs are rounded back to the input
-  dtype (to nearest even).
+  compute full-f32 products: float32 at other D or off a 16-byte
+  boundary, float16, and bf16 at ``"high"`` or ``"highest"``. Outputs
+  are rounded back to the input dtype (to nearest even).
 - CPU tensors run the plain versions in f32 whatever the precision. The
   JAX ``interpret=`` argument has no counterpart: the plain version is
   the port's interpret mode.
 
 Every launch adds one to its kernel's counter: ``flash_fwd_launches``
-(every forward launch, on either kernel), ``flash_fwd_sm90_launches``
-(those of ``srt_flash_attn_fwd_sm90``), ``flash_bwd_dq_launches`` and
+(every forward launch, on any kernel), ``flash_fwd_sm90_launches``
+(those of ``srt_flash_attn_fwd_sm90``), ``flash_fwd_tf32x3_launches``
+(those of ``srt_flash_attn_fwd_tf32x3``), ``flash_bwd_dq_launches`` and
 ``flash_bwd_dkv_launches`` (every backward launch, on any pair),
 ``flash_bwd_dq_sm90_launches`` and ``flash_bwd_dkv_sm90_launches``
 (those of the bf16 tensor-core pair), ``flash_bwd_dq_tf32x3_launches``
@@ -78,6 +82,7 @@ PRECISIONS = ("default", "high", "highest")
 
 flash_fwd_launches = 0
 flash_fwd_sm90_launches = 0
+flash_fwd_tf32x3_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 flash_bwd_dq_sm90_launches = 0
@@ -87,12 +92,13 @@ flash_bwd_dkv_tf32x3_launches = 0
 
 
 def reset_launch_counts() -> None:
-    global flash_fwd_launches, flash_fwd_sm90_launches
+    global flash_fwd_launches, flash_fwd_sm90_launches, flash_fwd_tf32x3_launches
     global flash_bwd_dq_launches, flash_bwd_dkv_launches
     global flash_bwd_dq_sm90_launches, flash_bwd_dkv_sm90_launches
     global flash_bwd_dq_tf32x3_launches, flash_bwd_dkv_tf32x3_launches
     flash_fwd_launches = 0
     flash_fwd_sm90_launches = 0
+    flash_fwd_tf32x3_launches = 0
     flash_bwd_dq_launches = 0
     flash_bwd_dkv_launches = 0
     flash_bwd_dq_sm90_launches = 0
@@ -165,6 +171,28 @@ def flash_attention_reference(
     masking. Returns ``(out [B, S, H, D] in q's dtype, lse [B, H, S] f32
     or None)``. On a CUDA device its f32 products are full f32 only while
     ``torch.backends.cuda.matmul.allow_tf32`` is False (the default)."""
+    return _fwd_reference(q, k, v, causal, block_q, block_k, want_lse)
+
+
+def flash_attention_tf32x3_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+    block_q: int = 512, block_k: int = 512, want_lse: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The function of the 3xTF32 forward (``srt_flash_attn_fwd_tf32x3``):
+    :func:`flash_attention_reference`'s blocking and masks, with each of
+    its two products ``a @ b`` (``q k^T`` and ``p v``) taken as ``hi_a @
+    lo_b + lo_a @ hi_b + hi_a @ hi_b`` of the operands' TF32 split
+    (:func:`_tf32_split`), the ``lo @ lo`` term dropped. For float32
+    inputs. Used by the tests and by ``chip_smoke.py`` to hold the kernel
+    to its own arithmetic; nothing on the main path calls it."""
+    return _fwd_reference(q, k, v, causal, block_q, block_k, want_lse,
+                          split_tf32=True)
+
+
+def _fwd_reference(q, k, v, causal, block_q, block_k, want_lse,
+                   split_tf32=False):
+    """:func:`flash_attention_reference`, or with ``split_tf32``
+    :func:`flash_attention_tf32x3_reference`."""
     b, s, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     bq, bk, s_pad = _resolve_blocks(s, block_q, block_k)
@@ -188,7 +216,7 @@ def flash_attention_reference(
                 break  # above the diagonal band: the kernel's block skip
             kb = kt[:, :, ik * bk:(ik + 1) * bk]
             vb = vt[:, :, ik * bk:(ik + 1) * bk]
-            sc = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+            sc = _mm(qb, kb.transpose(-1, -2), split_tf32) * scale
             kv_pos = ik * bk + torch.arange(bk, device=dev)[None, :]
             mask = kv_pos < s
             if causal:
@@ -198,7 +226,7 @@ def flash_attention_reference(
             corr = torch.exp(m - m_new)
             p = torch.exp(sc - m_new[..., None])
             l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.matmul(p, vb)
+            acc = acc * corr[..., None] + _mm(p, vb, split_tf32)
             m = m_new
         denom = torch.where(l > 0, l, 1.0)
         out[:, :, iq * bq:(iq + 1) * bq] = acc / denom[..., None]
@@ -280,6 +308,16 @@ def _tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, _tf32_round(x - hi)
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor, split_tf32: bool) -> torch.Tensor:
+    """One product of the plain versions: ``a @ b`` in f32, or with
+    ``split_tf32`` the 3xTF32 kernels' ``hi_a @ lo_b + lo_a @ hi_b +
+    hi_a @ hi_b``."""
+    if not split_tf32:
+        return torch.matmul(a, b)
+    (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+    return torch.matmul(ah, bl) + torch.matmul(al, bh) + torch.matmul(ah, bh)
+
+
 def _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k,
                    sweeps=("dq", "dkv"), round_bf16=False, split_tf32=False):
     """:func:`flash_attention_bwd_reference` (or, with ``round_bf16``,
@@ -302,11 +340,8 @@ def _bwd_reference(q, k, v, out, lse, do, causal, block_q, block_k,
     dev = q.device
     pos = torch.arange(s_pad, device=dev)
 
-    def mm(a, b):  # one product: f32, or 3xTF32 with split_tf32
-        if not split_tf32:
-            return torch.matmul(a, b)
-        (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
-        return torch.matmul(ah, bl) + torch.matmul(al, bh) + torch.matmul(ah, bh)
+    def mm(a, b):
+        return _mm(a, b, split_tf32)
 
     def probs(iq, ik):
         """p [B, H, bq, bk] and ds of the (iq, ik) tile pair."""
@@ -373,14 +408,28 @@ def _sm90_route(q: torch.Tensor, precision, tensors) -> bool:
             and q.shape[-1] in SM90_HEAD_DIMS and _aligned(tensors))
 
 
+def _tf32x3_route(q: torch.Tensor, tensors) -> bool:
+    """Whether the 3xTF32 tensor-core kernels take these inputs: float32
+    at every precision with D in :data:`SM90_HEAD_DIMS` and every tensor
+    on a 16-byte boundary."""
+    return (q.dtype == torch.float32 and q.shape[-1] in SM90_HEAD_DIMS
+            and _aligned(tensors))
+
+
 def fwd_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, precision=None) -> str:
-    """The C entry point a CUDA forward launches: the tensor-core
-    ``srt_flash_attn_fwd_sm90`` for bf16 at precision ``"default"`` with
-    D in :data:`SM90_HEAD_DIMS` and q, k, v and out on 16-byte boundaries,
-    else ``srt_flash_attn_fwd``."""
-    if _sm90_route(q, precision, (q, k, v, out)):
+    """The C entry point a CUDA forward launches, where D is in
+    :data:`SM90_HEAD_DIMS` and q, k, v and out lie on 16-byte boundaries:
+    the tensor-core ``srt_flash_attn_fwd_sm90`` for bf16 at precision
+    ``"default"``, the 3xTF32 ``srt_flash_attn_fwd_tf32x3`` for float32 at
+    every precision. Everything else takes ``srt_flash_attn_fwd``. A pure
+    function of dtype, precision, D and alignment, as :func:`bwd_entry`
+    is."""
+    tensors = (q, k, v, out)
+    if _sm90_route(q, precision, tensors):
         return "srt_flash_attn_fwd_sm90"
+    if _tf32x3_route(q, tensors):
+        return "srt_flash_attn_fwd_tf32x3"
     return "srt_flash_attn_fwd"
 
 
@@ -399,8 +448,7 @@ def bwd_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors = (q, k, v, do, dq, dk, dv)
     if _sm90_route(q, precision, tensors):
         return "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90"
-    if (q.dtype == torch.float32 and q.shape[-1] in SM90_HEAD_DIMS
-            and _aligned(tensors)):
+    if _tf32x3_route(q, tensors):
         return "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3"
     return "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv"
 
@@ -410,7 +458,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     from sparkrdma_tpu_torch.ops import _build
 
-    global flash_fwd_launches, flash_fwd_sm90_launches
+    global flash_fwd_launches, flash_fwd_sm90_launches, flash_fwd_tf32x3_launches
     b, s, h, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(
@@ -436,8 +484,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             f"{lib.srt_error_string(rc).decode()} ({rc})"
         )
     flash_fwd_launches += 1
-    if name == "srt_flash_attn_fwd_sm90":
-        flash_fwd_sm90_launches += 1
+    flash_fwd_sm90_launches += int(name.endswith("_sm90"))
+    flash_fwd_tf32x3_launches += int(name.endswith("_tf32x3"))
     return out, lse
 
 
@@ -453,7 +501,10 @@ def flash_attention_fwd(
 
     CUDA tensors: one launch (D <= 256) of the kernel :func:`fwd_entry`
     names from the dtype, ``precision`` (see :func:`resolve_precision`),
-    D and alignment. The kernel picks its own tiles; ``block_q``/``block_k``
+    D and alignment: ``srt_flash_attn_fwd_sm90`` (bf16 at ``"default"``),
+    ``srt_flash_attn_fwd_tf32x3`` (float32) or ``srt_flash_attn_fwd``. A
+    launch that fails raises with the kernel's name; nothing retries on
+    another kernel. The kernel picks its own tiles; ``block_q``/``block_k``
     are validated and set only the plain version's blocking. A strided
     (non-contiguous) input is copied with ``.contiguous()`` first. CPU
     tensors: the plain version :func:`flash_attention_reference`, in f32

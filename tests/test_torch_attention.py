@@ -178,6 +178,11 @@ class _FakeLib:
         self.entries.append("srt_flash_attn_fwd_sm90")
         return self.rc_sm90
 
+    def srt_flash_attn_fwd_tf32x3(self, *args):
+        self.calls.append(args)
+        self.entries.append("srt_flash_attn_fwd_tf32x3")
+        return self.rc
+
     def srt_error_string(self, rc):
         return b"invalid argument"
 
@@ -247,7 +252,7 @@ def test_head_dim_above_the_kernel_maximum_raises(kernel_path):
 
 def test_binding_passes_pointers_as_void_p():
     fns = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-           "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90",
+           "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90", "srt_flash_attn_fwd_tf32x3",
            "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
            "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
            "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3",
@@ -285,16 +290,19 @@ def test_bf16_route_takes_the_tensor_core_kernel(kernel_path, d, causal, want_ls
     assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches) == (1, 1)
 
 
-@pytest.mark.parametrize("case", ["fp32", "bf16_d20", "bf16_misaligned_q"])
+@pytest.mark.parametrize("case", ["fp32", "fp32_misaligned_q", "bf16_d20",
+                                  "bf16_misaligned_q"])
 def test_other_inputs_take_the_simt_kernel(kernel_path, case):
-    """fp32 (the JAX HIGHEST), other head dims and a q off its 16-byte
-    boundary go to srt_flash_attn_fwd; the sm90 counter stays at 0."""
+    """fp32 (the JAX HIGHEST) at a head dim the tensor-core kernels do not
+    take (D 20), bf16 at D 20 and a q off its 16-byte boundary (fp32 and
+    bf16, D 64) go to srt_flash_attn_fwd; the sm90 and tf32x3 counters
+    stay at 0."""
     lib = _FakeLib(0)
     kernel_path(lambda: lib)
-    dtype = torch.float32 if case == "fp32" else torch.bfloat16
-    d = 20 if case == "bf16_d20" else 64
+    dtype = torch.float32 if case.startswith("fp32") else torch.bfloat16
+    d = 64 if case.endswith("misaligned_q") else 20
     q, k, v = (torch.from_numpy(x).to(dtype) for x in _inputs(1, 16, 2, d, 9))
-    if case == "bf16_misaligned_q":  # one element (2 bytes) past the boundary
+    if case.endswith("misaligned_q"):  # one element (4 or 2 bytes) past the boundary
         qm = torch.empty(q.numel() + 1, dtype=dtype)[1:].view_as(q)
         qm.copy_(q)
         q = qm
@@ -304,7 +312,8 @@ def test_other_inputs_take_the_simt_kernel(kernel_path, case):
     assert lib.entries == ["srt_flash_attn_fwd"]
     assert lib.calls[0][0] == q.data_ptr()  # the view itself, not a copy
     assert tpa.fwd_entry(q, k, v, out) == "srt_flash_attn_fwd"
-    assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches) == (1, 0)
+    assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches,
+            tpa.flash_fwd_tf32x3_launches) == (1, 0, 0)
 
 
 def test_tensor_core_kernel_errors_raise_without_retry(kernel_path):

@@ -303,7 +303,7 @@ def test_bwd_head_dim_above_the_kernel_maximum_raises(kernel_path):
 
 def test_binding_declares_bwd_pointers_void_p():
     fns = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-           "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90",
+           "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90", "srt_flash_attn_fwd_tf32x3",
            "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
            "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
            "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3",

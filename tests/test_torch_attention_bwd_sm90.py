@@ -35,7 +35,7 @@ SM90 = ("srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90")
 SIMT = ("srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv")
 TF32X3 = ("srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3")
 BOUND = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-         "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90",
+         "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90", "srt_flash_attn_fwd_tf32x3",
          "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
          "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
          "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3",

@@ -39,7 +39,7 @@ F32_TOL = dict(rtol=2e-4, atol=2e-5)
 TF32X3 = ("srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3")
 SIMT = ("srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv")
 BOUND = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-         "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90",
+         "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90", "srt_flash_attn_fwd_tf32x3",
          "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
          "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
          "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3",
@@ -230,6 +230,9 @@ class _FakeLib:
     def srt_flash_attn_fwd_sm90(self, *args):
         return self._fwd("srt_flash_attn_fwd_sm90", args)
 
+    def srt_flash_attn_fwd_tf32x3(self, *args):
+        return self._fwd("srt_flash_attn_fwd_tf32x3", args)
+
     def srt_flash_attn_bwd_dq(self, *args):
         return self._dq("srt_flash_attn_bwd_dq", args)
 
@@ -322,7 +325,7 @@ def test_binding_declares_the_tf32x3_symbols():
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_autograd_through_the_tf32x3_kernel_path(kernel_path, d):
-    """Training at fp32 D 64/128 launches the SIMT forward with lse, then
+    """Training at fp32 D 64/128 launches the 3xTF32 forward with lse, then
     the 3xTF32 dq and dk/dv once each, and each kernel output lands on the
     right input's grad."""
     arrays = _inputs(1, 32, 2, d, seed=12)
@@ -335,9 +338,10 @@ def test_autograd_through_the_tf32x3_kernel_path(kernel_path, d):
     got = tpa.flash_attention(qg, kg, vg, causal=True)
     torch.testing.assert_close(got, out, rtol=0, atol=0)
     got.backward(ct.transpose(1, 2).contiguous().transpose(1, 2))  # strided
-    assert lib.names() == ["srt_flash_attn_fwd", *TF32X3]
+    assert lib.names() == ["srt_flash_attn_fwd_tf32x3", *TF32X3]
     assert lib.calls[0][1][4] is not None  # training: the lse variant
-    assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches) == (1, 0)
+    assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches,
+            tpa.flash_fwd_tf32x3_launches) == (1, 0, 1)
     assert _counts() == (1, 1, 0, 0, 1, 1)
     for g, w in ((qg.grad, dq), (kg.grad, dk), (vg.grad, dv)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)

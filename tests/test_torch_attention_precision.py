@@ -8,8 +8,8 @@ configuration of the port's flash attention.
 - ``precision`` picks the kernel before the launch (a fake kernel library
   records it): bf16 at ``"default"`` (the JAX default for bf16) takes the
   tensor-core kernels, ``"high"`` and ``"highest"`` the SIMT ones;
-  float16 takes the SIMT kernels at every precision, float32 the SIMT
-  forward and (D 64) the 3xTF32 backward pair at every precision.
+  float16 takes the SIMT kernels at every precision, float32 (D 64) the
+  3xTF32 forward and backward pair at every precision.
 - Each kernel's dynamic shared-memory limit is raised once per device,
   not once per process: no launcher keeps a process-wide flag.
 """
@@ -155,14 +155,18 @@ def test_precision_routes_bf16(fake_lib, precision, route):
 @pytest.mark.parametrize("dtype,code", [(torch.float32, 0), (torch.float16, 2)])
 def test_float32_and_float16_take_simt_at_every_precision(fake_lib, dtype, code,
                                                          precision):
+    """float16 takes the SIMT kernels at every precision; float32 (D 64)
+    the 3xTF32 forward and backward pair at every precision, with the
+    SIMT kernels' argument lists."""
     q, k, v, do, out = (torch.from_numpy(x).to(dtype)
                         for x in _inputs(2, 24, 3, 64, seed=6, n=5))
     tpa.flash_attention_fwd(q, k, v, False, precision=precision)
     tpa.flash_attention_bwd(q, k, v, out, torch.zeros(2, 3, 24), do, False,
                             precision=precision)
     want = ROUTES["simt"]
-    if dtype == torch.float32:  # the backward: the 3xTF32 pair
-        want = want[:1] + ["srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3"]
+    if dtype == torch.float32:
+        want = ["srt_flash_attn_fwd_tf32x3", "srt_flash_attn_bwd_dq_tf32x3",
+                "srt_flash_attn_bwd_dkv_tf32x3"]
     assert fake_lib.names() == want
     for _, args in fake_lib.calls:  # (..., B, S, H, D, dtype, causal, stream)
         assert args[-7:] == (2, 24, 3, 64, code, 0, 77)
@@ -189,6 +193,7 @@ def test_no_process_wide_kernel_configuration_flag():
                  or "raise_smem_limit(" in s]
     assert "flash_attn_bwd_sm90.cu" in launchers
     assert "flash_attn_bwd_tf32x3.cu" in launchers
+    assert "flash_attn_fwd_tf32x3.cu" in launchers
     for name, src in sources.items():
         assert not re.search(r"static\s+bool", src), name
         assert "configured" not in src, name
@@ -197,8 +202,9 @@ def test_no_process_wide_kernel_configuration_flag():
             assert not re.search(r"cudaFuncSetAttribute\s*\(", src), name
     helper = sources["launch_config.cuh"]
     assert "cudaGetDevice" in helper and "cudaFuncSetAttribute" in helper
-    # every launcher over 48 KiB: flash_attn_{fwd,bwd}{,_sm90}.cu, flash_attn_bwd_tf32x3.cu
+    # every launcher over 48 KiB: flash_attn_{fwd,bwd}{,_sm90,_tf32x3}.cu
     for name in ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "flash_attn_fwd_sm90.cu",
-                 "flash_attn_bwd_sm90.cu", "flash_attn_bwd_tf32x3.cu"):
+                 "flash_attn_bwd_sm90.cu", "flash_attn_bwd_tf32x3.cu",
+                 "flash_attn_fwd_tf32x3.cu"):
         n_launch = len(re.findall(r"<<<", sources[name]))
         assert sources[name].count("raise_smem_limit(") == n_launch, name
