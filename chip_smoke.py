@@ -95,7 +95,26 @@ exits nonzero and prints no result. Phases, each one JSON line:
    ``torch.sort`` on the card and the input's count, sum and xor, then
    the warm step; (d) at 2^24 keys the all-zero skew with
    ``capacity_factor=1.25`` (3 capacity doublings), ``adaptive=True``
-   on it (one run) and a ``(dcn 2, exec 4)`` mesh.
+   on it (one run) and a ``(dcn 2, exec 4)`` mesh;
+10. ``host_plane_path``: the host plane on the card over the python
+   transport, ``TpuShuffleManager`` and ``DeviceShuffleIO``: (a) dryrun
+   sections 4 and 5 (``__graft_entry__``) on ``make_mesh([dev] * 4)``
+   with their assertions (the pattern shuffle byte-equal and staged on
+   the card; the big stage through the compiled waves, fused and per
+   block, 16 blocks on the waves, 4 fused merges, overlap only at depth
+   2), then CUDA-tensor blocks through ``stage_device_blocks``; (b)
+   phase 2's 1 GiB keys through a driver and 8 executors: every shard
+   sorted by ``MapShardSorter``, staged and published, every reducer
+   fetching its partition through the location RPC and the waves and
+   merging, with default knobs and with ``waveBytes=512m`` fused (64
+   blocks on the waves a reduce, 0 degrades, 8 fused merges, both
+   wave-pull kernels launched), each reducer against ``np.sort`` of its
+   range and the input's count, sum and xor; the map wall split (sort,
+   stage: readback, checksum, arena copy; publish), the map again on
+   warm pools, cold and warm reduce walls, fetch stats, peak device and
+   registered host bytes, the driver's RPC counts; (c) the same
+   published blocks with ``deviceFetch.enabled=false``: one-sided READs
+   and host-to-device staging, byte-equal, no wave launch.
 
 Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, where one
@@ -313,6 +332,20 @@ def _expected(shards, edges):
     return want
 
 
+def _check_reducer(r, merged, total, want_r):
+    """Reducer ``r``'s merged keys against ``np.sort`` of its range and
+    the input's count, sum and xor."""
+    part, cnt, s, x = want_r
+    got = merged[: int(total)].cpu().numpy()
+    if int(total) != cnt or not np.array_equal(got, part):
+        raise AssertionError(f"reducer {r} output differs from np.sort")
+    with np.errstate(over="ignore"):
+        gs = int(got.sum(dtype=np.uint32))
+    gx = int(np.bitwise_xor.reduce(got)) if len(got) else 0
+    if (gs, gx) != (s, x):
+        raise AssertionError(f"reducer {r} checksums differ")
+
+
 def phase_main_path(torch, dev):
     from sparkrdma_tpu_torch.locations import (
         BlockLocation, PartitionLocation, ShuffleManagerId,
@@ -388,15 +421,7 @@ def phase_main_path(torch, dev):
         wall = time.perf_counter() - t
         if check:
             for r, (merged, total) in enumerate(outs):
-                part, cnt, s, x = want[r]
-                got = merged[: int(total)].cpu().numpy()
-                if int(total) != cnt or not np.array_equal(got, part):
-                    raise AssertionError(f"reducer {r} output differs from np.sort")
-                with np.errstate(over="ignore"):
-                    gs = int(got.sum(dtype=np.uint32))
-                gx = int(np.bitwise_xor.reduce(got)) if len(got) else 0
-                if (gs, gx) != (s, x):
-                    raise AssertionError(f"reducer {r} checksums differ")
+                _check_reducer(r, merged, total, want[r])
         return wall, kernel_ms
 
     runs = {
@@ -470,7 +495,7 @@ def phase_main_path(torch, dev):
     emit(2, keys=KEYS, executors=EXECUTORS, reducers=REDUCERS,
          reference_s=reference_s, peak_device_bytes=peak,
          launches=launches, runs=report)
-    return arenas, ids, locs, launches
+    return arenas, ids, locs, launches, (shards, edges, want)
 
 
 def phase_timing(torch, dev, arenas, ids, locs):
@@ -1857,6 +1882,411 @@ def time_neighbor_pull(torch, dev):
     return entry
 
 
+# ----------------------------------------------------------------------
+# the host plane: TpuShuffleManager (the driver hub over the python
+# transport) and DeviceShuffleIO publish and fetch
+# ----------------------------------------------------------------------
+HOST_EXECUTORS = 4  # dryrun sections 4 and 5 (__graft_entry__.py)
+# phase 10 (b)'s base knobs: none, the defaults (a rehearsal at a small
+# KEYS shrinks collective.waveBytes so the default run still pipelines)
+HOST_PLANE_KNOBS = {}
+
+
+def host_plane_sections(devices, knobs=None, prefix="dry"):
+    """Dryrun sections 4 and 5 (``__graft_entry__.dryrun_multichip``) on
+    the port, with their conditions and assertions: a driver and one
+    executor per device, each with ``DeviceShuffleIO(ex, device=...)``.
+    Shuffle 7: every executor publishes the ``pattern`` blocks and
+    reduces its own partition, byte-equal, staged on its device.
+    Shuffle 8: the ``big`` blocks (above ``deviceFetch.minBlockBytes``);
+    executor 0 reduces the stage through the compiled waves, fused,
+    per block (``collective.enabled`` off), and at pipeline depth 1 and
+    2 with 128 KiB waves. Returns what it saw: the bytes and the counter
+    deltas the JAX run is held to."""
+    from sparkrdma_tpu_torch.obs import get_registry
+    from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
+    from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
+    from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
+    from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+
+    n_exec = len(devices)
+    conf = TpuShuffleConf(knobs)
+    driver = TpuShuffleManager(conf, is_driver=True)
+    execs = [TpuShuffleManager(conf, is_driver=False, executor_id=f"{prefix}-{i}")
+             for i in range(n_exec)]
+    ios = [DeviceShuffleIO(ex, device=devices[i]) for i, ex in enumerate(execs)]
+    seen = {}
+    try:
+        driver.register_shuffle(BaseShuffleHandle(
+            shuffle_id=7, num_maps=n_exec, partitioner=HashPartitioner(n_exec)))
+
+        def pattern(m, p):
+            return bytes([(m * 16 + p) % 256]) * (512 + 64 * m + p)
+
+        for m, io in enumerate(ios):
+            io.publish_device_blocks(7, {p: np.frombuffer(pattern(m, p), np.uint8)
+                                         for p in range(n_exec)})
+        seen["section4"] = {}
+        for p, io in enumerate(ios):  # executor p reduces partition p
+            got = io.fetch_device_blocks(7, p, p + 1, timeout_s=60)
+            blobs = sorted(b.read(0, b.length) for b in got[p])
+            if blobs != sorted(pattern(m, p) for m in range(n_exec)):
+                raise AssertionError(f"shuffle plane bytes differ for partition {p}")
+            if not all(b.array.device == devices[p] for b in got[p]):
+                raise AssertionError("staged block landed on the wrong device")
+            seen["section4"][p] = blobs
+            for b in got[p]:
+                b.free()
+
+        driver.register_shuffle(BaseShuffleHandle(
+            shuffle_id=8, num_maps=n_exec, partitioner=HashPartitioner(n_exec)))
+
+        def big(m, p):
+            return bytes([(m * 8 + p + 1) % 256]) * (32768 + 128 * m + p)
+
+        for m, io in enumerate(ios):
+            io.publish_device_blocks(8, {p: np.frombuffer(big(m, p), np.uint8)
+                                         for p in range(n_exec)})
+        io0 = ios[0]
+        want = {p: sorted(big(m, p) for m in range(n_exec)) for p in range(n_exec)}
+
+        def reduce_stage(fused=False):
+            got = io0.fetch_device_blocks(8, 0, n_exec, timeout_s=60, fused=fused)
+            try:
+                return {p: sorted(b.read(0, b.length) for b in got[p])
+                        for p in range(n_exec)}
+            finally:
+                for bufs in got.values():
+                    for b in bufs:
+                        b.free()
+
+        reg = get_registry()
+        role = f"{prefix}-0"
+        c_plans = reg.counter("collective.plans", role=role)
+        c_blocks = reg.counter("collective.blocks", role=role)
+        c_fused = reg.counter("collective.fused_merges", role=role)
+        p0, b0, f0 = c_plans.value, c_blocks.value, c_fused.value
+        via_collective = reduce_stage()
+        if c_plans.value <= p0:
+            raise AssertionError("collective compiler never planned")
+        if c_blocks.value - b0 != n_exec * n_exec:
+            raise AssertionError("not every block rode a compiled wave")
+        if via_collective != want:
+            raise AssertionError("collective stage bytes differ")
+        seen["collective"] = via_collective
+
+        fused_got = io0.fetch_device_blocks(8, 0, n_exec, timeout_s=60, fused=True)
+        try:
+            seen["fused"] = {}
+            for p in range(n_exec):
+                if len(fused_got[p]) != 1:
+                    raise AssertionError("fusion must land one slab")
+                blob = fused_got[p][0].read(0, fused_got[p][0].length)
+                if len(blob) != sum(len(x) for x in want[p]) or not all(
+                        x in blob for x in want[p]):
+                    raise AssertionError(f"fused slab misses a block (p={p})")
+                seen["fused"][p] = blob
+        finally:
+            for bufs in fused_got.values():
+                for b in bufs:
+                    b.free()
+        if c_fused.value - f0 != n_exec:
+            raise AssertionError("fused merges not counted")
+        seen["deltas"] = {"plans": c_plans.value - p0, "blocks": c_blocks.value - b0,
+                          "fused_merges": c_fused.value - f0}
+
+        conf.set("tpu.shuffle.collective.enabled", "false")
+        try:
+            seen["per_block"] = reduce_stage()
+            if seen["per_block"] != want:
+                raise AssertionError("per-block stage bytes differ")
+        finally:
+            conf.set("tpu.shuffle.collective.enabled", "true")
+
+        c_overlap = reg.counter("collective.wave_overlap_ms", role=role)
+        conf.set("tpu.shuffle.collective.autoTune", "false")
+        conf.set("tpu.shuffle.collective.waveBytes", "128k")
+        try:
+            conf.set("tpu.shuffle.collective.pipelineDepth", "1")
+            o0 = c_overlap.value
+            if reduce_stage() != want:
+                raise AssertionError("depth-1 stage bytes differ")
+            if c_overlap.value != o0:
+                raise AssertionError("depth-1 engine overlapped")
+            seen["overlap_depth1"] = c_overlap.value - o0
+            conf.set("tpu.shuffle.collective.pipelineDepth", "2")
+            if reduce_stage() != want:
+                raise AssertionError("depth-2 stage bytes differ")
+            if c_overlap.value <= o0:
+                raise AssertionError("depth-2 engine never overlapped")
+            seen["overlap_depth2_positive"] = True
+        finally:
+            conf.set("tpu.shuffle.collective.pipelineDepth", "2")
+            conf.set("tpu.shuffle.collective.waveBytes", "64m")
+            conf.set("tpu.shuffle.collective.autoTune", "true")
+    finally:
+        for io in ios:
+            io.stop()
+        for ex in execs:
+            ex.stop()
+        driver.stop()
+    return seen
+
+
+def _tensor_publish_check(torch, dev):
+    """Blocks handed to ``stage_device_blocks`` as CUDA tensors: one
+    device-to-host readback into registered memory, a device-to-device
+    arena copy, and a reducer that pulls them byte-equal. The endpoints
+    take the default device (``cuda``, pinned to the current one)."""
+    from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
+    from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
+    from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
+    from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+
+    conf = TpuShuffleConf()
+    driver = TpuShuffleManager(conf, is_driver=True)
+    execs = [TpuShuffleManager(conf, is_driver=False, executor_id=f"tens-{i}")
+             for i in range(2)]
+    ios = [DeviceShuffleIO(ex) for ex in execs]
+    if any(io.device_buffers.device != dev for io in ios):
+        raise AssertionError("the default device is not the current card")
+    g = torch.Generator(device="cpu").manual_seed(9)
+    try:
+        driver.register_shuffle(BaseShuffleHandle(
+            shuffle_id=9, num_maps=2, partitioner=HashPartitioner(2)))
+        sent = {}
+        for m, io in enumerate(ios):
+            parts = {p: torch.randint(0, 1 << 31, (20000 + 7 * m + p,),
+                                      generator=g, dtype=torch.int64)
+                     .to(torch.int32).to(dev) for p in range(2)}
+            locs = io.stage_device_blocks(9, parts)
+            if not all(loc.block.has_device for loc in locs):
+                raise AssertionError("a CUDA block lost its device coordinates")
+            io.publish_staged(9, locs)
+            sent.update({(m, p): t.cpu().numpy().tobytes() for p, t in parts.items()})
+        for p, io in enumerate(ios):
+            got = io.fetch_device_blocks(9, p, p + 1, dtype=np.int32, timeout_s=60)
+            blobs = sorted(b.read(0, b.length) for b in got[p])
+            if blobs != sorted(sent[(m, p)] for m in range(2)):
+                raise AssertionError("CUDA-tensor blocks differ after the shuffle")
+            for b in got[p]:
+                b.free()
+        snap = ios[0].metrics_snapshot()
+        return {"equal": True, "stage_bytes": snap["stage_bytes"]}
+    finally:
+        for io in ios:
+            io.stop()
+        for ex in execs:
+            ex.stop()
+        driver.stop()
+
+
+def phase_host_plane_path(torch, dev, data):
+    """Phase 10: the host plane on the card. (a) dryrun sections 4 and 5
+    on ``make_mesh([dev] * 4)``, and CUDA-tensor blocks through
+    ``stage_device_blocks``; (b) phase 2's 1 GiB TeraSort through a
+    driver and 8 executors: map (sort, stage, publish), then every
+    reducer fetches its partition through the location RPC and the
+    compiled waves and merges, run "default" (default knobs) and run
+    "fused_512m" (``collective.waveBytes=512m``, fused); (c) the same
+    published blocks with ``deviceFetch.enabled=false``: one-sided
+    READs over the python transport and host-to-device staging. Counts
+    from 0 just before, read just after."""
+    from sparkrdma_tpu_torch.models.terasort import MapShardSorter, merge_blocks
+    from sparkrdma_tpu_torch.obs import get_registry
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+    from sparkrdma_tpu_torch.parallel import make_mesh
+    from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
+    from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
+    from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
+    from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+
+    shards, edges, want = data
+    reg = get_registry()
+    rc.reset_launch_counts()
+    report = {}
+
+    def launches():
+        return (rc.wave_pull_launches, rc.pipelined_wave_pull_launches)
+
+    def degrades(ids):
+        return sum(reg.counter("collective.degrades", role=i).value for i in ids)
+
+    # ---- (a) dryrun sections 4 and 5, then CUDA-tensor blocks
+    l0 = launches()
+    dry_ids = [f"dry-{i}" for i in range(HOST_EXECUTORS)]
+    d0 = degrades(dry_ids)
+    t = time.perf_counter()
+    seen = host_plane_sections(make_mesh([dev] * HOST_EXECUTORS).devices)
+    report["a"] = {
+        "wall_s": time.perf_counter() - t, "deltas": seen["deltas"],
+        "collective.degrades": degrades(dry_ids) - d0,
+        "wave_launches": [x - y for x, y in zip(launches(), l0)],
+        "tensor_blocks": _tensor_publish_check(torch, dev),
+    }
+    if report["a"]["collective.degrades"] or sum(report["a"]["wave_launches"]) <= 0:
+        raise AssertionError(f"run (a): {report['a']}")
+
+    # ---- (b) the 1 GiB TeraSort through driver, publish and fetch
+    sid = 10
+    conf = TpuShuffleConf(HOST_PLANE_KNOBS)
+    driver = TpuShuffleManager(conf, is_driver=True)
+    ids = [f"host-{e}" for e in range(EXECUTORS)]
+    execs = [TpuShuffleManager(conf, is_driver=False, executor_id=i) for i in ids]
+    ios = [DeviceShuffleIO(ex, device=dev) for ex in execs]
+    rpc = {k: reg.counter("rpc.messages", role="driver", type=k)
+           for k in ("PUBLISH_PARTITION_LOCATIONS", "FETCH_PARTITION_LOCATIONS")}
+    try:
+        driver.register_shuffle(BaseShuffleHandle(
+            shuffle_id=sid, num_maps=EXECUTORS, partitioner=HashPartitioner(REDUCERS)))
+        rpc0 = {k: c.value for k, c in rpc.items()}
+        sorter = MapShardSorter(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+
+        def map_phase(shuffle_id):
+            """Sort, stage and publish every executor's shard; returns
+            the wall, its split and the staged locations."""
+            split = {"sort_s": 0.0, "stage_s": 0.0, "publish_s": 0.0}
+            staged = []
+            torch.cuda.synchronize()
+            t_map = time.perf_counter()
+            for e, io in enumerate(ios):
+                t = time.perf_counter()
+                keys, bounds = sorter.sort_partition(shards[e], edges)
+                t1 = time.perf_counter()
+                locs = io.stage_device_blocks(shuffle_id, {
+                    r: keys[bounds[r]:bounds[r + 1]] for r in range(REDUCERS)})
+                t2 = time.perf_counter()
+                io.publish_staged(shuffle_id, locs)
+                t3 = time.perf_counter()
+                split["sort_s"] += t1 - t
+                split["stage_s"] += t2 - t1
+                split["publish_s"] += t3 - t2
+                staged.extend(locs)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t_map, split, staged
+
+        map_s, split, staged_locs = map_phase(sid)
+        if not all(loc.block.has_device for loc in staged_locs):
+            raise AssertionError("a staged block has no device coordinates")
+        stage = {k: sum(io.metrics_snapshot()[k] for io in ios)
+                 for k in ("stage_copy_s", "stage_checksum_s", "stage_arena_s",
+                           "stage_bytes")}
+
+        def reduce_all(fused, check):
+            outs = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for r, io in enumerate(ios):
+                got = io.fetch_device_blocks(sid, r, r + 1, dtype=np.uint32,
+                                             timeout_s=600, fused=fused)
+                merged, total = merge_blocks(
+                    [b.array[: b.length // 4] for b in got[r]])
+                for b in got[r]:
+                    b.free()
+                outs.append((merged, total))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if check:
+                for r, (merged, total) in enumerate(outs):
+                    _check_reducer(r, merged, total, want[r])
+            return wall
+
+        # (knobs, their defaults, fused); each run restores what it set
+        runs = {"default": ({}, {}, False),
+                "fused_512m": ({"tpu.shuffle.collective.waveBytes": "512m"},
+                               {"tpu.shuffle.collective.waveBytes": "64m"}, True),
+                "c_device_fetch_off": ({"tpu.shuffle.deviceFetch.enabled": "false"},
+                                       {"tpu.shuffle.deviceFetch.enabled": "true"},
+                                       False)}
+        fetch_keys = ("fetch_transport_s", "fetch_stage_s", "fetch_bytes")
+        report["b"] = {"keys": KEYS, "executors": EXECUTORS, "reducers": REDUCERS,
+                       "map_s": map_s, "map_split": split, "stage": stage,
+                       "arena_copy_from": "host (MapShardSorter returns numpy)"}
+        for name, (knobs, defaults, fused) in runs.items():
+            restore = {k: conf.get(k, d) for k, d in defaults.items()}
+            for k, v in knobs.items():
+                conf.set(k, v)
+            try:
+                before = {k: sum(reg.counter(f"collective.{k}", role=i).value
+                                 for i in ids)
+                          for k in ("blocks", "degrades", "fused_merges")}
+                f0 = {k: sum(io.metrics_snapshot()[k] for io in ios) for k in fetch_keys}
+                l0 = launches()
+                cold = reduce_all(fused, check=True)
+                warm = reduce_all(fused, check=False)
+                deltas = {f"collective.{k}": sum(
+                    reg.counter(f"collective.{k}", role=i).value for i in ids) - v
+                    for k, v in before.items()}
+                fetch = {k: sum(io.metrics_snapshot()[k] for io in ios) - f0[k]
+                         for k in fetch_keys}
+            finally:
+                for k, v in restore.items():
+                    conf.set(k, v)
+            report[name] = {
+                "knobs": knobs, "fused": fused, "reduce_cold_s": cold,
+                "reduce_warm_s": warm, "reduce_gbps_warm": KEYS * 4 / warm / 1e9,
+                "e2e_s": map_s + cold, "e2e_gbps": KEYS * 4 / (map_s + cold) / 1e9,
+                "fetch_stats_two_reduces": fetch,
+                "wave_launches": [x - y for x, y in zip(launches(), l0)],
+                **deltas,
+            }
+        report["b"]["peak_device_bytes_above_baseline"] = (
+            torch.cuda.max_memory_allocated() - base)
+        report["b"]["registered_host_bytes"] = sum(
+            size * n for io in ios for size, n in
+            ((int(k), v) for k, v in
+             io.metrics_snapshot()["registered_pool_allocs_by_class"].items()))
+        report["b"]["driver_rpc"] = {k: c.value - rpc0[k] for k, c in rpc.items()}
+        # the driver's view: every location it serves carries device coordinates
+        report["b"]["served_with_device"] = all(
+            loc.block.has_device
+            for r, ex in enumerate(execs)
+            for loc in ex.fetch_remote_partition_locations(sid, r, r + 1).result(60))
+        # the map again on warm pools: unpublish returns the registered
+        # buffers and arena slabs, a second shuffle reuses them (no
+        # first-touch page faults); timed only, its blocks never fetched
+        s0 = {k: sum(io.metrics_snapshot()[k] for io in ios)
+              for k in ("stage_copy_s", "stage_checksum_s", "stage_arena_s")}
+        for io in ios:
+            io.unpublish(sid)
+        driver.register_shuffle(BaseShuffleHandle(
+            shuffle_id=sid + 1, num_maps=EXECUTORS,
+            partitioner=HashPartitioner(REDUCERS)))
+        warm_s, warm_split, _ = map_phase(sid + 1)
+        report["b"]["map_warm_pools"] = {
+            "map_s": warm_s, "map_split": warm_split,
+            "stage": {k: sum(io.metrics_snapshot()[k] for io in ios) - v
+                      for k, v in s0.items()}}
+    finally:
+        for io in ios:
+            io.stop()
+        for ex in execs:
+            ex.stop()
+        driver.stop()
+
+    blocks = EXECUTORS * REDUCERS
+    for name in ("default", "fused_512m"):
+        r = report[name]
+        if r["collective.blocks"] != 2 * blocks or r["collective.degrades"]:
+            raise AssertionError(f"run {name}: {r}")
+    if report["fused_512m"]["collective.fused_merges"] != 2 * REDUCERS:
+        raise AssertionError("run fused_512m: not one fused merge per reducer and reduce")
+    if report["default"]["wave_launches"][1] <= 0 or report["fused_512m"]["wave_launches"][0] <= 0:
+        raise AssertionError("a wave-pull kernel never launched in run (b)")
+    off = report["c_device_fetch_off"]
+    if sum(off["wave_launches"]) or off["collective.blocks"]:
+        raise AssertionError(f"run (c) used the waves: {off}")
+    if not report["b"]["served_with_device"]:
+        raise AssertionError("the driver served a location without device coordinates")
+    counts = {"srt_wave_pull": rc.wave_pull_launches,
+              "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches}
+    emit(10, name="host_plane_path", launches=counts, **report)
+    return counts
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkrdma_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository")
@@ -1874,7 +2304,7 @@ def main():
     t0 = time.perf_counter()
     smi = phase_environment(torch)
     phase_kernels(torch, dev)
-    arenas, ids, locs, launches = phase_main_path(torch, dev)
+    arenas, ids, locs, launches, data = phase_main_path(torch, dev)
     kernels = phase_timing(torch, dev, arenas, ids, locs)
     phase_terasort_step(torch, dev)
     phase_attention_kernel(torch, dev)
@@ -1887,10 +2317,14 @@ def main():
     phase_neighbor_pull_kernel(torch, dev)
     spmd = phase_spmd_path(torch, dev)
     kernels.append(time_neighbor_pull(torch, dev))
+    host_plane = phase_host_plane_path(torch, dev, data)
+    del data
     launches.update(training)
     for k, n in serving.items():
         launches[k] += n
     launches["srt_neighbor_pull"] = spmd
+    for k, n in host_plane.items():
+        launches[k] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
     for r in range(REDUCERS):

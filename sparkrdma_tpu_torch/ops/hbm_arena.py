@@ -18,8 +18,12 @@ contents: ``array`` is a view of the slab in the dtype last staged
 Spilled slabs release their device memory; the host tier is pinned
 memory when the arena lives on CUDA.
 
-Tenancy quota charging and the lock-order detector of the JAX arena
-wait for their slices; plain ``threading`` locks guard the tables.
+Tenancy quota charging works as in the JAX arena: with an ``hbm``
+quota broker installed (``tenancy/quota.py``), ``get`` charges the
+calling tenant a slab class for the get-to-put lifetime, ``put``
+releases it, and an over-quota tenant's slabs are the first spill
+victims. The lock-order detector of the JAX arena waits for ROADMAP
+item M8; plain ``threading`` locks guard the tables.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ import numpy as np
 import torch
 
 from sparkrdma_tpu_torch.obs import get_registry
+from sparkrdma_tpu_torch.tenancy import current_tenant
+from sparkrdma_tpu_torch.tenancy import quota as _quota
 from sparkrdma_tpu_torch.utils.torch_compat import resolve_device, torch_dtype
 
 logger = logging.getLogger(__name__)
@@ -76,7 +82,7 @@ class DeviceBuffer:
 
     __slots__ = (
         "handle", "capacity", "length", "_slab", "_dtype", "_manager",
-        "_host", "_disk", "_tier_lock", "last_use",
+        "_host", "_disk", "_tier_lock", "last_use", "tenant", "_quota_tag",
     )
 
     def __init__(self, handle: int, capacity: int, slab: torch.Tensor,
@@ -93,6 +99,8 @@ class DeviceBuffer:
         # manager lock inner (the JAX arena's ordering rules)
         self._tier_lock = threading.Lock()
         self.last_use = 0
+        self.tenant = None  # owning tenant id (spill-victim preference)
+        self._quota_tag = None  # (broker, tenant, cls) while charged
 
     @property
     def array(self) -> Optional[torch.Tensor]:
@@ -267,8 +275,9 @@ class DeviceBufferManager:
     """Size-classed pool of device slabs for one device (``cuda`` unless
     the caller passes ``device="cpu"``)."""
 
-    def __init__(self, device=None, max_bytes: int = 0,
-                 max_host_bytes: int = 0, spill_dir: Optional[str] = None):
+    def __init__(self, device=None, max_bytes: int = 0, prealloc: int = 0,
+                 prealloc_size: int = 0, max_host_bytes: int = 0,
+                 spill_dir: Optional[str] = None):
         self.device = resolve_device(device)
         self.max_bytes = max_bytes  # 0 = unbounded
         self.max_host_bytes = max_host_bytes  # host tier cap; 0 = unbounded
@@ -289,6 +298,13 @@ class DeviceBufferManager:
         self._evict_cond = threading.Condition(threading.Lock())
         self._lock = threading.Lock()
         self._stopped = False
+        # optional warm-up (reference maxAggPrealloc,
+        # RdmaBufferManager.java:84-91): ``prealloc`` slabs of
+        # ``prealloc_size`` bytes' class, allocated and pooled
+        if prealloc > 0 and prealloc_size > 0:
+            bufs = [self.get(prealloc_size) for _ in range(prealloc)]
+            for b in bufs:
+                b.free()
 
     # ------------------------------------------------------------------
     def _touch(self, buf: DeviceBuffer) -> None:
@@ -386,6 +402,17 @@ class DeviceBufferManager:
             ]
             if not candidates:
                 return None
+            broker = _quota.broker("hbm")
+            if broker is not None:
+                # an over-quota tenant's slabs go first: its own hoard
+                # pays for the pressure it created, LRU breaks ties
+                return min(
+                    candidates,
+                    key=lambda b: (
+                        not (b.tenant and broker.over_quota(b.tenant)),
+                        b.last_use,
+                    ),
+                )
             return min(candidates, key=lambda b: b.last_use)
 
     def _make_room(self, cls: int, pinned=frozenset()) -> None:
@@ -478,7 +505,28 @@ class DeviceBufferManager:
     def get(self, nbytes: int) -> DeviceBuffer:
         """Allocate (or reuse) a slab whose class covers ``nbytes``;
         under budget pressure LRU slabs spill to host first,
-        MemoryError only when nothing is spillable."""
+        MemoryError only when nothing is spillable.
+
+        When an hbm quota broker is installed, the tenant's charge
+        gates the allocation — an over-quota tenant blocks here, on
+        its own worker thread, until its earlier slabs are put back
+        (capacity is charged for the get→put lifetime, so spilling a
+        slab to host does NOT un-block its tenant)."""
+        broker = _quota.broker("hbm")
+        if broker is None:
+            return self._get_slab(nbytes, None)
+        tenant = current_tenant()
+        cls = _size_class(nbytes)
+        broker.charge(tenant, cls)
+        try:
+            buf = self._get_slab(nbytes, tenant)
+        except BaseException:
+            broker.release(tenant, cls)
+            raise
+        buf._quota_tag = (broker, tenant, cls)
+        return buf
+
+    def _get_slab(self, nbytes: int, tenant) -> DeviceBuffer:
         cls = _size_class(nbytes)
         with self._lock:
             if self._stopped:
@@ -488,6 +536,8 @@ class DeviceBufferManager:
             pooled = stack.stack.pop() if stack.stack else None
             if pooled is not None:
                 pooled.length = nbytes
+                pooled.tenant = tenant
+                pooled._quota_tag = None
                 self._in_use_bytes += cls
                 self._handles[pooled.handle] = pooled
                 self._use_clock += 1
@@ -507,7 +557,9 @@ class DeviceBufferManager:
             self._allocating += 1
         _G_IN_USE.add(cls)
         try:
-            return self._materialize(handle, cls, nbytes)
+            buf = self._materialize(handle, cls, nbytes)
+            buf.tenant = tenant
+            return buf
         finally:
             with self._lock:
                 self._allocating -= 1
@@ -564,6 +616,11 @@ class DeviceBufferManager:
                     disk, buf._disk = buf._disk, None
                 else:
                     disk = None
+            tag, buf._quota_tag = buf._quota_tag, None
+            if tag is not None:
+                # held-capacity quota retires with the slab, whatever
+                # tier the bytes ended up in
+                tag[0].release(tag[1], tag[2])
             if disk is not None:
                 try:
                     os.unlink(disk)

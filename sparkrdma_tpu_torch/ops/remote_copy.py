@@ -127,6 +127,11 @@ def _upload(table: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
+def _wave_kernel_path(device: torch.device) -> bool:
+    """A wave lands through the kernel iff its destination is CUDA."""
+    return device.type == "cuda"
+
+
 def _launch(pipelined: bool, sources, offsets, nbytes, rows_b: int,
             bucket_elems: int, dtype: torch.dtype, depth: int,
             device: torch.device) -> torch.Tensor:
@@ -173,7 +178,7 @@ def wave_pull(sources: Sequence[Optional[torch.Tensor]],
     CPU destination: the plain version."""
     dtype = torch_dtype(dtype)
     device = _dst_device(sources, device)
-    if device.type == "cpu":
+    if not _wave_kernel_path(device):
         return wave_pull_reference(sources, offsets, nbytes, rows_b,
                                    bucket_elems, dtype, 1, device)[0]
     return _launch(False, sources, offsets, nbytes, rows_b, bucket_elems,
@@ -190,7 +195,7 @@ def pipelined_wave_pull(sources: Sequence[Optional[torch.Tensor]],
     the plain version."""
     dtype = torch_dtype(dtype)
     device = _dst_device(sources, device)
-    if device.type == "cpu":
+    if not _wave_kernel_path(device):
         return wave_pull_reference(sources, offsets, nbytes, rows_b,
                                    bucket_elems, dtype, depth, device)
     return _launch(True, sources, offsets, nbytes, rows_b, bucket_elems,

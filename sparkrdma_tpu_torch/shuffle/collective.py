@@ -42,6 +42,10 @@ byte-identically (the caller host-fetches the degraded locations):
 
 A kernel that does not build or launch is an error and propagates out
 of ``execute`` (the JAX compiler's transfer-engine fallbacks are gone).
+
+Tracing: given a ``tracer`` (``obs/trace.py``), ``execute`` opens the
+``shuffle.collective`` span and records one ``shuffle.collective.wave``
+span per adopted wave under it, the JAX compiler's span names.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ import logging
 import threading
 import time
 from collections import deque
-from contextlib import ExitStack
+from contextlib import ExitStack, nullcontext
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -205,10 +209,12 @@ class _InflightWave:
 class ShuffleScheduleCompiler:
     """Compile + execute whole-stage device fetch schedules."""
 
-    def __init__(self, conf, dev: DeviceBufferManager, executor_id: str):
+    def __init__(self, conf, dev: DeviceBufferManager, executor_id: str,
+                 tracer=None):
         self._conf = conf
         self._dev = dev
         self._executor_id = executor_id
+        self._tracer = tracer
         # program-shape bookkeeping for the compile-churn metrics
         self._seen_programs: set = set()
         self._cache_lock = threading.Lock()
@@ -414,53 +420,64 @@ class ShuffleScheduleCompiler:
         degraded: List[PartitionLocation] = []
         self._m_plans.inc()
         stats = {"dispatch_ms": 0.0, "wave_ms": 0.0, "overlap_ms": 0.0}
-        unfusable: set = set()
-        inflight: Deque[_InflightWave] = deque()
-
-        def _degrade_rows(rows: List[_Row]) -> None:
-            if not rows:
-                return
-            for row in rows:
-                degraded.append(row.loc)
-                unfusable.add(row.loc.partition_id)
-            self._m_degrades.inc(len(rows))
-            self._m_plane_fallbacks.inc(len(rows))
-
-        def _consume_next() -> None:
-            entry = inflight.popleft()
-            self._consume_entry(
-                entry, dtype, fused, plan.fusable_pids, unfusable, results,
-                _degrade_rows, reg, overlapped=bool(inflight), stats=stats,
+        span = (
+            self._tracer.span(
+                "shuffle.collective", shuffle_id=shuffle_id,
+                schedule=plan.schedule, waves=len(plan.waves),
+                blocks=plan.device_blocks, depth=depth,
             )
-            if drain is not None:
-                drain()
+            if self._tracer is not None
+            else nullcontext()
+        )
+        with span:
+            unfusable: set = set()
+            inflight: Deque[_InflightWave] = deque()
 
-        try:
-            for group in self._coalesce(plan.waves, depth):
-                while len(inflight) >= depth:
-                    _consume_next()
-                entry = self._issue_entry(
-                    group, dtype, fused, plan.fusable_pids, reg,
-                    overlapped=bool(inflight), stats=stats,
+            def _degrade_rows(rows: List[_Row]) -> None:
+                if not rows:
+                    return
+                for row in rows:
+                    degraded.append(row.loc)
+                    unfusable.add(row.loc.partition_id)
+                self._m_degrades.inc(len(rows))
+                self._m_plane_fallbacks.inc(len(rows))
+
+            def _consume_next() -> None:
+                entry = inflight.popleft()
+                self._consume_entry(
+                    entry, dtype, fused, plan.fusable_pids, unfusable, results,
+                    _degrade_rows, reg, overlapped=bool(inflight), stats=stats,
+                    shuffle_id=shuffle_id,
                 )
-                _degrade_rows(entry.dead)
-                if entry.all_dead:
-                    continue
-                inflight.append(entry)
-                self._m_inflight.observe(float(len(inflight)))
                 if drain is not None:
                     drain()
-            while inflight:
-                _consume_next()
-        finally:
-            # abort drain: release every in-flight entry's pins and
-            # degrade its unadopted rows
-            while inflight:
-                entry = inflight.popleft()
-                entry.close()
-                _degrade_rows(
-                    [r for w in entry.waves for r in w.rows if r.live]
-                )
+
+            try:
+                for group in self._coalesce(plan.waves, depth):
+                    while len(inflight) >= depth:
+                        _consume_next()
+                    entry = self._issue_entry(
+                        group, dtype, fused, plan.fusable_pids, reg,
+                        overlapped=bool(inflight), stats=stats,
+                    )
+                    _degrade_rows(entry.dead)
+                    if entry.all_dead:
+                        continue
+                    inflight.append(entry)
+                    self._m_inflight.observe(float(len(inflight)))
+                    if drain is not None:
+                        drain()
+                while inflight:
+                    _consume_next()
+            finally:
+                # abort drain: release every in-flight entry's pins and
+                # degrade its unadopted rows
+                while inflight:
+                    entry = inflight.popleft()
+                    entry.close()
+                    _degrade_rows(
+                        [r for w in entry.waves for r in w.rows if r.live]
+                    )
         # feed the stage's wave stats back into the per-shape cut
         if plan.sig is not None:
             self._tuner.observe(plan.sig, WaveReport(
@@ -644,7 +661,7 @@ class ShuffleScheduleCompiler:
     def _consume_entry(
         self, entry: _InflightWave, dtype, fused: bool,
         fusable_pids: frozenset, unfusable: set, results, _degrade_rows,
-        reg, overlapped: bool, stats: Dict[str, float],
+        reg, overlapped: bool, stats: Dict[str, float], shuffle_id: int = 0,
     ) -> None:
         """Wait for one entry's copies, adopt its rows into arena slabs,
         then release its pins. An adoption failure degrades the affected
@@ -691,6 +708,17 @@ class ShuffleScheduleCompiler:
                     schedule=self._schedule_label,
                 ).observe((now - entry.t0) * 1e3)
                 stats["wave_ms"] += (now - entry.t0) * 1e3
+                if self._tracer is not None:
+                    # per-wave span, nested under execute()'s
+                    # shuffle.collective span through the contextvar
+                    self._tracer.record(
+                        "shuffle.collective.wave",
+                        entry.t0,
+                        time.perf_counter(),
+                        shuffle_id=shuffle_id,
+                        rows=len(live),
+                        bytes=nbytes,
+                    )
         finally:
             entry.close()
         consume_ms = (time.perf_counter() - t0) * 1e3

@@ -32,12 +32,17 @@ _TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` by default, the CPU
     only when asked for. Raises when a CUDA device is wanted and none
-    is available."""
+    is available. A bare ``cuda`` is pinned to the caller's current
+    device, so tensors made later on other threads (whose current
+    device is ``cuda:0``) land where the entry point was built."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
