@@ -36,8 +36,9 @@ exits nonzero and prints no result. Phases, each one JSON line:
 5. ``attention_path``: the attention serving path through its public
    entry points at the repo's two full widths (bench.py's B4 S2048 H8
    D128 bf16 causal, the transformer workload's B4 S2048 H8 D64 fp32
-   non-causal): ``UlyssesAttention(1)`` answers 3 calls, each checked
-   against the plain version, and ``RingAttention(1)`` against Ulysses;
+   non-causal): ``UlyssesAttention()`` (one shard) answers 3 calls, each
+   checked against the plain version, and ``RingAttention()`` against
+   Ulysses;
    per-call wall, flash launches (every bench-shape launch on
    ``srt_flash_attn_fwd_sm90``, every workload launch on
    ``srt_flash_attn_fwd_tf32x3``) and peak device memory;
@@ -102,7 +103,8 @@ exits nonzero and prints no result. Phases, each one JSON line:
    with their assertions (the pattern shuffle byte-equal and staged on
    the card; the big stage through the compiled waves, fused and per
    block, 16 blocks on the waves, 4 fused merges, overlap only at depth
-   2), then CUDA-tensor blocks through ``stage_device_blocks``; (b)
+   2), then CUDA-tensor blocks of int32, float16 and bfloat16 through
+   ``stage_device_blocks`` and fetches typed with their dtypes; (b)
    phase 2's 1 GiB keys through a driver and 8 executors: every shard
    sorted by ``MapShardSorter``, staged and published, every reducer
    fetching its partition through the location RPC and the waves and
@@ -114,7 +116,32 @@ exits nonzero and prints no result. Phases, each one JSON line:
    warm pools, cold and warm reduce walls, fetch stats, peak device and
    registered host bytes, the driver's RPC counts; (c) the same
    published blocks with ``deviceFetch.enabled=false``: one-sided READs
-   and host-to-device staging, byte-equal, no wave launch.
+   and host-to-device staging, byte-equal, no wave launch;
+11. ``sp_training_path``: sequence parallelism and the (dp, sp, tp)
+   training step on meshes of 8 shards of the card: (a) dryrun sections 2
+   and 2b (``__graft_entry__``) at their own sizes with their assertions
+   (``RingAttention`` and ``UlyssesAttention`` on ``make_mesh([dev] *
+   8)`` within rtol 2e-4 / atol 2e-5 of the dense reference; both
+   schedules of ``TransformerStep(make_training_mesh([dev] * 8))`` within
+   loss rtol 1e-4 of ``reference_step``); (b) both classes on the 8-shard
+   exec mesh at phase 5's two full widths, 3 calls each: the ring (14
+   ``srt_neighbor_pull`` launches a call) against the one-shard ring
+   (bench 1e-2 / 1e-2, workload 2e-4 / 2e-5) and against Ulysses on the
+   mesh (bench 5e-2 / 5e-2, workload 2e-4 / 2e-5), Ulysses (one flash
+   forward a call, on the route phase 5 names) against the one-shard
+   Ulysses (bench 1e-2 / 1e-2, workload 2e-4 / 2e-5); per-call walls,
+   launches, peak device memory and a profiled call of each; then the
+   ring on the mesh once more at the workload width made causal, against
+   the one-shard ring at 2e-4 / 2e-5 (the mask is what tells the hops'
+   direction apart); (c) phase 7's workload step on
+   (dp 2, sp 2, tp 2) with both schedules: step 1 against
+   ``reference_step`` and phase 7's one-shard step (phase 7's bounds),
+   every shard's gradients against the one-shard block's within
+   TRAIN_GRAD_REL of their largest value (the new parameters hide
+   them), ``run_steps`` of 9 more ending at most 1.01 x the first loss; Ulysses
+   one launch a step each of the 3xTF32 forward, dq and dk/dv kernels,
+   the ring 4 ``srt_neighbor_pull`` a step; warm step wall beside phase
+   7's, launches, peak memory and a profiled step.
 
 Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, where one
@@ -792,7 +819,7 @@ def phase_attention_path(torch, dev):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()  # inputs and earlier phases' arenas
         pa.reset_launch_counts()
-        ul = UlyssesAttention(1)
+        ul = UlyssesAttention()
         walls, outs = [], []
         for _ in range(3):
             t = time.perf_counter()
@@ -800,7 +827,7 @@ def phase_attention_path(torch, dev):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
         t = time.perf_counter()
-        ring_out = RingAttention(1)(q, k, v, causal=causal)
+        ring_out = RingAttention()(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ring_s = time.perf_counter() - t
         n = pa.flash_fwd_launches
@@ -1299,7 +1326,8 @@ def phase_training_path(torch, dev):
     emit(7, name="training_path", transformer_step=train, flash_train_step=flash)
     # per kernel: the workload's f32 steps ran the 3xTF32 forward and
     # backward, the flash step the bf16 tensor-core kernels
-    return {k: launches[k] + flash_launches[k] for k in launches}
+    return ({k: launches[k] + flash_launches[k] for k in launches},
+            train["step_s_warm"])
 
 
 def _sdpa_backend(torch, fn):
@@ -2034,10 +2062,12 @@ def host_plane_sections(devices, knobs=None, prefix="dry"):
 
 
 def _tensor_publish_check(torch, dev):
-    """Blocks handed to ``stage_device_blocks`` as CUDA tensors: one
-    device-to-host readback into registered memory, a device-to-device
-    arena copy, and a reducer that pulls them byte-equal. The endpoints
-    take the default device (``cuda``, pinned to the current one)."""
+    """Blocks handed to ``stage_device_blocks`` as CUDA tensors of int32,
+    float16 and bfloat16 (one shuffle each): one device-to-host readback
+    into registered memory, a device-to-device arena copy, and a reducer
+    that pulls them byte-equal with a fetch typed with the tensors' own
+    dtype. The endpoints take the default device (``cuda``, pinned to the
+    current one)."""
     from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
     from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
     from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
@@ -2051,28 +2081,37 @@ def _tensor_publish_check(torch, dev):
     if any(io.device_buffers.device != dev for io in ios):
         raise AssertionError("the default device is not the current card")
     g = torch.Generator(device="cpu").manual_seed(9)
+    out = {}
     try:
-        driver.register_shuffle(BaseShuffleHandle(
-            shuffle_id=9, num_maps=2, partitioner=HashPartitioner(2)))
-        sent = {}
-        for m, io in enumerate(ios):
-            parts = {p: torch.randint(0, 1 << 31, (20000 + 7 * m + p,),
-                                      generator=g, dtype=torch.int64)
-                     .to(torch.int32).to(dev) for p in range(2)}
-            locs = io.stage_device_blocks(9, parts)
-            if not all(loc.block.has_device for loc in locs):
-                raise AssertionError("a CUDA block lost its device coordinates")
-            io.publish_staged(9, locs)
-            sent.update({(m, p): t.cpu().numpy().tobytes() for p, t in parts.items()})
-        for p, io in enumerate(ios):
-            got = io.fetch_device_blocks(9, p, p + 1, dtype=np.int32, timeout_s=60)
-            blobs = sorted(b.read(0, b.length) for b in got[p])
-            if blobs != sorted(sent[(m, p)] for m in range(2)):
-                raise AssertionError("CUDA-tensor blocks differ after the shuffle")
-            for b in got[p]:
-                b.free()
+        for sid, dtype in ((9, torch.int32), (19, torch.float16), (29, torch.bfloat16)):
+            driver.register_shuffle(BaseShuffleHandle(
+                shuffle_id=sid, num_maps=2, partitioner=HashPartitioner(2)))
+            sent = {}
+            for m, io in enumerate(ios):
+                parts = {p: torch.randint(0, 1 << 31, (20000 + 7 * m + p,),
+                                          generator=g, dtype=torch.int64)
+                         .to(torch.int32).to(dev) for p in range(2)}
+                if dtype != torch.int32:
+                    parts = {p: (t.double() / (1 << 31) - 0.5).to(dtype)
+                             for p, t in parts.items()}
+                locs = io.stage_device_blocks(sid, parts)
+                if not all(loc.block.has_device for loc in locs):
+                    raise AssertionError("a CUDA block lost its device coordinates")
+                io.publish_staged(sid, locs)
+                sent.update({(m, p): t.cpu().view(torch.uint8).numpy().tobytes()
+                             for p, t in parts.items()})
+            for p, io in enumerate(ios):
+                got = io.fetch_device_blocks(sid, p, p + 1, dtype=dtype, timeout_s=60)
+                blobs = sorted(b.read(0, b.length) for b in got[p])
+                if blobs != sorted(sent[(m, p)] for m in range(2)):
+                    raise AssertionError(f"{dtype} CUDA-tensor blocks differ after the shuffle")
+                if any(b.array.dtype != dtype for b in got[p]):
+                    raise AssertionError(f"a {dtype} block came back typed otherwise")
+                for b in got[p]:
+                    b.free()
+            out[str(dtype).removeprefix("torch.")] = "equal"
         snap = ios[0].metrics_snapshot()
-        return {"equal": True, "stage_bytes": snap["stage_bytes"]}
+        return {"equal": out, "stage_bytes": snap["stage_bytes"]}
     finally:
         for io in ios:
             io.stop()
@@ -2287,6 +2326,241 @@ def phase_host_plane_path(torch, dev, data):
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase 11: sequence parallelism and the (dp, sp, tp) step over a mesh
+# ----------------------------------------------------------------------
+SP_SHARDS = 8
+SP_CALLS = 3
+# (rtol, atol) of each comparison at each serving shape. Both rings fold
+# in f32 and round once, so they agree within a bf16 ulp; the bf16 flash
+# kernel under Ulysses rounds p to bf16 as well
+SP_TOL = {"bench_bf16_causal": {"ring_vs_one_shard_ring": (1e-2, 1e-2),
+                                "ring_vs_ulysses": (5e-2, 5e-2),
+                                "ulysses_vs_one_shard": (1e-2, 1e-2)},
+          "workload_f32": dict.fromkeys(("ring_vs_one_shard_ring", "ring_vs_ulysses",
+                                         "ulysses_vs_one_shard"), (2e-4, 2e-5))}
+DRY_ATTN_TOL = (2e-4, 2e-5)  # __graft_entry__ dryrun section 2
+DRY_LOSS_RTOL = 1e-4  # section 2b
+
+
+def sp_dryrun_sections(torch, dev, e=SP_SHARDS):
+    """Dryrun sections 2 and 2b (``__graft_entry__``) at their own sizes
+    on ``make_mesh([dev] * e)`` and ``make_training_mesh([dev] * e)``,
+    with their assertions and the same ``default_rng(2)`` draws."""
+    from sparkrdma_tpu_torch.models.transformer_step import (
+        TransformerStep, init_params, make_training_mesh, reference_step,
+    )
+    from sparkrdma_tpu_torch.ops import RingAttention, UlyssesAttention
+    from sparkrdma_tpu_torch.ops.ring_attention import reference_attention
+    from sparkrdma_tpu_torch.parallel import make_mesh
+
+    out = {}
+    mesh1d = make_mesh([dev] * e)
+    rng = np.random.default_rng(2)
+
+    def mk():
+        return torch.from_numpy(rng.normal(size=(1, 8 * e, e, 8))
+                                .astype(np.float32)).to(dev)
+
+    q, k, v = mk(), mk(), mk()
+    ref = reference_attention(q, k, v, causal=True)
+    for sp in (RingAttention(mesh1d), UlyssesAttention(mesh1d)):
+        name = type(sp).__name__
+        out[name] = _max_err(torch, sp(q, k, v, causal=True), ref, "float32",
+                             f"dryrun 2 {name}", DRY_ATTN_TOL)
+    tmesh = make_training_mesh([dev] * e)
+    tparams = init_params(16, n_heads=4, d_hidden=32, tp=tmesh.shape["tp"])
+    bsz = 4 * tmesh.shape["dp"]
+    tx = rng.normal(size=(bsz, 16, 16)).astype(np.float32)
+    ty = rng.normal(size=(bsz, 16, 16)).astype(np.float32)
+    ref_loss, _ = reference_step(tparams, torch.from_numpy(tx).to(dev),
+                                 torch.from_numpy(ty).to(dev), 4, 0.1)
+    for schedule in ("ring", "ulysses"):
+        tstep = TransformerStep(tmesh, n_heads=4, lr=0.1, attn=schedule)
+        loss, _ = tstep.step(*tstep.place(tparams, tx, ty))
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        if not rel <= DRY_LOSS_RTOL:
+            raise AssertionError(f"dryrun 2b train step ({schedule}) loss diverged: "
+                                 f"{float(loss)} vs {float(ref_loss)}")
+        out[f"train_{schedule}_loss_rel_err"] = rel
+    out["training_mesh"] = tmesh.shape
+    return out
+
+
+def _sp_counts(rc, pa):
+    """The kernels of this phase's path and their launches since the last
+    resets."""
+    return {"srt_neighbor_pull": rc.neighbor_pull_launches, **_flash_launches(pa)}
+
+
+def phase_sp_training_path(torch, dev, step7_s):
+    """Phase 11: sequence parallelism and the (dp, sp, tp) training step
+    on meshes of ``SP_SHARDS`` shards of the card. (a) dryrun sections 2
+    and 2b at their own sizes; (b) serving at the two full widths on the
+    8-shard exec mesh, ``SP_CALLS`` calls of each class, the ring held
+    against the one-shard ring and Ulysses on the mesh, Ulysses against
+    the one-shard Ulysses; (c) the workload's training step on
+    ``make_training_mesh`` (dp 2, sp 2, tp 2) with both schedules, step 1
+    against ``reference_step`` and phase 7's one-shard step, then
+    ``run_steps`` of 9 more, and each schedule's gradients on every
+    shard against the one-shard block's. The path's counts from 0 just
+    before each run of (a), (b) and (c), read just after."""
+    from sparkrdma_tpu_torch.models.transformer_step import (
+        PARAM_SPECS, TransformerStep, make_training_mesh, reference_step,
+    )
+    from sparkrdma_tpu_torch.ops import RingAttention, UlyssesAttention
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+    from sparkrdma_tpu_torch.parallel import make_mesh, shard
+
+    def reset():
+        rc.reset_launch_counts()
+        pa.reset_launch_counts()
+
+    report = {}
+    total = dict.fromkeys(_sp_counts(rc, pa), 0)
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] += n
+
+    # ---- (a) dryrun sections 2 and 2b
+    reset()
+    t = time.perf_counter()
+    report["a"] = sp_dryrun_sections(torch, dev)
+    torch.cuda.synchronize()
+    report["a"]["wall_s"] = time.perf_counter() - t
+    counts = _sp_counts(rc, pa)
+    add(counts)
+    report["a"]["launches"] = {k: n for k, n in counts.items() if n}
+
+    # ---- (b) serving on the 8-shard exec mesh at both full widths
+    mesh = make_mesh([dev] * SP_SHARDS)
+    for name, shape in ATTN_PATH_SHAPES.items():
+        b, s, h, d, dtype, causal = shape
+        entry = _fwd_entry(shape)
+        tol = SP_TOL[name]
+        q, k, v = _qkv(torch, dev, shape, 21)
+        want_ul = UlyssesAttention()(q, k, v, causal=causal)
+        want_ring = RingAttention()(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run = {"shape": [b, s, h, d], "dtype": dtype, "causal": causal,
+               "shards": SP_SHARDS}
+        outs = {}
+        for cls, key in ((UlyssesAttention, "ulysses"), (RingAttention, "ring")):
+            attn = cls(mesh)
+            walls = []
+            reset()
+            outs[key] = []
+            for _ in range(SP_CALLS):
+                t = time.perf_counter()
+                outs[key].append(attn(q, k, v, causal=causal))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+            counts = _sp_counts(rc, pa)
+            add(counts)
+            run[f"{key}_call_s"] = walls
+            run[f"{key}_launches_per_call"] = {
+                k_: n / SP_CALLS for k_, n in counts.items() if n}
+        run["peak_above_baseline_bytes"] = torch.cuda.max_memory_allocated() - base
+        for key, cls in (("ulysses", UlyssesAttention), ("ring", RingAttention)):
+            attn = cls(mesh)
+            run[f"{key}_profiled_call"] = _profiled(
+                torch, lambda: attn(q, k, v, causal=causal))
+        per_ul, per_ring = run["ulysses_launches_per_call"], run["ring_launches_per_call"]
+        if per_ul != {entry: 1.0}:
+            raise AssertionError(f"{name}: Ulysses launches a call {per_ul}, not 1 of {entry}")
+        if per_ring != {"srt_neighbor_pull": 2.0 * (SP_SHARDS - 1)}:
+            raise AssertionError(f"{name}: ring launches a call {per_ring}")
+        errs = {"ulysses_vs_one_shard": [], "ring_vs_one_shard_ring": [],
+                "ring_vs_ulysses": []}
+        for i, (ul, ring) in enumerate(zip(outs["ulysses"], outs["ring"])):
+            for key, out in (("ulysses", ul), ("ring", ring)):
+                if out.shape != q.shape or out.dtype != q.dtype:
+                    raise AssertionError(f"{name} {key} call {i}: {out.shape} {out.dtype}")
+            for key, got, want in (("ulysses_vs_one_shard", ul, want_ul),
+                                   ("ring_vs_one_shard_ring", ring, want_ring),
+                                   ("ring_vs_ulysses", ring, ul)):
+                errs[key].append(_max_err(torch, got, want, dtype,
+                                          f"{name} {key} call {i}", tol[key]))
+        run["max_abs_err"] = errs
+        report[f"b_{name}"] = run
+        del q, k, v, want_ul, want_ring, outs
+
+    # ---- (b') the ring on the mesh at the workload width, causal: its
+    # hops' direction shows only under the mask (outside the counts)
+    b, s, h, d, dtype, _ = ATTN_PATH_SHAPES["workload_f32"]
+    q, k, v = _qkv(torch, dev, (b, s, h, d, dtype, True), 22)
+    report["b_workload_f32_causal_ring_vs_one_shard_ring_max_abs_err"] = _max_err(
+        torch, RingAttention(mesh)(q, k, v, causal=True),
+        RingAttention()(q, k, v, causal=True), dtype, "causal f32 ring on the mesh",
+        SP_TOL["workload_f32"]["ring_vs_one_shard_ring"])
+    del q, k, v
+
+    # ---- (c) the workload's training step on (dp 2, sp 2, tp 2)
+    t_ = TRAIN
+    params, x, y = _train_data(torch, dev)
+    tmesh = make_training_mesh([dev] * SP_SHARDS)
+    ref_loss, ref_new = reference_step(params, x, y, t_["heads"], t_["lr"])
+    one_loss, one_new = TransformerStep(n_heads=t_["heads"], lr=t_["lr"],
+                                        attn="ulysses").step(params, x, y)
+    one_grads = _block_grads(torch, params, x, y, "ring")
+    n_steps = 1 + t_["steps_after_first"]
+    for schedule in ("ulysses", "ring"):
+        step = TransformerStep(tmesh, n_heads=t_["heads"], lr=t_["lr"], attn=schedule)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset()
+        t = time.perf_counter()
+        loss1, new1 = step.step(params, x, y)
+        torch.cuda.synchronize()
+        step1_s = time.perf_counter() - t
+        after1 = {k: n for k, n in _sp_counts(rc, pa).items() if n}
+        t = time.perf_counter()
+        loss_k, _ = step.run_steps(new1, x, y, t_["steps_after_first"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        counts = _sp_counts(rc, pa)
+        add(counts)
+        peak = torch.cuda.max_memory_allocated() - base
+        want1 = ({"srt_flash_attn_fwd_tf32x3": 1, "srt_flash_attn_bwd_dq_tf32x3": 1,
+                  "srt_flash_attn_bwd_dkv_tf32x3": 1} if schedule == "ulysses"
+                 else {"srt_neighbor_pull": 4})
+        if after1 != want1 or {k: n for k, n in counts.items() if n} != {
+                k: n * n_steps for k, n in want1.items()}:
+            raise AssertionError(f"{schedule} step launches {after1}, {counts}")
+        l1, lk = float(loss1), float(loss_k)
+        if not (np.isfinite(lk) and lk <= l1 * 1.01):
+            raise AssertionError(f"{schedule} on the mesh diverged: loss {l1} -> {lk}")
+        checks = {}
+        for what, (lw, pw) in (("reference_step", (ref_loss, ref_new)),
+                               ("phase7_one_shard", (one_loss, one_new))):
+            rel = abs(l1 - float(lw)) / abs(float(lw))
+            if not rel <= TRAIN_LOSS_RTOL:
+                raise AssertionError(f"{schedule} step 1 vs {what}: loss {l1} vs {float(lw)}")
+            checks[what] = {"loss_rel_err": rel, "param_max_abs_err": _close_params(
+                new1, pw, f"{schedule} step 1 vs {what}")}
+        checks["grad_rel_err_every_shard_vs_one_shard_block"] = _grad_rel_err(
+            step.gradients(params, x, y),
+            {k: shard(tmesh, g, PARAM_SPECS[k]) for k, g in one_grads.items()},
+            f"{schedule} step 1 gradients on the mesh")
+        report[f"c_{schedule}"] = {
+            "mesh": tmesh.shape, "step1_s": step1_s,
+            "step_s_warm": run_s / t_["steps_after_first"],
+            "phase7_one_shard_step_s_warm": step7_s,
+            "loss_first": l1, "loss_last": lk, "steps": n_steps,
+            "launches_per_step": {k: n / n_steps for k, n in counts.items() if n},
+            "peak_above_baseline_bytes": peak, "step1_checks": checks,
+            "profiled_step": _profiled(torch, lambda: step.step(params, x, y)),
+        }
+        del new1
+    emit(11, name="sp_training_path", launches=total, **report)
+    return total
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkrdma_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository")
@@ -2311,7 +2585,7 @@ def main():
     serving = phase_attention_path(torch, dev)
     kernels.extend(time_flash_attention(torch, dev))
     phase_attention_bwd_kernel(torch, dev)
-    training = phase_training_path(torch, dev)
+    training, step7_s = phase_training_path(torch, dev)
     kernels.extend(time_flash_attention_bwd(torch, dev))
     phase_second_device(torch)
     phase_neighbor_pull_kernel(torch, dev)
@@ -2319,11 +2593,14 @@ def main():
     kernels.append(time_neighbor_pull(torch, dev))
     host_plane = phase_host_plane_path(torch, dev, data)
     del data
+    sp_training = phase_sp_training_path(torch, dev, step7_s)
     launches.update(training)
     for k, n in serving.items():
         launches[k] += n
     launches["srt_neighbor_pull"] = spmd
     for k, n in host_plane.items():
+        launches[k] += n
+    for k, n in sp_training.items():
         launches[k] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

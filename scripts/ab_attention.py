@@ -12,7 +12,7 @@ builds its own kernels at first use (outside the timed windows). A turn
 times, at the serving path's two full widths (``chip_smoke.py``'s
 ``ATTN_PATH_SHAPES``, inputs from ``default_rng(21)``):
 
-- ``UlyssesAttention(1)`` calls at bench.py's B4 S2048 H8 D128 bf16
+- ``UlyssesAttention()`` (one shard) calls at bench.py's B4 S2048 H8 D128 bf16
   causal shape and at the transformer workload's B4 S2048 H8 D64 fp32
   shape: host clock around each call, which ends in a device sync;
 - the flash training step, ``flash_attention(q, k, v,
@@ -74,7 +74,7 @@ def one_turn(root):
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     rec = {"root": root, "module": pa.__file__}
-    ul = UlyssesAttention(1)
+    ul = UlyssesAttention()
     for name, shape in SHAPES.items():
         q, k, v = _qkv(torch, dev, shape, 21)
         call = lambda: ul(q, k, v, causal=shape[5])  # noqa: E731

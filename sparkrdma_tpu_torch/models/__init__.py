@@ -5,8 +5,10 @@ from sparkrdma_tpu_torch.models.transformer_step import (
     TransformerBlock,
     TransformerStep,
     init_params,
+    make_training_mesh,
     reference_step,
 )
 
 __all__ = ["MapShardSorter", "TeraSorter", "TransformerBlock",
-           "TransformerStep", "init_params", "reference_step"]
+           "TransformerStep", "init_params", "make_training_mesh",
+           "reference_step"]

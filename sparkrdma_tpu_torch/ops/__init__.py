@@ -9,7 +9,7 @@ from sparkrdma_tpu_torch.ops.pallas_attention import (
     flash_attention,
     flash_attention_bwd,
 )
-from sparkrdma_tpu_torch.ops.remote_copy import neighbor_pull
+from sparkrdma_tpu_torch.ops.remote_copy import neighbor_pull, ppermute
 from sparkrdma_tpu_torch.ops.ring_attention import RingAttention
 from sparkrdma_tpu_torch.ops.ulysses_attention import UlyssesAttention
 from sparkrdma_tpu_torch.parallel.mesh import make_mesh
@@ -17,5 +17,5 @@ from sparkrdma_tpu_torch.parallel.mesh import make_mesh
 __all__ = [
     "DeviceBuffer", "DeviceBufferManager", "ExchangeProgram", "RingAttention",
     "UlyssesAttention", "flash_attention", "flash_attention_bwd", "make_mesh",
-    "neighbor_pull",
+    "neighbor_pull", "ppermute",
 ]

@@ -10,11 +10,16 @@ The PyTorch counterpart of the JAX package's ``ops/remote_copy.py``.
   which reads the source arena slabs directly; on a CPU destination it
   runs :func:`wave_pull_reference`, the plain version. A kernel that
   does not build or launch raises; nothing falls back.
-- ``neighbor_pull``: the mesh rotation, one hop of the ring exchange. A
-  ``[n, *shard]`` stack comes back rotated left by one shard (row ``i``
-  holds row ``(i + 1) mod n``). On CUDA it launches ``srt_neighbor_pull``
-  (``csrc/neighbor_pull.cu``) over a per-shard pointer table; on the CPU
-  it runs :func:`neighbor_pull_reference`.
+- ``ppermute``: ``lax.ppermute`` over the rows of a ``[n, *shard]``
+  stack, for any permutation of the shards (the ring's hop along one
+  axis of a multi-axis mesh: :func:`axis_shift_perm`); ``PPermute`` is
+  its autograd Function, whose backward is the inverse permutation.
+  ``neighbor_pull`` is the rotation left by one shard (row ``i`` holds
+  row ``(i + 1) mod n``), one hop of the ring exchange. On CUDA each
+  launches ``srt_neighbor_pull`` (``csrc/neighbor_pull.cu``) over a
+  per-shard (src, dst) pointer table, which carries the permutation;
+  on the CPU they run :func:`ppermute_reference` /
+  :func:`neighbor_pull_reference`.
 - the emulated issue/wait halves and ``pull_block``: the CPU movers the
   schedule compiler and the per-block planner use off CUDA, each an
   independent copy (``clone``) of the source.
@@ -26,7 +31,7 @@ Every wrapper that launches its kernel adds one to its launch count
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -203,10 +208,11 @@ def pipelined_wave_pull(sources: Sequence[Optional[torch.Tensor]],
 
 
 # ----------------------------------------------------------------------
-# the mesh rotation (the JAX package's pallas_neighbor_pull)
+# shard permutations: the mesh rotation (the JAX package's
+# pallas_neighbor_pull) and lax.ppermute on co-resident shards
 # ----------------------------------------------------------------------
 def _kernel_path(blocks: torch.Tensor) -> bool:
-    """A stack rotates through the kernel iff it lies on CUDA."""
+    """A stack permutes through the kernel iff it lies on CUDA."""
     return blocks.device.type == "cuda"
 
 
@@ -220,42 +226,136 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def perm_sources(perm: Sequence[Tuple[int, int]], n: int) -> List[int]:
+    """``sources[i]``: the row that row ``i`` receives under ``perm``, a
+    list of ``(src, dst)`` pairs as ``lax.ppermute`` takes them. Raises
+    unless ``perm`` sends one row to every one of the ``n`` shards and
+    receives one from every shard: the kernel writes every destination
+    row, so a partial ``ppermute`` (zeros where nothing arrives) is not
+    one launch."""
+    sources = [-1] * n
+    sent = set()
+    for src, dst in perm:
+        src, dst = int(src), int(dst)
+        if not (0 <= src < n and 0 <= dst < n):
+            raise ValueError(f"perm pair ({src}, {dst}) is outside {n} shards")
+        if sources[dst] >= 0 or src in sent:
+            raise ValueError(f"perm sends or receives twice at ({src}, {dst})")
+        sources[dst] = src
+        sent.add(src)
+    if len(sent) != n:
+        raise ValueError(
+            f"perm moves {len(sent)} of {n} shards: a partial ppermute is "
+            "not a permutation"
+        )
+    return sources
+
+
+def inverse_perm(perm: Sequence[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    return [(int(dst), int(src)) for src, dst in perm]
+
+
+def axis_shift_perm(shape: Sequence[int], axis: int,
+                    shift: int = 1) -> List[Tuple[int, int]]:
+    """``(src, dst)`` pairs over the shards of a row-major mesh of
+    ``shape``: every shard sends to the one ``shift`` steps on along mesh
+    axis ``axis`` (mod its size), the other coordinates kept; the ring's
+    hop, as ``[(i, (i + 1) % n)]`` is along a 1-D mesh."""
+    idx = np.arange(int(np.prod(shape, dtype=np.int64))).reshape(shape)
+    dst = np.roll(idx, -shift, axis=axis)  # dst[c] = c + shift
+    return list(zip(idx.reshape(-1).tolist(), dst.reshape(-1).tolist()))
+
+
+def ppermute_reference(blocks: torch.Tensor,
+                       perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """The plain version of :func:`ppermute`: a fresh stack in which row
+    ``dst`` holds row ``src`` of ``blocks`` for every pair of ``perm``."""
+    sources = perm_sources(perm, blocks.shape[0])
+    return blocks[torch.tensor(sources, dtype=torch.long, device=blocks.device)]
+
+
+def _check_stack(blocks: torch.Tensor, out: Optional[torch.Tensor],
+                 what: str) -> torch.Tensor:
+    """Validate a permutation's source stack and ``out``; returns the
+    destination (``out``, or a fresh stack)."""
+    if not isinstance(blocks, torch.Tensor) or blocks.dim() < 1:
+        raise ValueError(f"{what} takes a tensor with a shard axis")
+    if not blocks.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous stack")
+    if out is None:
+        return torch.empty_like(blocks, memory_format=torch.contiguous_format)
+    if (out.shape != blocks.shape or out.dtype != blocks.dtype
+            or out.device != blocks.device or not out.is_contiguous()):
+        raise ValueError(
+            "out must be a contiguous stack of the source's shape, dtype "
+            "and device"
+        )
+    a, b = blocks.data_ptr(), out.data_ptr()
+    if a < b + _nbytes(out) and b < a + _nbytes(blocks):
+        # in place, the permutation would overwrite a row before it is read
+        raise ValueError("out overlaps the source stack")
+    return out
+
+
 def neighbor_pull(blocks: torch.Tensor,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rotate a contiguous ``[n, *shard]`` stack of any dtype left by one
     shard: row ``i`` of the result holds row ``(i + 1) mod n``. ``out``,
     if given, receives the result: a contiguous tensor of the same shape,
-    dtype and device that shares no byte with ``blocks``.
+    dtype and device that shares no byte with ``blocks``. The special
+    case of :func:`ppermute` with ``perm = [(i, (i - 1) mod n)]``.
 
     CUDA stack: one ``srt_neighbor_pull`` launch on the current stream,
     not waited on. CPU stack: the plain version."""
-    if not isinstance(blocks, torch.Tensor) or blocks.dim() < 1:
-        raise ValueError("neighbor_pull takes a tensor with a shard axis")
-    if not blocks.is_contiguous():
-        raise ValueError("neighbor_pull takes a contiguous stack")
-    if out is None:
-        out = torch.empty_like(blocks, memory_format=torch.contiguous_format)
-    else:
-        if (out.shape != blocks.shape or out.dtype != blocks.dtype
-                or out.device != blocks.device or not out.is_contiguous()):
-            raise ValueError(
-                "out must be a contiguous stack of the source's shape, dtype "
-                "and device"
-            )
-        a, b = blocks.data_ptr(), out.data_ptr()
-        if a < b + _nbytes(out) and b < a + _nbytes(blocks):
-            # in place, the rotation would overwrite row i + 1 before
-            # row i reads it
-            raise ValueError("out overlaps the source stack")
+    out = _check_stack(blocks, out, "neighbor_pull")
     if _kernel_path(blocks):
-        return _launch_neighbor_pull(blocks, out)
+        n = blocks.shape[0]
+        return _launch_neighbor_pull(blocks, out, [(i + 1) % n for i in range(n)])
     if blocks.device.type != "cpu":
         raise ValueError(f"neighbor_pull runs on cuda or cpu, not {blocks.device}")
     return out.copy_(neighbor_pull_reference(blocks))
 
 
-def _launch_neighbor_pull(blocks: torch.Tensor,
-                          out: torch.Tensor) -> torch.Tensor:
+def ppermute(blocks: torch.Tensor, perm: Sequence[Tuple[int, int]],
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``lax.ppermute`` over the rows of a contiguous ``[n, *shard]``
+    stack of any dtype: row ``dst`` of the result holds row ``src`` for
+    every ``(src, dst)`` pair of ``perm``, which must be a permutation of
+    the ``n`` shards (:func:`perm_sources`). ``out`` as in
+    :func:`neighbor_pull`.
+
+    CUDA stack: one ``srt_neighbor_pull`` launch on the current stream,
+    not waited on; the kernel is unchanged, the permutation is its
+    pointer table. CPU stack: the plain version."""
+    out = _check_stack(blocks, out, "ppermute")
+    sources = perm_sources(perm, blocks.shape[0])
+    if _kernel_path(blocks):
+        return _launch_neighbor_pull(blocks, out, sources)
+    if blocks.device.type != "cpu":
+        raise ValueError(f"ppermute runs on cuda or cpu, not {blocks.device}")
+    return out.copy_(ppermute_reference(blocks, perm))
+
+
+class PPermute(torch.autograd.Function):
+    """Differentiable :func:`ppermute`: the adjoint of a permutation is
+    its inverse, launched through the same kernel."""
+
+    @staticmethod
+    def forward(ctx, blocks, perm):
+        ctx.inverse = inverse_perm(perm)
+        return ppermute(blocks.contiguous(), perm)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ppermute(ct.contiguous(), ctx.inverse), None
+
+
+def _launch_neighbor_pull(blocks: torch.Tensor, out: torch.Tensor,
+                          sources: Sequence[int]) -> torch.Tensor:
+    """One ``srt_neighbor_pull`` launch in which row ``i`` of ``out``
+    receives row ``sources[i]`` of ``blocks``. The kernel writes
+    ``table[i].dst`` from ``table[(i + 1) mod n].src``, so the source of
+    row ``i`` sits one entry on."""
     from sparkrdma_tpu_torch.ops import _build
 
     global neighbor_pull_launches
@@ -266,8 +366,10 @@ def _launch_neighbor_pull(blocks: torch.Tensor,
     lib = _build.load()
     # one (src, dst) pair per shard: rows of the two stacks here, another
     # card's peer-mapped rows in the multi-GPU slice
-    rows = np.arange(n, dtype=np.uint64) * np.uint64(shard_bytes)
-    table = np.stack([np.uint64(blocks.data_ptr()) + rows,
+    sb = np.uint64(shard_bytes)
+    rows = np.arange(n, dtype=np.uint64) * sb
+    srcs = np.roll(np.asarray(sources, dtype=np.uint64) * sb, 1)
+    table = np.stack([np.uint64(blocks.data_ptr()) + srcs,
                       np.uint64(out.data_ptr()) + rows], axis=1)
     with torch.cuda.device(blocks.device):
         dev_table = _upload(table, blocks.device)

@@ -75,7 +75,8 @@ from sparkrdma_tpu_torch.shuffle.autotune import (
     stage_signature,
 )
 from sparkrdma_tpu_torch.shuffle.device_fetch import visible_arena
-from sparkrdma_tpu_torch.utils.torch_compat import numpy_dtype, torch_dtype
+from sparkrdma_tpu_torch.utils.torch_compat import dtype_name, torch_dtype
+from sparkrdma_tpu_torch.utils.torch_compat import itemsize as dtype_itemsize
 
 logger = logging.getLogger(__name__)
 
@@ -265,8 +266,7 @@ class ShuffleScheduleCompiler:
         time, where a miss degrades."""
         t0 = time.perf_counter()
         conf = self._conf
-        np_dtype = numpy_dtype(dtype)
-        itemsize = np_dtype.itemsize
+        itemsize = dtype_itemsize(dtype)
         if not conf.collective_enabled or not conf.device_fetch_enabled:
             return CollectivePlan("off", [], list(locations), frozenset(), 0)
         min_bytes = conf.device_fetch_min_block_bytes
@@ -316,7 +316,7 @@ class ShuffleScheduleCompiler:
 
         sig = stage_signature(
             schedule, len(lanes), round_rows(len(eligible)),
-            round_bucket(max_len), np_dtype.name,
+            round_bucket(max_len), dtype_name(dtype),
         )
         wave_budget = conf.collective_wave_bytes
         tuned = self._tuner.wave_bytes_for(sig)
@@ -533,7 +533,7 @@ class ShuffleScheduleCompiler:
         ``entry.dead``. The pins stay held until the entry's consume."""
         t0 = time.perf_counter()
         t_dtype = torch_dtype(dtype)
-        itemsize = numpy_dtype(dtype).itemsize
+        itemsize = dtype_itemsize(dtype)
         kernel = self._kernel_path()
         pins = ExitStack()
         entry = _InflightWave(waves, pins, t0)
@@ -610,11 +610,11 @@ class ShuffleScheduleCompiler:
         if len(waves) > 1:
             self._program_key_seen(("wave-pipe", len(waves), waves[0].rows_b,
                                     waves[0].bucket_elems,
-                                    numpy_dtype(dtype).name))
+                                    dtype_name(dtype)))
         else:
             self._program_key_seen(("wave", waves[0].rows_b,
                                     waves[0].bucket_elems,
-                                    numpy_dtype(dtype).name))
+                                    dtype_name(dtype)))
         entry.live = len(live_rows)
         entry.nbytes = sum(r.elems * itemsize for r in live_rows)
         dispatch_ms = (time.perf_counter() - t0) * 1e3
@@ -676,7 +676,7 @@ class ShuffleScheduleCompiler:
             remote_copy.emulated_wave_wait(
                 [a for arrs in entry.row_arrs for a in arrs.values()]
             )
-        itemsize = numpy_dtype(dtype).itemsize
+        itemsize = dtype_itemsize(dtype)
         now = time.perf_counter()
         try:
             for d, wave in enumerate(entry.waves):
@@ -742,7 +742,7 @@ class ShuffleScheduleCompiler:
         concatenate from views of the still-pinned sources, assembled
         rows stage their exact payload."""
         t_dtype = torch_dtype(dtype)
-        itemsize = numpy_dtype(dtype).itemsize
+        itemsize = dtype_itemsize(dtype)
         row_arrs = row_arrs or {}
         row_views = row_views or {}
         out: List[CollectiveResult] = []
@@ -764,7 +764,7 @@ class ShuffleScheduleCompiler:
             if need and stacked_dev is not None:
                 self._program_key_seen(("compact", wave.rows_b,
                                         wave.bucket_elems,
-                                        numpy_dtype(dtype).name))
+                                        dtype_name(dtype)))
                 flat = _compaction_program(
                     stacked_dev, torch.from_numpy(starts_e),
                     torch.from_numpy(ends_e),

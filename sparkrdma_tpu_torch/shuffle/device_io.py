@@ -61,7 +61,6 @@ from sparkrdma_tpu_torch.shuffle.errors import FetchFailedError, MetadataFetchFa
 from sparkrdma_tpu_torch.utils.seams import faults as _faults
 from sparkrdma_tpu_torch.transport import FnListener, mapped_delivery_enabled
 from sparkrdma_tpu_torch.utils import checksum as _checksum
-from sparkrdma_tpu_torch.utils.torch_compat import numpy_dtype
 
 logger = logging.getLogger(__name__)
 
@@ -290,7 +289,7 @@ class DeviceShuffleIO:
             if isinstance(arr, torch.Tensor):
                 src = arr.detach().reshape(-1).contiguous()
                 nbytes = src.numel() * src.element_size()
-                dtype = numpy_dtype(src.dtype)
+                dtype = src.dtype  # torch: bfloat16 has no numpy dtype
                 buf = mgr.buffer_manager.get(nbytes)
                 flat = np.frombuffer(buf.view, dtype=np.uint8, count=nbytes)
                 host_tensor(flat).copy_(src.view(torch.uint8))

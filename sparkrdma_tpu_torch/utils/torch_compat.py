@@ -16,15 +16,23 @@ from typing import Optional
 import numpy as np
 import torch
 
+# every dtype numpy and torch share; only byte copies and views run on
+# the unsigned 16/32/64-bit ones (torch lacks most compute ops on them)
 _NP_TO_TORCH = {
+    np.dtype(np.bool_): torch.bool,
     np.dtype(np.uint8): torch.uint8,
     np.dtype(np.int8): torch.int8,
     np.dtype(np.int16): torch.int16,
+    np.dtype(np.uint16): torch.uint16,
     np.dtype(np.int32): torch.int32,
     np.dtype(np.uint32): torch.uint32,
     np.dtype(np.int64): torch.int64,
+    np.dtype(np.uint64): torch.uint64,
+    np.dtype(np.float16): torch.float16,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
+    np.dtype(np.complex64): torch.complex64,
+    np.dtype(np.complex128): torch.complex128,
 }
 _TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
 
@@ -52,17 +60,27 @@ def is_cuda(t: torch.Tensor) -> bool:
 
 def torch_dtype(dtype) -> torch.dtype:
     """A numpy dtype (or anything ``np.dtype`` takes, or a torch dtype)
-    as a torch dtype."""
+    as a torch dtype. A torch dtype numpy lacks (``torch.bfloat16``)
+    passes through: the device path only copies and views its bytes."""
     if isinstance(dtype, torch.dtype):
         return dtype
     return _NP_TO_TORCH[np.dtype(dtype)]
 
 
-def numpy_dtype(dtype) -> np.dtype:
-    """A torch dtype (or anything ``np.dtype`` takes) as a numpy dtype."""
+def itemsize(dtype) -> int:
+    """Bytes per element of a torch or numpy dtype."""
     if isinstance(dtype, torch.dtype):
-        return _TORCH_TO_NP[dtype]
-    return np.dtype(dtype)
+        return dtype.itemsize
+    return np.dtype(dtype).itemsize
+
+
+def dtype_name(dtype) -> str:
+    """A torch or numpy dtype's name, the same for both (``float16``,
+    ``bool``, ``bfloat16``)."""
+    if isinstance(dtype, torch.dtype):
+        np_dt = _TORCH_TO_NP.get(dtype)
+        return np_dt.name if np_dt is not None else str(dtype).removeprefix("torch.")
+    return np.dtype(dtype).name
 
 
 def find_nvcc() -> Optional[str]:

@@ -1,6 +1,6 @@
 """The attention serving path as a whole: the port's UlyssesAttention and
-RingAttention for one rank against the JAX package's classes on a
-one-device mesh, and the dense reference against the JAX one. The same
+RingAttention for one shard against the JAX package's classes on a
+one-device mesh (``tests/test_torch_sp_mesh.py`` takes them over meshes), and the dense reference against the JAX one. The same
 numpy inputs go to both packages. fp32 tolerance rtol 2e-4 / atol 2e-5
 (the JAX package's own SP tests); bf16 1e-2 / 1e-2 (outputs round to
 bf16)."""
@@ -19,6 +19,7 @@ from sparkrdma_tpu_torch.ops import RingAttention, UlyssesAttention
 from sparkrdma_tpu_torch.ops import pallas_attention as tpa
 from sparkrdma_tpu_torch.ops.ring_attention import reference_attention
 from sparkrdma_tpu_torch.ops.ulysses_attention import ulysses_shard_attention
+from sparkrdma_tpu_torch.parallel import make_mesh as torch_mesh
 
 torch.set_num_threads(1)
 
@@ -46,7 +47,7 @@ def test_ulysses_matches_jax(causal, use_flash):
     want = JaxUlysses(_mesh1())(*(jnp.asarray(x) for x in arrays),
                                 causal=causal, use_flash=use_flash)
     tpa.reset_launch_counts()
-    got = UlyssesAttention(1, device="cpu")(*_torch(arrays), causal=causal,
+    got = UlyssesAttention(device="cpu")(*_torch(arrays), causal=causal,
                                             use_flash=use_flash)
     assert got.shape == arrays[0].shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
@@ -57,7 +58,7 @@ def test_ulysses_matches_jax(causal, use_flash):
 def test_ring_matches_jax(causal):
     arrays = _inputs(seed=2)
     want = JaxRing(_mesh1())(*(jnp.asarray(x) for x in arrays), causal=causal)
-    got = RingAttention(1, device="cpu")(*_torch(arrays), causal=causal)
+    got = RingAttention(device="cpu")(*_torch(arrays), causal=causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
@@ -65,7 +66,7 @@ def test_ring_bf16_matches_jax():
     arrays = _inputs(s=48, seed=4)
     want = JaxRing(_mesh1())(*(jnp.asarray(x, jnp.bfloat16) for x in arrays),
                              causal=True)
-    got = RingAttention(1, device="cpu")(*_torch(arrays, torch.bfloat16),
+    got = RingAttention(device="cpu")(*_torch(arrays, torch.bfloat16),
                                          causal=True)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
@@ -74,8 +75,8 @@ def test_ring_bf16_matches_jax():
 
 def test_ulysses_matches_ring():
     arrays = _inputs(seed=3)
-    out_u = UlyssesAttention(1, device="cpu")(*_torch(arrays))
-    out_r = RingAttention(1, device="cpu")(*_torch(arrays))
+    out_u = UlyssesAttention(device="cpu")(*_torch(arrays))
+    out_r = RingAttention(device="cpu")(*_torch(arrays))
     np.testing.assert_allclose(out_u.numpy(), out_r.numpy(), **F32_TOL)
 
 
@@ -101,18 +102,30 @@ def test_classes_move_inputs_to_their_device():
 
 
 def test_ulysses_rejects_indivisible_heads():
-    q, k, v = _torch(_inputs(h=3, seed=7))
+    q, k, v = (t[None] for t in _torch(_inputs(h=3, seed=7)))  # a 1-shard stack
     with pytest.raises(ValueError, match="divide"):
-        ulysses_shard_attention(q, k, v, num_shards=2)
+        ulysses_shard_attention(q, k, v, dim=0, num_shards=2)
+    with pytest.raises(ValueError, match="must divide by shard count 2"):
+        UlyssesAttention(torch_mesh(["cpu"] * 2))(*_inputs(h=3, seed=7))
 
 
 @pytest.mark.parametrize("cls", [UlyssesAttention, RingAttention])
 def test_more_than_one_rank_waits_for_the_multi_gpu_slice(cls):
+    """Two shards on the CPU run (and equal one shard); shards on several
+    CUDA devices still wait for peer memory, the multi-GPU slice."""
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        cls(world_size=2, device="cpu")
-    q, k, v = _torch(_inputs(h=4, seed=8))
-    with pytest.raises(NotImplementedError):
-        ulysses_shard_attention(q, k, v, num_shards=2)
+        cls(torch_mesh(["cuda:0", "cuda:1"]))
+    arrays = _inputs(h=4, seed=8)
+    two = cls(torch_mesh(["cpu"] * 2))
+    assert two.num_shards == 2 and two.device.type == "cpu"
+    np.testing.assert_allclose(two(*arrays, causal=True).numpy(),
+                               cls(device="cpu")(*arrays, causal=True).numpy(),
+                               **F32_TOL)
+    q, k, v = _torch(arrays)
+    stack = [t.reshape(2, 2, 32, 4, 16).transpose(0, 1).contiguous() for t in (q, k, v)]
+    out = ulysses_shard_attention(*stack, dim=0, num_shards=2)
+    np.testing.assert_allclose(out.transpose(0, 1).reshape(q.shape).numpy(),
+                               reference_attention(q, k, v).numpy(), **F32_TOL)
 
 
 def test_flash_path_with_grad_inputs_raises():

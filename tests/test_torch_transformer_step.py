@@ -1,5 +1,6 @@
-"""The training path as a whole: the port's TransformerStep for one device
-against the JAX package's TransformerStep on a one-device mesh (the
+"""The training path as a whole: the port's TransformerStep for one shard
+against the JAX package's TransformerStep on a one-device mesh
+(``tests/test_torch_transformer_mesh.py`` takes it over meshes) (the
 Pallas flash kernel in interpret mode under "ulysses"), and the port's
 reference_step against JAX's. The same numpy parameters and data go to
 both. Tolerances are the JAX package's own train-step test's: loss rtol
@@ -15,6 +16,7 @@ from sparkrdma_tpu.models import transformer_step as jts
 from sparkrdma_tpu_torch.convert import params_from_jax, params_to_jax
 from sparkrdma_tpu_torch.models import transformer_step as tts
 from sparkrdma_tpu_torch.ops import pallas_attention as tpa
+from sparkrdma_tpu_torch.parallel import mesh as tmesh
 
 torch.set_num_threads(1)
 
@@ -161,12 +163,27 @@ def test_block_parameters_keep_jax_shapes_and_storage():
 
 
 def test_wider_than_one_rank_raises():
+    """A mesh wider than one shard runs (``tests/test_torch_transformer_mesh.py``
+    holds it against JAX); shards on several CUDA devices wait for the
+    multi-GPU slice; the JAX step's own checks hold."""
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        tts.TransformerStep(mesh_shape=(1, 2, 1), device="cpu")
+        tts.TransformerStep(tts.make_training_mesh(["cuda:0", "cuda:1"]))
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        tts.TransformerStep(mesh_shape=(2, 1, 1), attn="ulysses", device="cpu")
+        tts.TransformerStep(tmesh.named_mesh(["cuda:0", "cuda:1"], tts.AXES, (2, 1, 1)),
+                            attn="ulysses")
+    sp2 = tmesh.named_mesh(["cpu"] * 2, tts.AXES, (1, 2, 1))
     with pytest.raises(ValueError, match="divisible"):
-        tts.TransformerStep(n_heads=3, attn="ulysses", mesh_shape=(1, 2, 1),
-                            device="cpu")
+        tts.TransformerStep(sp2, n_heads=3, attn="ulysses")
     with pytest.raises(ValueError, match="unknown attn"):
         tts.TransformerStep(attn="dense", device="cpu")
+    with pytest.raises(ValueError, match="axes"):
+        tts.TransformerStep(tmesh.make_mesh(["cpu"] * 2))
+    step = tts.TransformerStep(sp2, n_heads=HEADS, lr=0.1)
+    assert step.mesh.shape == {"dp": 1, "sp": 2, "tp": 1}
+    params = _params(seed=4)
+    x, y = _data(seed=4)
+    ref_loss, _ = tts.reference_step(params, x, y, HEADS, 0.1)
+    loss, new = step.step(params, x, y)
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=LOSS_RTOL)
+    assert {k: tuple(v.shape) for k, v in new.items()} == {
+        k: v.shape for k, v in params.items()}
