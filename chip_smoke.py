@@ -142,6 +142,24 @@ exits nonzero and prints no result. Phases, each one JSON line:
    one launch a step each of the 3xTF32 forward, dq and dk/dv kernels,
    the ring 4 ``srt_neighbor_pull`` a step; warm step wall beside phase
    7's, launches, peak memory and a profiled step.
+12. ``spmd_models``: the SPMD models on ``make_mesh([dev] * 8)`` at their
+   users' sizes, data from fixed seeds: (a) ``HashJoin`` on TPC-DS SF100
+   q72's ``catalog_sales`` (143,997,065 rows) joined to ``item``
+   (204,000 unique keys, mixed over the 32-bit space by a multiplicative
+   bijection so the radix split spreads them), exact: every probe row
+   once, with its own key and the value a lookup in the sorted build
+   keys on the card gives; (b) ``PageRank`` on a tenth of twitter-2010
+   (4,165,223 vertices, 146,836,518 uniform edges, 20 iterations)
+   against a float64 power iteration on the card (rtol 1e-4, atol 1e-4
+   over the vertex count; the ranks sum to 1 within 1e-3); (c) ``ALS``
+   at MovieLens-20M's counts (138,493 users, 26,744 items, 20,000,263
+   ratings of a rank-4 model plus noise; rank 10, reg 0.1, 10
+   iterations): one iteration against a float64 plain version on the
+   card from the same start factors (rtol 2e-3, atol 2e-4), the RMSE
+   after 10 within 5e-3 of the plain version's. Walls (data, upload,
+   prepare, steps cold and warm, readback), peak device bytes and a
+   profiled step each; no kernel launches (their exchanges are the dense
+   all-to-all); ``MapShardSorter.warm`` once;
 
 Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, where one
@@ -2561,6 +2579,294 @@ def phase_sp_training_path(torch, dev, step7_s):
     return total
 
 
+
+# ---- phase 12: the SPMD models at their users' sizes
+SPMD_MODEL_SHARDS = 8
+# (a) TPC-DS SF100 q72: catalog_sales JOIN item on cs_item_sk = i_item_sk
+# (TPC-DS v3 spec, table 3-2 row counts)
+HJ_BUILD = 204_000
+HJ_PROBE = 143_997_065
+HJ_MIX = 0x9E3779B1  # Fibonacci hashing: a bijection on 32-bit keys
+# (b) a tenth of twitter-2010 (41,652,230 vertices, 1,468,365,182 edges)
+PR_VERTICES = 4_165_223
+PR_EDGES = 146_836_518
+PR_ITERS = 20
+PR_RTOL = 1e-4
+PR_ATOL_N = 1e-4  # over the vertex count
+# (c) MovieLens-20M's counts; Spark MLlib ALS defaults
+ALS_USERS = 138_493
+ALS_ITEMS = 26_744
+ALS_RATINGS = 20_000_263
+ALS_RANK = 10
+ALS_ITERS = 10
+ALS_REG = 0.1
+ALS_TOL = (2e-3, 2e-4)  # one iteration against float64 (tests/test_als.py)
+ALS_RMSE_TOL = 5e-3
+ALS_CHUNK = 1 << 22  # ratings per index_add_ of the float64 plain version
+
+
+def _all_counts(rc, pa):
+    """Every kernel's launches since the last resets."""
+    return {"srt_wave_pull": rc.wave_pull_launches,
+            "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches,
+            **_sp_counts(rc, pa)}
+
+
+def _peak_run(torch, fn):
+    """``fn()``'s result, wall (ending in a sync) and peak device bytes
+    above the baseline at its start."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, torch.cuda.max_memory_allocated() - base
+
+
+def _synced_s(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _models_hashjoin(torch, dev, mesh):
+    """(a) The q72 join at SF100; exact against a lookup in the sorted
+    build keys on the card."""
+    from sparkrdma_tpu_torch.models import HashJoin
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(31)
+    # surrogate keys mixed over the 32-bit space as Spark's hash
+    # partitioner spreads them: raw keys below 2^29 have zero top bits
+    # and radix_partition would send every row to shard 0
+    bk = ((np.arange(1, HJ_BUILD + 1, dtype=np.uint64) * HJ_MIX)
+          % (1 << 32)).astype(np.uint32)
+    if (bk == 0xFFFFFFFF).any() or len(np.unique(bk)) != HJ_BUILD:
+        raise AssertionError("a mixed item key is SENTINEL or not unique")
+    bv = rng.integers(0, (1 << 31) - 1, HJ_BUILD, dtype=np.int32)
+    pk = bk[rng.integers(0, HJ_BUILD, HJ_PROBE, dtype=np.int32)]
+    pv = np.arange(HJ_PROBE, dtype=np.int32)
+    gen_s = time.perf_counter() - t
+
+    hj = HashJoin(mesh)
+    out, join_s, peak = _peak_run(torch, lambda: hj.join(bk, bv, pk, pv))
+    run = {"build_rows": HJ_BUILD, "probe_rows": HJ_PROBE, "data_s": gen_s,
+           "join_s": join_s, "walls": hj.last_walls,
+           "capacities": hj.last_capacities, "tries": len(hj.last_capacities),
+           "peak_above_baseline_bytes": peak}
+
+    # exact: every probe row once (its values a permutation of arange),
+    # with its own key, joined to the build value of that key
+    got = torch.from_numpy(out).to(dev)
+    del out
+    if tuple(got.shape) != (HJ_PROBE, 3):
+        raise AssertionError(f"join output {tuple(got.shape)}, not ({HJ_PROBE}, 3)")
+    rows = got[:, 1]
+    if not torch.equal(torch.sort(rows).values,
+                       torch.arange(HJ_PROBE, dtype=torch.int64, device=dev)):
+        raise AssertionError("probe values are not a permutation of arange")
+    pk_dev = torch.from_numpy(pk.view(np.int32)).to(dev).to(torch.int64) & 0xFFFFFFFF
+    if not torch.equal(pk_dev[rows], got[:, 0]):
+        raise AssertionError("a joined row carries another row's probe key")
+    del pk_dev, rows
+    keys, order = torch.sort(torch.from_numpy(bk.astype(np.int64)).to(dev))
+    pos = torch.searchsorted(keys, got[:, 0].contiguous()).clamp_(max=HJ_BUILD - 1)
+    if not torch.equal(keys[pos], got[:, 0]):
+        raise AssertionError("a probe key missed the build side")
+    want = torch.from_numpy(bv).to(dev).to(torch.int64)[order[pos]]
+    if not torch.equal(want, got[:, 2]):
+        raise AssertionError("a joined value differs from the lookup's")
+    del got, keys, order, pos, want
+    run["exact"] = True
+
+    # the step again, warm, and the row assembly and readback apart
+    args, nb, npl = hj.place(bk, bv, pk, pv)
+    fn = hj.step(nb, npl, *hj.last_capacities[-1])
+    res, run["step_warm_s"] = _synced_s(torch, lambda: fn(*args))
+    rows_dev, run["rows_s"] = _synced_s(torch, lambda: hj._rows(*res[:4]))
+    del res
+    _, run["readback_s"] = _synced_s(torch, lambda: rows_dev.cpu())
+    run["readback_gbps"] = rows_dev.numel() * 8 / run["readback_s"] / 1e9
+    del rows_dev
+    run["profiled_step"] = _profiled(torch, lambda: fn(*args))
+    del args
+    return run
+
+
+def _models_pagerank(torch, dev, mesh):
+    """(b) PageRank on a tenth of twitter-2010, against a float64 power
+    iteration on the card."""
+    from sparkrdma_tpu_torch.models import PageRank
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(32)
+    # benchmarks/run_workloads.py's draw: uniform (src, dst) pairs
+    edges = rng.integers(0, PR_VERTICES, size=(PR_EDGES, 2), dtype=np.int64)
+    gen_s = time.perf_counter() - t
+    n = PR_VERTICES
+    pr = PageRank(mesh)
+    out, run_s, peak = _peak_run(torch, lambda: pr.run(edges, n, iters=PR_ITERS))
+    run = {"vertices": n, "edges": PR_EDGES, "iters": PR_ITERS, "data_s": gen_s,
+           "run_s": run_s, "walls": pr.last_walls,
+           "peak_above_baseline_bytes": peak}
+
+    ed = torch.from_numpy(edges).to(dev)
+    del edges
+    src, dst = ed[:, 0], ed[:, 1]
+    outdeg = torch.bincount(src, minlength=n).to(torch.float64)
+    want = torch.full((n,), 1.0 / n, dtype=torch.float64, device=dev)
+    for _ in range(PR_ITERS):
+        outc = torch.where(outdeg > 0, want / outdeg.clamp(min=1), 0.0)
+        contrib = torch.zeros_like(want).index_add_(0, dst, outc[src])
+        dangling = want[outdeg == 0].sum()
+        want = (1 - pr.damping) / n + pr.damping * (contrib + dangling / n)
+    del src, dst, outdeg, outc, contrib
+    got = torch.from_numpy(out).to(dev).to(torch.float64)
+    err = (got - want).abs()
+    if not bool((err <= PR_ATOL_N / n + PR_RTOL * want.abs()).all()):
+        raise AssertionError(f"PageRank differs from float64: max abs {float(err.max())}")
+    total = float(out.sum(dtype=np.float64))
+    if abs(total - 1.0) > 1e-3:
+        raise AssertionError(f"ranks sum to {total}")
+    run.update(max_abs_err=float(err.max()), max_rel_err=float((err / want).max()),
+               rank_sum=total, tolerance={"rtol": PR_RTOL, "atol": PR_ATOL_N / n})
+    del got, want, err
+
+    packed, deg, n_local = pr.blocks(ed, n)
+    del ed
+    rank0, valid = pr.initial(n_local, n)
+    fn = pr.step(n_local, packed.shape[2], PR_ITERS, n)
+    _, wall = _synced_s(torch, lambda: fn(rank0, deg, valid, packed))
+    run.update(n_local=n_local, cap=packed.shape[2], packed_bytes=packed.numel() * 4,
+               iterations_warm_s=wall, ms_per_iter_warm=wall / PR_ITERS * 1e3,
+               profiled_run=_profiled(torch, lambda: fn(rank0, deg, valid, packed)))
+    return run
+
+
+def _als_plain(torch, users, items, vals, u, v, iters, reg):
+    """float64 ALS on the card written apart from the port's padded
+    lists: each row's normal equations summed over its ratings by
+    ``index_add_``, then one batched solve."""
+    k = u.shape[1]
+    eye = torch.eye(k, dtype=torch.float64, device=u.device)
+
+    def half(rows, cols, n_rows, other):
+        a = torch.zeros((n_rows, k * k), dtype=torch.float64, device=u.device)
+        b = torch.zeros((n_rows, k), dtype=torch.float64, device=u.device)
+        for c in range(0, len(rows), ALS_CHUNK):
+            r, f = rows[c:c + ALS_CHUNK], other[cols[c:c + ALS_CHUNK]]
+            a.index_add_(0, r, (f[:, :, None] * f[:, None, :]).view(-1, k * k))
+            b.index_add_(0, r, f * vals[c:c + ALS_CHUNK, None])
+        n = torch.bincount(rows, minlength=n_rows).clamp(min=1).to(torch.float64)
+        a = a.view(n_rows, k, k) + reg * n[:, None, None] * eye
+        return torch.linalg.solve(a, b)
+
+    for _ in range(iters):
+        u = half(users, items, u.shape[0], v)
+        v = half(items, users, v.shape[0], u)
+    return u, v
+
+
+def _models_als(torch, dev, mesh):
+    """(c) ALS at MovieLens-20M's counts, against a float64 plain version
+    on the card from the same start factors."""
+    from sparkrdma_tpu_torch.models import ALS, rmse
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(33)
+    # tests/test_als.py's ratings: a rank-4 true model plus 0.01 noise
+    true_u = rng.normal(size=(ALS_USERS, 4))
+    true_v = rng.normal(size=(ALS_ITEMS, 4))
+    users = rng.integers(0, ALS_USERS, ALS_RATINGS)
+    items = rng.integers(0, ALS_ITEMS, ALS_RATINGS)
+    vals = (true_u[users] * true_v[items]).sum(1) + 0.01 * rng.normal(size=ALS_RATINGS)
+    ratings = np.stack([users, items, vals], axis=1).astype(np.float64)
+    del true_u, true_v, users, items, vals
+    gen_s = time.perf_counter() - t
+
+    als = ALS(mesh, rank=ALS_RANK, reg=ALS_REG)
+    run = {"users": ALS_USERS, "items": ALS_ITEMS, "ratings": ALS_RATINGS,
+           "rank": ALS_RANK, "reg": ALS_REG, "data_s": gen_s}
+    (u1, v1), run["fit_1_s"], _ = _peak_run(
+        torch, lambda: als.fit(ratings, ALS_USERS, ALS_ITEMS, iters=1, seed=0))
+    (u, v), run["fit_s"], run["peak_above_baseline_bytes"] = _peak_run(
+        torch, lambda: als.fit(ratings, ALS_USERS, ALS_ITEMS, iters=ALS_ITERS, seed=0))
+    run["walls"] = als.last_walls
+
+    r = torch.from_numpy(ratings).to(dev)
+    ru, ri, rv = r[:, 0].to(torch.int64), r[:, 1].to(torch.int64), r[:, 2]
+    nu = -(-ALS_USERS // mesh.num_shards)
+    ni = -(-ALS_ITEMS // mesh.num_shards)
+    u0, v0 = (torch.from_numpy(x).to(dev).to(torch.float64)
+              for x in als.initial(nu, ni, seed=0))
+    u0, v0 = u0[:ALS_USERS], v0[:ALS_ITEMS]
+    (pu1, pv1), plain_1_s = _synced_s(
+        torch, lambda: _als_plain(torch, ru, ri, rv, u0, v0, 1, ALS_REG))
+    rtol, atol = ALS_TOL
+    errs = {}
+    for what, got, want in (("u", u1, pu1), ("v", v1, pv1)):
+        err = (torch.from_numpy(got).to(dev).to(torch.float64) - want).abs()
+        errs[what] = float(err.max())
+        if not bool((err <= atol + rtol * want.abs()).all()):
+            raise AssertionError(f"ALS one iteration: {what} differs from float64 "
+                                 f"by {errs[what]}")
+    (pu, pv), plain_s = _synced_s(
+        torch, lambda: _als_plain(torch, ru, ri, rv, u0, v0, ALS_ITERS, ALS_REG))
+    del r, ru, ri, rv
+    got_rmse = rmse(u, v, ratings)
+    want_rmse = rmse(pu.float().cpu().numpy(), pv.float().cpu().numpy(), ratings)
+    if not (np.isfinite(got_rmse) and abs(got_rmse - want_rmse) < ALS_RMSE_TOL):
+        raise AssertionError(f"ALS RMSE {got_rmse} against float64's {want_rmse}")
+    run.update(one_iteration_max_abs_err=errs, rmse=got_rmse, plain_rmse=want_rmse,
+               plain_fit_1_s=plain_1_s, plain_fit_s=plain_s)
+    del u1, v1, pu1, pv1, pu, pv
+
+    u_idx, u_val, i_idx, i_val, nu, ni = als.lists(
+        torch.from_numpy(ratings).to(dev), ALS_USERS, ALS_ITEMS)
+    del ratings
+    u0, v0 = (torch.from_numpy(x).to(dev) for x in als.initial(nu, ni, seed=0))
+    fn = als.step(nu, ni, u_idx.shape[1], i_idx.shape[1], ALS_ITERS)
+    _, wall = _synced_s(torch, lambda: fn(u_idx, u_val, i_idx, i_val, u0, v0))
+    run.update(cap_u=u_idx.shape[1], cap_i=i_idx.shape[1],
+               gather_bytes={"users": u_idx.numel() * ALS_RANK * 4,
+                             "items": i_idx.numel() * ALS_RANK * 4},
+               iterations_warm_s=wall, ms_per_iter_warm=wall / ALS_ITERS * 1e3,
+               profiled_fit=_profiled(
+                   torch, lambda: fn(u_idx, u_val, i_idx, i_val, u0, v0)))
+    return run
+
+
+def phase_spmd_models(torch, dev):
+    """Phase 12: HashJoin, PageRank and ALS on ``make_mesh([dev] * 8)`` at
+    their users' sizes, each checked against an independent version on
+    the card. The models launch no hand-written kernel (their exchanges
+    are the dense all-to-all's transpose): every count is 0 from just
+    before to just after."""
+    from sparkrdma_tpu_torch.models import MapShardSorter
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+    from sparkrdma_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh([dev] * SPMD_MODEL_SHARDS)
+    t0 = time.perf_counter()
+    rc.reset_launch_counts()
+    pa.reset_launch_counts()
+    report = {"shards": SPMD_MODEL_SHARDS}
+    _, report["map_sorter_warm_s"] = _synced_s(
+        torch, lambda: MapShardSorter(dev).warm(KEYS // EXECUTORS, REDUCERS - 1))
+    report["a_hashjoin"] = _models_hashjoin(torch, dev, mesh)
+    report["b_pagerank"] = _models_pagerank(torch, dev, mesh)
+    report["c_als"] = _models_als(torch, dev, mesh)
+    launched = {k: n for k, n in _all_counts(rc, pa).items() if n}
+    if launched:
+        raise AssertionError(f"the SPMD models launched kernels: {launched}")
+    emit(12, name="spmd_models", launches={}, seconds=time.perf_counter() - t0,
+         **report)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkrdma_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository")
@@ -2594,6 +2900,7 @@ def main():
     host_plane = phase_host_plane_path(torch, dev, data)
     del data
     sp_training = phase_sp_training_path(torch, dev, step7_s)
+    phase_spmd_models(torch, dev)
     launches.update(training)
     for k, n in serving.items():
         launches[k] += n

@@ -4,7 +4,8 @@ The PyTorch counterparts of the JAX package's ``ops/sort.py``, with the
 same arguments, results and overflow contract:
 
 - ``device_sort``: the exact device sort (``torch.sort``), the primitive
-  under every other op here,
+  under every other op here, and ``device_argsort``, its stable
+  permutation,
 - ``searchsorted``: run boundaries in a sorted key array,
 - ``radix_partition``: destination partition from the key's top bits,
 - ``split_sorted`` / ``split_sorted_edges``: partition an already-sorted
@@ -69,6 +70,12 @@ def device_sort(x: torch.Tensor) -> torch.Tensor:
     return _unordered(torch.sort(_ordered(x), dim=-1).values, x.dtype)
 
 
+def device_argsort(x: torch.Tensor) -> torch.Tensor:
+    """int64 indices of the stable ascending sort along the last axis
+    (``jnp.argsort``'s contract: ties keep their input order)."""
+    return torch.sort(_ordered(x), dim=-1, stable=True).indices
+
+
 def searchsorted(sorted_seq: torch.Tensor, values: torch.Tensor,
                  side: str = "left") -> torch.Tensor:
     """int32 insertion points of ``values`` into ascending ``sorted_seq``
@@ -105,11 +112,12 @@ def pack_by_partition(
     values: torch.Tensor, dest: torch.Tensor, num_partitions: int,
     capacity: int, fill: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Stable counting-sort scatter of ``values`` into fixed rows.
+    """Stable counting-sort scatter of ``values`` ``[n, ...]`` into fixed
+    rows (one stable sort of ``dest``, whatever the trailing dims).
 
-    Returns ``(slab [P, capacity], counts [P], overflowed scalar bool)``.
-    Rows hold each partition's values in input order, padded with
-    ``fill``. A partition above ``capacity`` keeps its first
+    Returns ``(slab [P, capacity, ...], counts [P], overflowed scalar
+    bool)``. Rows hold each partition's values in input order, padded
+    with ``fill``. A partition above ``capacity`` keeps its first
     ``capacity - 1`` values and its LAST value in the final slot (the
     clamped scatter of the JAX package, whose last write wins), and
     ``overflowed`` is set: callers retry with a larger capacity class.
@@ -129,7 +137,8 @@ def pack_by_partition(
     keep = (rank < capacity - 1) | (rank == counts[sorted_dest] - 1)
     pos = torch.clamp(rank, max=capacity - 1).to(torch.int64)
     slab = torch.full(
-        (num_partitions, capacity), _bits_scalar(fill, values.dtype),
+        (num_partitions, capacity, *values.shape[1:]),
+        _bits_scalar(fill, values.dtype),
         dtype=sorted_vals.dtype, device=dev,
     )
     slab[sorted_dest[keep], pos[keep]] = sorted_vals[keep]

@@ -65,6 +65,7 @@ def test_forbidden_pattern_spares_the_port_prefix():
 
 def _entry_points():
     from sparkrdma_tpu_torch.convert import from_jax_state, params_from_jax
+    from sparkrdma_tpu_torch.models import ALS, HashJoin, PageRank
     from sparkrdma_tpu_torch.models.terasort import MapShardSorter, TeraSorter
     from sparkrdma_tpu_torch.models.transformer_step import TransformerStep
     from sparkrdma_tpu_torch.ops import (
@@ -83,6 +84,9 @@ def _entry_points():
         "DeviceBufferManager": lambda: DeviceBufferManager().device,
         "MapShardSorter": lambda: MapShardSorter()._device,
         "TeraSorter": lambda: TeraSorter().device,
+        "HashJoin": lambda: HashJoin().device,
+        "PageRank": lambda: PageRank().device,
+        "ALS": lambda: ALS().device,
         "UlyssesAttention": lambda: UlyssesAttention().device,
         "RingAttention": lambda: RingAttention().device,
         "from_jax_state": lambda: from_jax_state(
@@ -108,10 +112,13 @@ def test_cpu_only_when_asked():
     from sparkrdma_tpu_torch.ops.hbm_arena import DeviceBufferManager
     from sparkrdma_tpu_torch.utils.torch_compat import resolve_device
 
+    from sparkrdma_tpu_torch.models import ALS, HashJoin, PageRank
     from sparkrdma_tpu_torch.models.transformer_step import TransformerStep
     from sparkrdma_tpu_torch.ops import RingAttention, UlyssesAttention
 
     assert resolve_device("cpu").type == "cpu"
+    for model in (HashJoin, PageRank, ALS):
+        assert model(device="cpu").device.type == "cpu"
     assert DeviceBufferManager("cpu").device.type == "cpu"
     assert UlyssesAttention(device="cpu").device.type == "cpu"
     assert RingAttention(device="cpu").device.type == "cpu"

@@ -1,8 +1,8 @@
 """models/terasort.py of the port against the JAX package's on the same
 keys and edges, uniform and zipf-skewed: MapShardSorter's sorted keys
-and bounds, the one-device TeraSorter step and a two-shard sort (the
-SPMD path in full: tests/test_torch_spmd_terasort.py). Exact
-comparisons."""
+and bounds (also after ``warm``), the one-device TeraSorter step and a
+two-shard sort (the SPMD path in full:
+tests/test_torch_spmd_terasort.py). Exact comparisons."""
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +62,18 @@ def test_map_shard_sorter_clamps_cuts_to_valid_count():
     edges = np.asarray([5, 0xFFFFFFFF], np.uint32)
     _, bounds = MapShardSorter("cpu").sort_partition(keys, edges)
     np.testing.assert_array_equal(bounds, [0, 5, 10, 10])
+
+
+def test_map_shard_sorter_warm_then_sorts_as_jax():
+    keys = _keys("zipf", 3000)
+    edges = _edges("sampled", keys, 4)
+    jax_sorter, sorter = JaxSorter(), MapShardSorter("cpu")
+    assert jax_sorter.warm(len(keys), len(edges)) is None
+    assert sorter.warm(len(keys), len(edges)) is None
+    t_sorted, t_bounds = sorter.sort_partition(keys, edges)
+    j_sorted, j_bounds = jax_sorter.sort_partition(keys, edges)
+    np.testing.assert_array_equal(t_sorted, j_sorted)
+    np.testing.assert_array_equal(t_bounds, np.asarray(j_bounds))
 
 
 @pytest.mark.parametrize("dist", ["uniform", "zipf"])
