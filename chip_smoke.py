@@ -160,6 +160,26 @@ exits nonzero and prints no result. Phases, each one JSON line:
    prepare, steps cold and warm, readback), peak device bytes and a
    profiled step each; no kernel launches (their exchanges are the dense
    all-to-all); ``MapShardSorter.warm`` once;
+13. ``data_planes``: the host plane's record writers and readers over the
+   python transport at HiBench TeraSort's small profile (3,200,000
+   records of a uint32 key and 12 uint64 payload words, word j = key *
+   (j + 1), keys uniform from ``default_rng(13)``), a driver and 4
+   executors, 8 map tasks on the executors' map pools, a
+   ``RangePartitioner`` at ``(r << 32) // 8`` and 8 reducers each
+   reading one partition through ``get_reader``: (a) the wrapper writer
+   with ``block.format=auto``, which must negotiate columnar blocks and
+   zero-copy view decodes; (b) the chunked-agg writer with push/merge on
+   (a tenth of the records), merged and remote blocks reported; (c) over
+   (a)'s committed blocks, every reducer's fetched columnar frames
+   through ``device_put_columns`` to the card, the key columns sorted
+   there by ``device_sort``, one frame a reducer through
+   ``sort_columnar_partition`` against ``sort_partition``; (d) a fault
+   plan (two failed READs, one corrupted) over a tenth of the records,
+   against the same run without it: equal output, retries and a
+   detected corruption. Every reducer's count, keys (against ``np.sort``
+   of its range) and payload words are checked in every run; walls,
+   bytes READ, pool bytes, host-to-device bytes and peak device bytes
+   reported; no kernel launches;
 
 Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, where one
@@ -2867,6 +2887,324 @@ def phase_spmd_models(torch, dev):
          **report)
 
 
+DP_RECORDS = 3_200_000  # HiBench TeraSort "small" (hibench.terasort.small.datasize)
+# run (b), cut to a tenth: the chunked-agg writer pickles each record
+# (~50 us a 13-field record on one core against ~14 us columnar), so at
+# full size (b) alone would outlast the phase's 120 s budget
+DP_PUSH_RECORDS = 320_000
+DP_FAULT_RECORDS = 320_000  # run (d): a tenth
+DP_WORDS = 12  # payload words: with the uint32 key, HiBench's 100-byte record
+DP_EXECUTORS = 4
+DP_MAPS = 8  # two an executor
+DP_REDUCERS = 8  # two an executor
+DP_SEED = 13
+DP_EDGES = [(r << 32) // DP_REDUCERS for r in range(1, DP_REDUCERS)]
+DP_FAULT_SEED = 3
+DP_KNOBS = {}
+
+
+def dp_fault_spec(ports):
+    """Run (d)'s fault plan: tests/test_fault_injection.py's transient
+    READ fault and its corruption, one a source executor (``peer=`` its
+    port, three ports): two failed READs, then a corrupted one. Spread
+    so, no reader's circuit to a source sees the three consecutive
+    failures that open it (``resilience.circuitFailureThreshold``) and
+    fail the job fast."""
+    kinds = ("fail", "fail", "corrupt")
+    return ";".join(f"read:{k}:1:peer={p}" for k, p in zip(kinds, ports))
+
+
+def _dp_records(keys):
+    """One map task's records, made lazily from its key slice: the key
+    and word j = key * (j + 1) mod 2^64, all numpy scalars."""
+    words = keys.astype(np.uint64)[:, None] * np.arange(1, DP_WORDS + 1, dtype=np.uint64)
+    return zip(keys, *words.T)
+
+
+def _dp_expected(keys):
+    """Each reducer's keys, sorted: the RangePartitioner's rule (keys at
+    most bounds[i] go to partition i) applied with ``np.searchsorted``."""
+    part = np.searchsorted(np.asarray(DP_EDGES, np.uint64), keys, side="left")
+    return [np.sort(keys[part == r]) for r in range(DP_REDUCERS)]
+
+
+def _dp_check_rows(r, rows, want_r, what):
+    """A reducer's rows against its key range: count, key multiset and
+    order, and every payload word. Returns the rows sorted by key."""
+    keys = rows[:, 0]
+    if len(keys) != len(want_r):
+        raise AssertionError(f"{what} reducer {r}: {len(keys)} records, "
+                             f"{len(want_r)} expected")
+    order = np.argsort(keys, kind="stable")
+    rows = rows[order]
+    if not np.array_equal(rows[:, 0], want_r):
+        raise AssertionError(f"{what} reducer {r}: keys differ from np.sort of its range")
+    mult = np.arange(1, DP_WORDS + 1, dtype=np.uint64)
+    if not np.array_equal(rows[:, 1:], rows[:, :1] * mult):
+        raise AssertionError(f"{what} reducer {r}: a payload word differs from its key's")
+    return rows
+
+
+def _dp_cluster(method, prefix, knobs=None):
+    from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
+    from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+
+    conf = TpuShuffleConf({"tpu.shuffle.shuffleWriteMethod": method,
+                           **DP_KNOBS, **(knobs or {})})
+    driver = TpuShuffleManager(conf, is_driver=True)
+    execs = [TpuShuffleManager(conf, is_driver=False, executor_id=f"{prefix}-{e}")
+             for e in range(DP_EXECUTORS)]
+    return driver, execs
+
+
+def _dp_stop(driver, execs):
+    for ex in execs:
+        ex.stop()
+    driver.stop()
+
+
+def _dp_pool_bytes(execs):
+    """Registered bytes the executors' buffer pools have allocated (a
+    pool keeps what it allocated, so this is its peak)."""
+    return sum(size * n for ex in execs for size, n in ex.buffer_manager.stats().items())
+
+
+def _dp_shuffle(driver, execs, sid, keys, want, what):
+    """Map (8 tasks on the executors' map pools), finalize, then 8
+    reducers each reading one partition through ``get_reader``. Returns
+    the report and every reducer's rows sorted by key."""
+    import itertools
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, RangePartitioner
+
+    handle = BaseShuffleHandle(shuffle_id=sid, num_maps=DP_MAPS,
+                               partitioner=RangePartitioner(DP_EDGES))
+    driver.register_shuffle(handle)
+    per = len(keys) // DP_MAPS
+    per_exec = DP_MAPS // DP_EXECUTORS
+
+    def map_task(m):
+        ex = execs[m // per_exec]
+        t = time.perf_counter()
+        w = ex.get_writer(handle, m)
+        w.write(_dp_records(keys[m * per:(m + 1) * per]))
+        t1 = time.perf_counter()
+        status = w.stop(True)
+        if status is None or sum(status.partition_lengths) <= 0:
+            raise AssertionError(f"{what} map {m}: no output")
+        return t1 - t, time.perf_counter() - t1, sum(status.partition_lengths)
+
+    t = time.perf_counter()
+    futs = [execs[m // per_exec].map_pool.submit(map_task, m) for m in range(DP_MAPS)]
+    splits = [f.result() for f in futs]
+    map_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for ex in execs:
+        ex.finalize_maps(sid)
+    finalize_s = time.perf_counter() - t
+    pool_after_map = _dp_pool_bytes(execs)
+
+    def reduce_task(r):
+        reader = execs[r // (DP_REDUCERS // DP_EXECUTORS)].get_reader(handle, r, r + 1)
+        flat = np.fromiter(itertools.chain.from_iterable(reader.read()), dtype=np.uint64)
+        rows = _dp_check_rows(r, flat.reshape(-1, DP_WORDS + 1), want[r], what)
+        return rows, reader.metrics
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(DP_REDUCERS) as pool:
+        out = list(pool.map(reduce_task, range(DP_REDUCERS)))
+    reduce_s = time.perf_counter() - t
+    metrics = [m for _, m in out]
+    logical = len(keys) * (4 + 8 * DP_WORDS)
+    report = {
+        "records": len(keys), "logical_bytes": logical,
+        "map_s": map_s, "finalize_maps_s": finalize_s, "reduce_s": reduce_s,
+        "logical_gbps": logical / (map_s + finalize_s + reduce_s) / 1e9,
+        "map_task_busy_s": {"write": sum(s[0] for s in splits),
+                            "stop": sum(s[1] for s in splits)},
+        # registered with the executors' protection domains: the
+        # wrapper's mapped sort files, the chunked-agg writer's blocks
+        "map_output_bytes": sum(s[2] for s in splits),
+        "bytes_read_remote": sum(m.remote_bytes for m in metrics),
+        "bytes_local": sum(m.local_bytes for m in metrics),
+        "local_blocks": sum(m.local_blocks for m in metrics),
+        "remote_blocks": sum(m.remote_blocks for m in metrics),
+        "merged_blocks": sum(m.merged_blocks for m in metrics),
+        "records_read": sum(m.records_read for m in metrics),
+        "pool_bytes_peak": max(pool_after_map, _dp_pool_bytes(execs)),
+    }
+    return report, handle, [rows for rows, _ in out]
+
+
+def _dp_device_consumer(torch, dev, execs, handle, want):
+    """(c) Every reducer takes its fetched stream from the fetcher, frames
+    it, and sends every columnar frame's columns to the card; the key
+    columns are concatenated and sorted there. One frame a reducer also
+    goes through ``sort_columnar_partition``."""
+    from sparkrdma_tpu_torch.engine.serializer import iter_compressed_blocks
+    from sparkrdma_tpu_torch.models.terasort import MapShardSorter
+    from sparkrdma_tpu_torch.ops.sort import device_put_columns, device_sort
+    from sparkrdma_tpu_torch.shuffle import columnar
+    from sparkrdma_tpu_torch.shuffle.fetcher import TpuShuffleFetcherIterator
+
+    sorter = MapShardSorter(dev)
+    edges = np.asarray(DP_EDGES, np.uint32)
+    mult = torch.arange(1, DP_WORDS + 1, dtype=torch.int64, device=dev)
+    run = {"h2d_bytes": 0, "frames": 0, "device_s": 0.0, "columnar_sorts": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for r in range(DP_REDUCERS):
+        ex = execs[r // (DP_REDUCERS // DP_EXECUTORS)]
+        it = TpuShuffleFetcherIterator(ex, handle, r, r + 1)
+        key_cols, first = [], None
+        try:
+            for _pid, stream in it:
+                try:
+                    for block in iter_compressed_blocks(stream, ex.resolver.codec):
+                        if not columnar.is_columnar(block):
+                            raise AssertionError(f"reducer {r}: a pickle frame in a "
+                                                 "columnar partition")
+                        t = time.perf_counter()
+                        cols = device_put_columns(block, dev)
+                        torch.cuda.synchronize()
+                        run["device_s"] += time.perf_counter() - t
+                        run["h2d_bytes"] += sum(c.numel() * c.element_size() for c in cols)
+                        run["frames"] += 1
+                        k64 = cols[0].view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+                        words = torch.stack([c.view(torch.int64) for c in cols[1:]], 1)
+                        if not torch.equal(words, k64[:, None] * mult):
+                            raise AssertionError(f"reducer {r}: a payload word on the "
+                                                 "card differs from its key's")
+                        key_cols.append(cols[0])
+                        if first is None:
+                            first = sorter.sort_columnar_partition(block, edges)
+                            plain = sorter.sort_partition(
+                                np.array(columnar.decode_columns(block)[0]), edges)
+                            if not all(np.array_equal(a, b) for a, b in zip(first, plain)):
+                                raise AssertionError(f"reducer {r}: sort_columnar_partition "
+                                                     "differs from sort_partition")
+                            run["columnar_sorts"] += 1
+                finally:
+                    stream.close()
+        finally:
+            it.close()
+        t = time.perf_counter()
+        merged = device_sort(torch.cat([k.view(torch.int32) for k in key_cols])
+                             .view(torch.uint32))
+        torch.cuda.synchronize()
+        run["device_s"] += time.perf_counter() - t
+        if not np.array_equal(merged.cpu().numpy(), want[r]):
+            raise AssertionError(f"reducer {r}: the card's sorted keys differ from np.sort")
+    torch.cuda.synchronize()
+    run["wall_s"] = time.perf_counter() - t0
+    run["peak_device_bytes_above_baseline"] = torch.cuda.max_memory_allocated() - base
+    run["h2d_gbps_of_device_s"] = run["h2d_bytes"] / run["device_s"] / 1e9
+    return run
+
+
+def phase_data_planes(torch, dev):
+    """Phase 13: the host plane's data planes over the python transport at
+    HiBench TeraSort's small profile: (a) the wrapper writer with
+    ``block.format=auto`` (negotiating columnar) and the record readers;
+    (b) the chunked-agg writer with push/merge; (c) a device consumer
+    over (a)'s committed blocks (``device_put_columns``, ``device_sort``,
+    ``sort_columnar_partition``); (d) a fault plan over a tenth of the
+    data, against the same run without it. No hand-written kernel runs:
+    every count is 0 from just before to just after."""
+    from sparkrdma_tpu_torch.obs import get_registry
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+    from sparkrdma_tpu_torch.testing import faults
+
+    reg = get_registry()
+    t0 = time.perf_counter()
+    rc.reset_launch_counts()
+    pa.reset_launch_counts()
+    report = {}
+
+    t = time.perf_counter()
+    keys = np.random.default_rng(DP_SEED).integers(0, 1 << 32, DP_RECORDS, dtype=np.uint32)
+    want = _dp_expected(keys)
+    report["data_s"] = time.perf_counter() - t
+
+    def count(name, ids):
+        return sum(reg.counter(name, role=i).value for i in ids)
+
+    # ---- (a) wrapper writer, block.format=auto, then (c) on its blocks
+    driver, execs = _dp_cluster("wrapper", "dp-a")
+    ids = [ex.executor_id for ex in execs]
+    try:
+        report["a"], handle, _ = _dp_shuffle(driver, execs, 130, keys, want, "(a)")
+        report["a"]["columnar_blocks"] = count("block.columnar_blocks", ids)
+        report["a"]["view_decodes"] = count("block.view_decodes", ids)
+        report["a"]["pickle_fallbacks"] = count("block.pickle_fallbacks", ids)
+        if (report["a"]["columnar_blocks"] <= 0 or report["a"]["view_decodes"] <= 0
+                or report["a"]["pickle_fallbacks"]):
+            raise AssertionError(f"(a) did not negotiate columnar blocks: {report['a']}")
+        report["c"] = _dp_device_consumer(torch, dev, execs, handle, want)
+    finally:
+        _dp_stop(driver, execs)
+
+    # ---- (b) chunked-agg writer, push.enabled at its default (true)
+    push_keys = keys[:DP_PUSH_RECORDS]
+    push_want = _dp_expected(push_keys)
+    driver, execs = _dp_cluster("chunkedpartitionagg", "dp-b")
+    try:
+        if any(ex.push_client is None or ex.merge_endpoint is None for ex in execs):
+            raise AssertionError("push.enabled built no push client or merge endpoint")
+        report["b"], _, _ = _dp_shuffle(driver, execs, 131, push_keys, push_want, "(b)")
+        if report["b"]["remote_blocks"] + report["b"]["merged_blocks"] <= 0:
+            raise AssertionError(f"(b) read nothing across executors: {report['b']}")
+    finally:
+        _dp_stop(driver, execs)
+
+    # ---- (d) a fault plan over a tenth of the data, layout (a)
+    fault_keys = keys[:DP_FAULT_RECORDS]
+    fault_want = _dp_expected(fault_keys)
+    outs = {}
+    for name in ("fault_free", "faulted"):
+        driver, execs = _dp_cluster("wrapper", f"dp-d-{name}")
+        ids = [ex.executor_id for ex in execs]
+        try:
+            r0 = count("resilience.retries", ids)
+            c0 = count("resilience.checksum_failures", ids)
+            f0 = count("resilience.circuit_fail_fast", ids)
+            ctx = contextlib.nullcontext()
+            if name == "faulted":
+                for ex in execs:
+                    ex.start_node_if_missing()
+                spec = dp_fault_spec([ex.node.port for ex in execs[1:]])
+                ctx = faults.installed(spec, seed=DP_FAULT_SEED)
+            with ctx as plan:
+                run, _, outs[name] = _dp_shuffle(driver, execs, 132, fault_keys,
+                                                 fault_want, f"(d) {name}")
+            run["retries"] = count("resilience.retries", ids) - r0
+            run["checksum_failures"] = count("resilience.checksum_failures", ids) - c0
+            run["circuit_fail_fast"] = count("resilience.circuit_fail_fast", ids) - f0
+            if plan is not None:
+                run["plan"] = spec
+                run["injected"] = {"read_fail": plan.injected_count("read", "fail"),
+                                   "read_corrupt": plan.injected_count("read", "corrupt")}
+            report[f"d_{name}"] = run
+        finally:
+            _dp_stop(driver, execs)
+    d = report["d_faulted"]
+    if d["injected"] != {"read_fail": 2, "read_corrupt": 1}:
+        raise AssertionError(f"(d) the plan did not fire as written: {d['injected']}")
+    if d["retries"] <= 0 or d["checksum_failures"] <= 0:
+        raise AssertionError(f"(d) no retry or no detected corruption: {d}")
+    if not all(np.array_equal(a, b) for a, b in zip(outs["fault_free"], outs["faulted"])):
+        raise AssertionError("(d) the faulted run's output differs from the fault-free run's")
+
+    launched = {k: n for k, n in _all_counts(rc, pa).items() if n}
+    if launched:
+        raise AssertionError(f"the data planes launched kernels: {launched}")
+    emit(13, name="data_planes", launches={}, seconds=time.perf_counter() - t0, **report)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkrdma_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository")
@@ -2901,6 +3239,7 @@ def main():
     del data
     sp_training = phase_sp_training_path(torch, dev, step7_s)
     phase_spmd_models(torch, dev)
+    phase_data_planes(torch, dev)
     launches.update(training)
     for k, n in serving.items():
         launches[k] += n

@@ -19,7 +19,7 @@ path. The JAX buffer has two more backings, both for its native plane:
 the native C++ arena (``arena=True``) and ``/dev/shm`` files that the
 native transport serves by ``pread``. The port's python transport uses
 neither (its ProtectionDomain takes no file regions), so ``arena=True``
-takes the anonymous mapping too until ROADMAP item M4 ports the native
+takes the anonymous mapping too until ROADMAP item M4b ports the native
 plane.
 """
 
@@ -46,7 +46,7 @@ class TpuBuffer:
         if register and pd is None:
             raise ValueError("registration requested but no ProtectionDomain")
         self.length = length
-        del arena  # the native arena is ROADMAP M4; scratch maps anonymously
+        del arena  # the native arena is ROADMAP M4b; scratch maps anonymously
         self._mmap: Optional[mmap.mmap] = mmap.mmap(-1, length)
         view = memoryview(self._mmap)
         self._view: Optional[memoryview] = view

@@ -51,7 +51,7 @@ from sparkrdma_tpu_torch.metastore.shardmap import ShardMap
 from sparkrdma_tpu_torch.obs import get_registry
 from sparkrdma_tpu_torch.utils.seams import journal_emit
 from sparkrdma_tpu_torch.resilience.retry import RetryPolicy
-from sparkrdma_tpu_torch.utils.seams import faults as _faults
+from sparkrdma_tpu_torch.testing import faults as _faults
 
 Key = Tuple[int, int]  # (shuffle_id, partition_id)
 

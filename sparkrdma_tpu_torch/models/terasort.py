@@ -87,6 +87,23 @@ class MapShardSorter:
         )
         return local, bounds
 
+    def sort_columnar_partition(
+        self, frame, edges: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """:meth:`sort_partition` taken straight off a columnar block
+        (DESIGN.md §25): column 0 of ``frame`` is the uint32 key column,
+        decoded as an ``np.frombuffer`` view aliasing the landed bytes;
+        the view feeds the size-class pad copy directly. No pickle, no
+        per-record tuples."""
+        from sparkrdma_tpu_torch.shuffle import columnar
+
+        keys = columnar.decode_columns(frame)[0]
+        if keys.dtype != np.uint32:
+            raise TypeError(
+                f"columnar key column is {keys.dtype}, expected uint32"
+            )
+        return self.sort_partition(keys, edges)
+
 
 def merge_blocks(blocks: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reduce side's merge of one partition: its landed uint32

@@ -13,7 +13,9 @@ same arguments, results and overflow contract:
   at range boundaries,
 - ``pack_by_partition``: stable counting-sort layout of arbitrary
   (dest, value) pairs into the same slab shape,
-- ``merge_received``: mask + sort of a received slab.
+- ``merge_received``: mask + sort of a received slab,
+- ``device_put_columns``: the columns of one columnar block (DESIGN.md
+  §25), each staged to the device by one host-to-device copy.
 
 uint32 keys. PyTorch implements few operators for ``torch.uint32``
 (no ``searchsorted``, ``>>``, ``minimum`` or comparisons), so this
@@ -27,9 +29,13 @@ identical to the JAX package's.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import List, Tuple
 
+import numpy as np
 import torch
+
+from sparkrdma_tpu_torch.utils.torch_compat import resolve_device, torch_dtype
 
 _SIGN = -(1 << 31)  # the int32 bit pattern 0x80000000
 
@@ -63,6 +69,39 @@ def _bits_scalar(v: int, dtype: torch.dtype) -> int:
 
 def _from_bits(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.view(torch.uint32) if dtype == torch.uint32 else x
+
+
+def _host_tensor(col: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``col``'s memory, never a copy of it. Fetched
+    frames are often read-only (registered slices, mapped windows), and
+    ``torch.from_numpy`` / ``torch.frombuffer`` warn on a read-only
+    buffer; the tensor here only feeds one copy and is never written
+    through, so a read-only column is aliased by address instead. The
+    caller keeps ``col`` alive until that copy has run."""
+    dtype = torch_dtype(col.dtype)
+    if col.size == 0:
+        return torch.empty((0,), dtype=dtype)
+    if col.flags.writeable:
+        return torch.from_numpy(col)
+    raw = (ctypes.c_uint8 * col.nbytes).from_address(col.ctypes.data)
+    return torch.frombuffer(raw, dtype=dtype, count=col.size)
+
+
+def device_put_columns(frame, device=None) -> List[torch.Tensor]:
+    """Pickle-free device staging of one columnar block (DESIGN.md §25).
+
+    ``frame`` is a columnar frame's bytes/memoryview as landed by the
+    fetch path (``shuffle/columnar.py``). Its fixed-width columns decode
+    as ``np.frombuffer`` views aliasing the landed buffer, and each view
+    goes to ``device`` (``cuda`` unless the caller passes ``"cpu"``) by
+    one host-to-device copy, with no host copy before it. Returns one
+    tensor per column, each a copy that no longer aliases ``frame``.
+    Column dtypes are kept: a uint64 column stays ``torch.uint64``."""
+    from sparkrdma_tpu_torch.shuffle import columnar
+
+    dev = resolve_device(device)
+    cols = columnar.decode_columns(frame)
+    return [_host_tensor(c).to(dev, copy=True) for c in cols]
 
 
 def device_sort(x: torch.Tensor) -> torch.Tensor:

@@ -25,10 +25,8 @@ What differs:
   copy is a device-to-device copy of the same tensor; numpy arrays and
   CPU tensors take the host path of the JAX endpoint (one host copy,
   then a host-to-device copy into the arena);
-- mapped delivery is the native plane's (ROADMAP M4), so every host
-  READ lands in a pooled registered buffer;
-- the fault-plan seams (``stage=decode``, ``stage=stage``) are inert
-  until ``testing/faults.py`` comes with ROADMAP item M4.
+- mapped delivery is the native plane's (ROADMAP M4b), so every host
+  READ lands in a pooled registered buffer.
 """
 
 from __future__ import annotations
@@ -58,7 +56,7 @@ from sparkrdma_tpu_torch.shuffle.device_fetch import (
     unregister_arena,
 )
 from sparkrdma_tpu_torch.shuffle.errors import FetchFailedError, MetadataFetchFailedError
-from sparkrdma_tpu_torch.utils.seams import faults as _faults
+from sparkrdma_tpu_torch.testing import faults as _faults
 from sparkrdma_tpu_torch.transport import FnListener, mapped_delivery_enabled
 from sparkrdma_tpu_torch.utils import checksum as _checksum
 

@@ -20,20 +20,19 @@ Semantics preserved (SURVEY.md §5.1):
 A copy of the JAX package's ``shuffle/manager.py``, cut only where
 another plane is missing from the port:
 
-- ``get_writer``, ``get_reader`` and the writer-backed shuffle data
-  raise ``NotImplementedError`` until the writers and readers come with
-  ROADMAP item M4; device blocks publish and fetch through
-  ``shuffle/device_io.py`` (``DeviceShuffleIO``);
+- the node is the python transport's: the native plane comes with
+  ROADMAP item M4b (``transport/__init__.py``);
 - the driver's telemetry hub stays None until ROADMAP item M8, so
   ``partition_sizes`` reads the location registry (JAX's branch with
   telemetry off);
-- the push/merge plane (``push.enabled``) rides the chunked-agg writer,
-  so with no writer there is nothing to push: ``push_client`` and
-  ``merge_endpoint`` stay None until M4;
 - the elastic replica store (``elastic.replicas`` > 0) raises
   ``NotImplementedError`` until ROADMAP item M8;
-- the lock-order detector, the model checker's schedule points, the
-  journal and the fault plan are the inert seams of ``utils/seams.py``.
+- the lock-order detector, the model checker's schedule points and the
+  journal are the inert seams of ``utils/seams.py``.
+
+Record writers and readers (``get_writer`` / ``get_reader``), the
+push/merge plane and fault plans run as in JAX; device blocks publish
+and fetch through ``shuffle/device_io.py`` (``DeviceShuffleIO``).
 
 Nothing here touches the device; ``DeviceShuffleIO`` owns the card.
 """
@@ -57,7 +56,7 @@ from sparkrdma_tpu_torch.utils.seams import journal_emit
 from sparkrdma_tpu_torch.resilience import SourceHealthRegistry
 from sparkrdma_tpu_torch.tenancy import AdmissionController, FairShareExecutor
 from sparkrdma_tpu_torch.tenancy import quota as _tquota
-from sparkrdma_tpu_torch.utils.seams import faults as _faults
+from sparkrdma_tpu_torch.testing import faults as _faults
 from sparkrdma_tpu_torch.utils import checksum as _checksum
 from sparkrdma_tpu_torch.rpc import (
     AnnounceManagersMsg,
@@ -70,7 +69,7 @@ from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle
 from sparkrdma_tpu_torch.shuffle.resolver import TpuShuffleBlockResolver
 from sparkrdma_tpu_torch.shuffle.stats import ShuffleReaderStats
 from sparkrdma_tpu_torch.transport import FnListener, TpuNode, create_node
-from sparkrdma_tpu_torch.utils.config import PREFIX, TpuShuffleConf
+from sparkrdma_tpu_torch.utils.config import PREFIX, ShuffleWriterMethod, TpuShuffleConf
 
 logger = logging.getLogger(__name__)
 
@@ -235,12 +234,14 @@ class TpuShuffleManager:
         # blocks toward their reducers). Both are strictly best-effort
         # overlays on the locations API — disabling them changes
         # nothing but read amplification.
-        #
-        # In the port the plane pushes the chunked-agg writer's blocks,
-        # and the writers are ROADMAP item M4: with no writer there is
-        # nothing to push, so both stay None whatever push.enabled says.
         self.push_client = None
         self.merge_endpoint = None
+        if conf.push_enabled:
+            from sparkrdma_tpu_torch.shuffle import merge as _merge
+
+            self.push_client = _merge.PushClient(self)
+            self.merge_endpoint = _merge.MergeEndpoint(self)
+            _merge.register_endpoint(self.merge_endpoint)
         # elastic replication plane (sparkrdma_tpu_torch/elastic/): executors
         # host a replica store (receiving peers' map-output copies) and
         # a replica client (shipping their own) when durability is on.
@@ -1032,20 +1033,22 @@ class TpuShuffleManager:
         return handle
 
     def get_writer(self, handle: BaseShuffleHandle, map_id: int):
-        """A record writer for one map task: ``shuffle/writer/*``, which
-        the port brings with ROADMAP item M4."""
-        raise NotImplementedError(
-            "shuffle writers come to the port with ROADMAP item M4; "
-            "publish device blocks through DeviceShuffleIO"
-        )
+        from sparkrdma_tpu_torch.shuffle.writer.chunked_agg import ChunkedAggShuffleWriter
+        from sparkrdma_tpu_torch.shuffle.writer.wrapper import WrapperShuffleWriter
+
+        self.start_node_if_missing()
+        if self.conf.shuffle_writer_method == ShuffleWriterMethod.WRAPPER:
+            return WrapperShuffleWriter(self, handle, map_id)
+        return ChunkedAggShuffleWriter(self, handle, map_id)
 
     def get_reader(self, handle: BaseShuffleHandle, start_partition: int, end_partition: int):
-        """A record reader for one reduce range: ``shuffle/reader/*``,
-        which the port brings with ROADMAP item M4."""
-        raise NotImplementedError(
-            "shuffle readers come to the port with ROADMAP item M4; "
-            "fetch device blocks through DeviceShuffleIO"
-        )
+        from sparkrdma_tpu_torch.shuffle.reader import TpuShuffleReader
+
+        self.start_node_if_missing()
+        reader = TpuShuffleReader(self, handle, start_partition, end_partition)
+        with self._lock:
+            self._reader_metrics.append(reader.metrics)
+        return reader
 
     @property
     def map_pool(self):
@@ -1083,9 +1086,12 @@ class TpuShuffleManager:
             return self._map_pool
 
     def finalize_maps(self, shuffle_id: int) -> None:
-        """Map-stage barrier hook: chunked-agg data publishes here. The
-        port has no writer-backed shuffle data until ROADMAP item M4, so
-        there is nothing to finalize."""
+        """Map-stage barrier hook: chunked-agg data publishes here."""
+        from sparkrdma_tpu_torch.shuffle.writer.chunked_agg import ChunkedAggShuffleData
+
+        data = self.resolver.get_shuffle_data(shuffle_id)
+        if isinstance(data, ChunkedAggShuffleData):
+            data.finalize_and_publish(self)
 
     def known_executor_ids(self) -> List[str]:
         """Executor ids this manager can name as push destinations:
@@ -1243,6 +1249,11 @@ class TpuShuffleManager:
             map_pool.shutdown(wait=True)
         if ck_pool is not None:
             ck_pool.shutdown(wait=True)
+        if self.merge_endpoint is not None:
+            from sparkrdma_tpu_torch.shuffle import merge as _merge
+
+            _merge.unregister_endpoint(self.merge_endpoint)
+            self.merge_endpoint.stop()
         if self.telemetry is not None:
             self.telemetry.stop()
         if self.reader_stats is not None:

@@ -11,11 +11,8 @@ Analogue of RdmaShuffleBlockResolver.scala (reference: RdmaShuffleBlockResolver.
   (:77-87),
 - serves local partitions as input streams (:95-100).
 
-A copy of the JAX package's ``shuffle/resolver.py``. The writer-backed
-shuffle data (``get_or_create_shuffle_data``) raises
-``NotImplementedError`` until the writers come with ROADMAP item M4;
-what the manager calls at start and stop (``shuffle_ids``,
-``get_shuffle_data``, ``remove_shuffle``, ``stop``) works as in JAX.
+A copy of the JAX package's ``shuffle/resolver.py``, its imports
+rewritten to this package.
 """
 
 from __future__ import annotations
@@ -28,7 +25,8 @@ from typing import BinaryIO, Dict, List, Optional
 
 from sparkrdma_tpu_torch.engine.serializer import CompressionCodec
 from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle
-from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+from sparkrdma_tpu_torch.shuffle.writer import ShuffleData
+from sparkrdma_tpu_torch.utils.config import ShuffleWriterMethod, TpuShuffleConf
 
 
 class TpuShuffleBlockResolver:
@@ -36,7 +34,7 @@ class TpuShuffleBlockResolver:
         self._manager = manager
         self.conf: TpuShuffleConf = manager.conf
         self.codec = CompressionCodec(enabled=True)
-        self._data: Dict[int, "object"] = {}
+        self._data: Dict[int, ShuffleData] = {}
         self._lock = threading.Lock()
         self._inmemory_used = 0
         self._budget = self.conf.shuffle_write_max_inmemory_per_executor
@@ -74,17 +72,26 @@ class TpuShuffleBlockResolver:
         return os.path.join(self._local_dir, name)
 
     # -- shuffle data lifecycle (:49-66) -----------------------------------
-    def get_or_create_shuffle_data(self, handle: BaseShuffleHandle):
-        """The writer-backed shuffle data of ``handle``. The writers
-        (``shuffle/writer/*``) come to the port with ROADMAP item M4;
-        until then no shuffle data is ever created, and every other
-        method here serves an empty table."""
-        raise NotImplementedError(
-            "writer-backed shuffle data needs shuffle/writer/*, which the "
-            "port brings with ROADMAP item M4"
-        )
+    def get_or_create_shuffle_data(self, handle: BaseShuffleHandle) -> ShuffleData:
+        from sparkrdma_tpu_torch.shuffle.writer.chunked_agg import ChunkedAggShuffleData
+        from sparkrdma_tpu_torch.shuffle.writer.wrapper import WrapperShuffleData
 
-    def get_shuffle_data(self, shuffle_id: int) -> Optional[object]:
+        with self._lock:
+            data = self._data.get(handle.shuffle_id)
+            if data is None:
+                if self.conf.shuffle_writer_method == ShuffleWriterMethod.WRAPPER:
+                    data = WrapperShuffleData(self, handle.shuffle_id, handle.num_partitions)
+                else:
+                    data = ChunkedAggShuffleData(
+                        self,
+                        handle.shuffle_id,
+                        handle.num_partitions,
+                        num_maps=handle.num_maps,
+                    )
+                self._data[handle.shuffle_id] = data
+            return data
+
+    def get_shuffle_data(self, shuffle_id: int) -> Optional[ShuffleData]:
         with self._lock:
             return self._data.get(shuffle_id)
 

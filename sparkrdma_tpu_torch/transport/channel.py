@@ -22,8 +22,7 @@ semantics:
 
 A copy of the JAX package's ``transport/channel.py``, its imports
 rewritten to this package (the lock-order, model-checker and journal
-calls go to the inert seams of ``utils/seams.py``). The fault-plan seam
-(``testing/faults.py``, ROADMAP M4) is inert here (``utils/seams.py``).
+calls go to the inert seams of ``utils/seams.py``).
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 from sparkrdma_tpu_torch.memory.registry import ProtectionDomain, RegionError
 from sparkrdma_tpu_torch.obs import get_registry
-from sparkrdma_tpu_torch.utils.seams import faults as _faults
+from sparkrdma_tpu_torch.testing import faults as _faults
 from sparkrdma_tpu_torch.transport import wire
 from sparkrdma_tpu_torch.transport.completion import CompletionListener
 from sparkrdma_tpu_torch.utils.config import TpuShuffleConf

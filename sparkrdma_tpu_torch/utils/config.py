@@ -13,7 +13,7 @@ device exchange plane (bucket sizes, mesh axes).
 A copy of the JAX package's ``utils/config.py``: the same keys, defaults
 and clamping, so one conf dict serves both packages. One getter differs:
 ``transport`` resolves ``auto`` to ``python`` and refuses ``native``
-(the native plane is ROADMAP item M4).
+(the native plane is ROADMAP item M4b).
 """
 
 from __future__ import annotations
@@ -761,7 +761,7 @@ class TpuShuffleConf:
         """Host transport data plane: ``auto`` (default), ``python`` or
         ``native``. In the JAX package ``auto`` resolves to the native
         C++ plane when its toolchain is available. The port has only the
-        python plane until ROADMAP item M4 ports the native one, so
+        python plane until ROADMAP item M4b ports the native one, so
         ``auto`` resolves to ``python`` here, and an explicit ``native``
         raises ``NotImplementedError`` instead of quietly running
         another plane than the one asked for. Both packages' python
@@ -772,7 +772,7 @@ class TpuShuffleConf:
         if raw == "native":
             raise NotImplementedError(
                 "tpu.shuffle.transport=native needs the native plane, which "
-                "the port brings with ROADMAP item M4"
+                "the port brings with ROADMAP item M4b"
             )
         return "python"
 

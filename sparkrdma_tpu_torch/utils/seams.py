@@ -1,21 +1,17 @@
 """Inert seams for the JAX package's planes that the port has not reached.
 
-The host-plane modules the port copies call into four planes that have
+The host-plane modules the port copies call into three planes that have
 no port module yet: the lock-order detector (``analysis/lockorder.py``),
-the model checker's schedule points (``analysis/modelcheck``), the
-cluster event journal (``obs/journal.py``) and the fault-injection plan
-(``testing/faults.py``). Each gets a stand-in here with the same name
-and call shape, so the copies keep the JAX call sites line for line and
-the real plane drops in later without touching them:
+the model checker's schedule points (``analysis/modelcheck``) and the
+cluster event journal (``obs/journal.py``). Each gets a stand-in here
+with the same name and call shape, so the copies keep the JAX call sites
+line for line and the real plane drops in later without touching them:
 
 - ``named_lock`` / ``OrderedLock``: plain ``threading`` locks that keep
   their names (ROADMAP M8, the analysis passes pointed at the port);
 - ``schedule_point``: does nothing (ROADMAP M8, with the analysis
   passes);
-- ``journal_emit``: does nothing (ROADMAP M8, the operations planes);
-- ``faults.active()``: returns None; ``faults.ensure_installed`` raises
-  on a non-empty plan, so a fault plan is never silently ignored
-  (ROADMAP M4, with ``testing/faults.py``).
+- ``journal_emit``: does nothing (ROADMAP M8, the operations planes).
 """
 
 from __future__ import annotations
@@ -62,26 +58,3 @@ def schedule_point(kind: str, label: str) -> None:
 def journal_emit(event: str, **fields) -> None:
     """An event for the cluster journal; dropped until the journal is
     ported (ROADMAP M8)."""
-
-
-class _Faults:
-    """The fault-injection plan's two entry points (ROADMAP M4)."""
-
-    @staticmethod
-    def active():
-        """The installed fault plan: none can be installed yet."""
-        return None
-
-    @staticmethod
-    def ensure_installed(spec: str, seed: int = 0) -> None:
-        """Install ``spec`` (``tpu.shuffle.faultPlan``). An empty spec is
-        the default and a no-op; any other raises, so a chaos run never
-        silently runs without its faults."""
-        if spec:
-            raise NotImplementedError(
-                "fault plans (tpu.shuffle.faultPlan) need testing/faults.py, "
-                "which the port brings with ROADMAP item M4"
-            )
-
-
-faults = _Faults()
