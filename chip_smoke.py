@@ -180,6 +180,28 @@ exits nonzero and prints no result. Phases, each one JSON line:
    of its range) and payload words are checked in every run; walls,
    bytes READ, pool bytes, host-to-device bytes and peak device bytes
    reported; no kernel launches;
+14. ``engine``: the engine on the card's host, the card's name and power
+   limit beside it: (a) the README's Quick start on the port's
+   ``TpuContext``, run as written, against plain Python; (b) HiBench
+   TeraSort small (3,200,000 records ``(int key, b"x" * 90)``, keys from
+   ``default_rng(0)``, ``bench_engine_terasort``'s job:
+   ``TpuContext(num_executors=2, task_threads=4)``,
+   ``parallelize(data, 8).sort_by_key(8)``): the whole output sorted,
+   its keys ``np.sort`` of the input's, every payload intact; job wall,
+   records/s, logical GB/s, the job's critical-path breakdown,
+   ``engine.task_ms`` by kind, no stage recompute; (c) at a tenth,
+   ``driver:kill:1:stage=reduce_phase`` (output equal, adoptions rise)
+   and an executor lost between two reads of one shuffle (output equal,
+   one stage recompute); (d) the same size through ``ClusterContext``'s
+   4 worker processes, 8 map functions making their keys in the
+   workers, a ``RangePartitioner`` at ``((r + 1) << 32) // 8``: every
+   reducer's count, xor, min and max against the generator's, the
+   ranges disjoint and ordered, and each worker without a CUDA context
+   and without jax; start-up and job walls; (e) at a tenth, the
+   chunked-agg writer with push in cluster mode (merged segments read)
+   and ``exec:kill`` of one worker at its first reduce under the wrapper
+   writer (output as (d)'s, one recovery, the worker exits 1); no kernel
+   launches;
 
 Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, where one
@@ -3205,6 +3227,424 @@ def phase_data_planes(torch, dev):
     emit(13, name="data_planes", launches={}, seconds=time.perf_counter() - t0, **report)
 
 
+
+EN_RECORDS = 3_200_000  # HiBench TeraSort "small", as phase 13
+# (c) and (e) at a tenth: each fault run is a job and its fault-free
+# twin, and the executor-loss runs wait out two location-fetch timeouts
+EN_TENTH = 320_000
+EN_PAYLOAD = b"x" * 90  # bench_engine_terasort's record: an int key and 90 bytes
+EN_RECORD_BYTES = 100
+EN_SEED = 0  # bench_engine_terasort's default_rng(0)
+EN_EXECUTORS = 2  # TpuContext, as bench_engine_terasort
+EN_TASK_THREADS = 4
+EN_PARTS = 8
+EN_WORKERS = 4  # ClusterContext's worker processes
+EN_MAPS = 8
+EN_MAP_SEED = 1400  # ClusterContext map m's keys: default_rng(EN_MAP_SEED + m)
+EN_EDGES = [((r + 1) << 32) // EN_PARTS for r in range(EN_PARTS - 1)]
+EN_KNOBS = {"tpu.shuffle.transport": "python"}
+# an executor lost under a materialized shuffle defers the later location
+# fetches until this timeout (twice: the fetch and its re-resolve) before
+# the recompute; the default 30 s would hold each loss run a minute
+EN_LOST_KNOBS = {"tpu.shuffle.partitionLocationFetchTimeoutMs": "2000"}
+# README.md's Quick start, the import renamed to the port
+QUICK_START = """\
+from sparkrdma_tpu_torch.engine.context import TpuContext
+
+with TpuContext(num_executors=2) as ctx:
+    rdd = (ctx.parallelize(range(10000), 8)
+              .map(lambda x: (x % 100, x))
+              .reduce_by_key(lambda a, b: a + b))
+    print(sorted(rdd.collect())[:3])
+"""
+
+
+def _en_quick_start():
+    """(a) The Quick start, run as written with its ``print`` captured,
+    then its whole result against plain Python."""
+    from sparkrdma_tpu_torch.engine.context import TpuContext
+
+    printed = []
+    t = time.perf_counter()
+    exec(compile(QUICK_START, "README.md Quick start", "exec"), {"print": printed.append})
+    wall = time.perf_counter() - t
+    want = sorted((k, sum(range(k, 10000, 100))) for k in range(100))
+    if printed != [want[:3]]:
+        raise AssertionError(f"(a) the Quick start printed {printed}, plain Python {want[:3]}")
+    with TpuContext(num_executors=2) as ctx:
+        got = sorted(ctx.parallelize(range(10000), 8).map(lambda x: (x % 100, x))
+                     .reduce_by_key(lambda a, b: a + b).collect())
+    if got != want:
+        raise AssertionError("(a) the Quick start's reduction differs from plain Python")
+    return {"printed": repr(printed[0]), "wall_s": wall}
+
+
+def _en_task_ms(hists):
+    """``engine.task_ms`` deltas summed by task kind: count, mean, and the
+    bucket bounds that hold the 50th and 99th percentiles."""
+    from sparkrdma_tpu_torch.obs import parse_metric_key
+
+    acc = {}
+    for key, h in hists.items():
+        name, labels = parse_metric_key(key)
+        if name != "engine.task_ms" or not h["count"]:
+            continue
+        a = acc.setdefault(labels.get("kind", "?"), {"count": 0, "sum": 0.0, "buckets": {}})
+        a["count"] += h["count"]
+        a["sum"] += h["sum"]
+        for b, c in h.get("buckets", {}).items():
+            a["buckets"][b] = a["buckets"].get(b, 0) + c
+    out = {}
+    for kind, a in acc.items():
+        bounds = sorted(a["buckets"].items(),
+                        key=lambda bc: float("inf") if bc[0] == "overflow" else float(bc[0][3:]))
+
+        def le(q):
+            seen = 0
+            for b, c in bounds:
+                seen += c
+                if seen >= q * a["count"]:
+                    return b
+            return "overflow"
+
+        out[kind] = {"count": a["count"], "mean_ms": a["sum"] / a["count"],
+                     "p50_bucket": le(0.5), "p99_bucket": le(0.99)}
+    return out
+
+
+def _en_check_sorted(out, keys, what):
+    """The whole output sorted, its keys ``np.sort`` of the input's, every
+    payload intact."""
+    if len(out) != len(keys):
+        raise AssertionError(f"{what}: {len(out)} records, {len(keys)} expected")
+    got = np.fromiter((k for k, _ in out), dtype=np.uint64, count=len(out))
+    if not np.all(got[:-1] <= got[1:]):
+        raise AssertionError(f"{what}: the output is not sorted")
+    if not np.array_equal(got, np.sort(keys)):
+        raise AssertionError(f"{what}: the keys differ from np.sort of the input")
+    if any(v != EN_PAYLOAD for _, v in out):
+        raise AssertionError(f"{what}: a payload differs from the record's")
+
+
+def _en_ctx(knobs=None):
+    from sparkrdma_tpu_torch.engine.context import TpuContext
+    from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+
+    return TpuContext(num_executors=EN_EXECUTORS, task_threads=EN_TASK_THREADS,
+                      conf=TpuShuffleConf({**EN_KNOBS, **(knobs or {})}))
+
+
+def _en_sort(ctx, data):
+    return ctx.parallelize(data, EN_PARTS).sort_by_key(num_partitions=EN_PARTS)
+
+
+def _en_terasort(keys):
+    """(b) bench_engine_terasort's job through ``TpuContext``."""
+    from sparkrdma_tpu_torch.obs import get_registry
+
+    reg = get_registry()
+    before = reg.snapshot(prefix="engine.")
+    with _en_ctx() as ctx:
+        t = time.perf_counter()
+        data = [(int(k), EN_PAYLOAD) for k in keys]
+        data_s = time.perf_counter() - t
+        t = time.perf_counter()
+        out = ctx.run_job(_en_sort(ctx, data))
+        wall = time.perf_counter() - t
+        bd = ctx.last_breakdown
+    if bd is None:
+        raise AssertionError("(b) the job left no breakdown")
+    _en_check_sorted(out, keys, "(b)")
+    delta = reg.delta(before, prefix="engine.")
+    recomputes = delta["counters"].get("engine.stage_recomputes", 0)
+    if recomputes:
+        raise AssertionError(f"(b) {recomputes} stage recomputes in a fault-free job")
+    bdd = bd.to_dict()
+    n = len(keys)
+    return {"records": n, "data_s": data_s, "wall_s": wall, "records_per_s": n / wall,
+            "logical_gbps": n * EN_RECORD_BYTES / wall / 1e9,
+            "breakdown": {"wall_ms": bdd["wall_ms"], "coverage": bdd["coverage"],
+                          "categories_ms": bdd["categories_ms"],
+                          "gap_frames": dict(list(bdd.get("gap_frames", {}).items())[:5])},
+            "stage_recomputes": recomputes, "task_ms": _en_task_ms(delta["histograms"])}
+
+
+def _en_faults(keys):
+    """(c) ``driver:kill`` between map and reduce, and an executor lost
+    between two reads of one materialized shuffle, each against the job
+    without the fault."""
+    from sparkrdma_tpu_torch.obs import get_registry
+    from sparkrdma_tpu_torch.testing import faults
+
+    reg = get_registry()
+    data = [(int(k), EN_PAYLOAD) for k in keys]
+    report = {"records": len(keys)}
+    with _en_ctx() as ctx:
+        t = time.perf_counter()
+        base = _en_sort(ctx, data).collect()
+        report["fault_free_s"] = time.perf_counter() - t
+    _en_check_sorted(base, keys, "(c) fault-free")
+
+    adoptions = reg.counter("metastore.adoptions", role="driver")
+    a0 = adoptions.value
+    try:
+        with _en_ctx({"tpu.shuffle.faultPlan": "driver:kill:1:stage=reduce_phase"}) as ctx:
+            t = time.perf_counter()
+            got = _en_sort(ctx, data).collect()
+            report["driver_kill_s"] = time.perf_counter() - t
+    finally:
+        faults.uninstall()
+    report["adoptions"] = adoptions.value - a0
+    if got != base:
+        raise AssertionError("(c) driver:kill: the output differs from the fault-free run's")
+    if report["adoptions"] <= 0:
+        raise AssertionError("(c) driver:kill: metastore.adoptions did not rise")
+
+    recomputes = reg.counter("engine.stage_recomputes")
+    with _en_ctx(EN_LOST_KNOBS) as ctx:
+        rdd = _en_sort(ctx, data)
+        first = rdd.collect()
+        r0 = recomputes.value
+        ctx.lose_executor("exec-1")
+        t = time.perf_counter()
+        again = rdd.collect()
+        report["lost_executor_reread_s"] = time.perf_counter() - t
+        report["survivors"] = [m.executor_id for m in ctx.executors]
+    report["stage_recomputes"] = recomputes.value - r0
+    if first != base or again != base:
+        raise AssertionError("(c) lost executor: the output differs from the fault-free run's")
+    if report["stage_recomputes"] != 1 or report["survivors"] != ["exec-0"]:
+        raise AssertionError(f"(c) lost executor: {report}")
+    return report
+
+
+def _en_map_fn(seed, n):
+    """A ClusterContext map function: its keys made in the worker."""
+    def fn():
+        keys = np.random.default_rng(seed).integers(0, 1 << 32, n, dtype=np.uint64)
+        return ((int(k), b"x" * 90) for k in keys)
+
+    return fn
+
+
+def _en_summary_fn(edges, counters=()):
+    """A ClusterContext reduce function: count, min, max and xor of the
+    keys, the partitions they fall in, payloads that differ, and the
+    worker process's totals of ``counters`` after the read."""
+    def fn(it):
+        import bisect
+
+        count, lo, hi, xor, parts, bad = 0, None, None, 0, set(), 0
+        for k, v in it:
+            count += 1
+            lo = k if lo is None or k < lo else lo
+            hi = k if hi is None or k > hi else hi
+            xor ^= k
+            parts.add(bisect.bisect_left(edges, k))
+            bad += v != b"x" * 90
+        out = {"count": count, "min": lo, "max": hi, "xor": xor, "parts": sorted(parts),
+               "bad": bad}
+        if counters:
+            from sparkrdma_tpu_torch.obs import get_registry
+
+            reg = get_registry()
+            out["counters"] = {c: sum(reg.snapshot(prefix=c)["counters"].values())
+                               for c in counters}
+        return out
+
+    return fn
+
+
+def _en_probe_fn():
+    """A reduce function that reports what its worker process loaded."""
+    def fn(it):
+        import os
+        import sys
+
+        import torch as worker_torch
+
+        return {"pid": os.getpid(), "records": sum(1 for _ in it),
+                "cuda_initialized": worker_torch.cuda.is_initialized(),
+                "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                              or m == "sparkrdma_tpu" or m.startswith("sparkrdma_tpu.")),
+                "main": getattr(sys.modules["__main__"].__spec__, "name", None)}
+
+    return fn
+
+
+def _en_keys(n):
+    per = n // EN_MAPS
+    return per, np.concatenate([
+        np.random.default_rng(EN_MAP_SEED + m).integers(0, 1 << 32, per, dtype=np.uint64)
+        for m in range(EN_MAPS)])
+
+
+def _en_check_ranges(parts, keys, what):
+    """Each reducer's count, xor, min and max against the keys of the
+    partitions it read; the ranges disjoint and ordered; every payload
+    intact; every key read once."""
+    part = np.searchsorted(np.asarray(EN_EDGES, np.uint64), keys, side="left")
+    seen, prev_max = [], -1
+    for i, p in enumerate(parts):
+        if not p["count"]:
+            continue
+        mine = keys[np.isin(part, p["parts"])]
+        if (p["count"], p["xor"], p["min"], p["max"]) != (
+                len(mine), int(np.bitwise_xor.reduce(mine)), int(mine.min()), int(mine.max())):
+            raise AssertionError(f"{what} reducer {i}: count/xor/min/max differ from the "
+                                 "generator's keys of its partitions")
+        if p["bad"]:
+            raise AssertionError(f"{what} reducer {i}: {p['bad']} payloads differ")
+        if p["min"] <= prev_max:
+            raise AssertionError(f"{what} reducer {i}: its range overlaps the previous one")
+        prev_max = p["max"]
+        seen.extend(p["parts"])
+    if seen != sorted(set(seen)) or sum(p["count"] for p in parts) != len(keys):
+        raise AssertionError(f"{what}: partitions read twice or records missing")
+
+
+def _en_cluster(knobs=None):
+    from sparkrdma_tpu_torch.engine.cluster import ClusterContext
+    from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+
+    t = time.perf_counter()
+    cc = ClusterContext(num_executors=EN_WORKERS,
+                        conf=TpuShuffleConf({**EN_KNOBS, **(knobs or {})}))
+    return cc, time.perf_counter() - t
+
+
+def _en_cluster_job(cc, n, counters=()):
+    from sparkrdma_tpu_torch.shuffle.handle import RangePartitioner
+
+    per, keys = _en_keys(n)
+    t = time.perf_counter()
+    parts = cc.run_map_reduce([_en_map_fn(EN_MAP_SEED + m, per) for m in range(EN_MAPS)],
+                              num_partitions=EN_PARTS, partitioner=RangePartitioner(EN_EDGES),
+                              reduce_fn=_en_summary_fn(EN_EDGES, counters))
+    return parts, keys, time.perf_counter() - t
+
+
+def _en_cluster_sort(n):
+    """(d) The range-partitioned sort through ``ClusterContext``: 4 worker
+    processes, 8 map functions making their keys in the workers, then a
+    probe of what each worker loaded."""
+    cc, startup = _en_cluster()
+    try:
+        parts, keys, wall = _en_cluster_job(cc, n)
+        bd = cc.last_breakdown
+        probes = cc.run_map_reduce([_en_map_fn(7, 64)], num_partitions=EN_WORKERS,
+                                   reduce_fn=_en_probe_fn())
+    finally:
+        cc.stop()
+    if bd is None:
+        raise AssertionError("(d) the job left no breakdown")
+    _en_check_ranges(parts, keys, "(d)")
+    if len({p["pid"] for p in probes} | {os.getpid()}) != EN_WORKERS + 1:
+        raise AssertionError(f"(d) the probe did not run on {EN_WORKERS} worker processes")
+    for p in probes:
+        if (p["cuda_initialized"] or p["jax"]
+                or p["main"] != "sparkrdma_tpu_torch.engine.worker"):
+            raise AssertionError(f"(d) a worker touched CUDA or loaded jax: {p}")
+    bdd = bd.to_dict()
+    return {"records": len(keys), "startup_s": startup, "job_s": wall,
+            "records_per_s": len(keys) / wall,
+            "logical_gbps": len(keys) * EN_RECORD_BYTES / wall / 1e9,
+            "reducer_records": [p["count"] for p in parts],
+            "breakdown": {"wall_ms": bdd["wall_ms"], "coverage": bdd["coverage"],
+                          "categories_ms": bdd["categories_ms"]},
+            "workers": [{k: p[k] for k in ("pid", "cuda_initialized", "jax", "main")}
+                        for p in probes]}
+
+
+def _en_cluster_faults(n):
+    """(e) The chunked-agg writer with push in cluster mode (the push
+    client's routes come from the workers' task ports), then
+    ``exec:kill`` of one worker at its first reduce under the wrapper
+    writer."""
+    from sparkrdma_tpu_torch.obs import get_registry
+    from sparkrdma_tpu_torch.testing import faults
+
+    report = {}
+    cc, startup = _en_cluster({"tpu.shuffle.shuffleWriteMethod": "chunkedpartitionagg",
+                               "tpu.shuffle.push.enabled": "true"})
+    try:
+        parts, keys, wall = _en_cluster_job(
+            cc, n, counters=("push.pushed_blocks", "reader.merged_reads"))
+    finally:
+        cc.stop()
+    _en_check_ranges(parts, keys, "(e) push")
+    pushed = sum(p["counters"]["push.pushed_blocks"] for p in parts)
+    merged = sum(p["counters"]["reader.merged_reads"] for p in parts)
+    report["push"] = {"records": len(keys), "startup_s": startup, "job_s": wall,
+                      "pushed_blocks": pushed, "merged_blocks": merged}
+    if pushed <= 0 or merged <= 0:
+        raise AssertionError(f"(e) push: no merged segment read: {report['push']}")
+
+    reg = get_registry()
+    recoveries = reg.counter("elastic.recoveries", role="driver")
+    recomputed = reg.counter("elastic.recomputed_maps", role="driver")
+    r0, m0 = recoveries.value, recomputed.value
+    try:
+        cc, startup = _en_cluster({
+            "tpu.shuffle.faultPlan": "exec:kill:1:peer=proc-exec-1,stage=reduce_task",
+            **EN_LOST_KNOBS})
+        try:
+            handles = list(cc.workers)
+            parts, keys, wall = _en_cluster_job(cc, n)
+            live = [w.executor_id for w in cc.workers]
+        finally:
+            cc.stop()
+    finally:
+        faults.uninstall()
+    _en_check_ranges(parts, keys, "(e) exec:kill")
+    killed = next(w for w in handles if w.executor_id == "proc-exec-1")
+    report["exec_kill"] = {"records": len(keys), "startup_s": startup, "job_s": wall,
+                           "live_after": live, "killed_exit": killed.proc.returncode,
+                           "recoveries": recoveries.value - r0,
+                           "recomputed_maps": recomputed.value - m0}
+    if (report["exec_kill"]["recoveries"] < 1 or "proc-exec-1" in live
+            or killed.proc.returncode != 1):
+        raise AssertionError(f"(e) exec:kill: {report['exec_kill']}")
+    return report
+
+
+def phase_engine(torch, dev):
+    """Phase 14: the engine on the card's host. (a) the README's Quick
+    start; (b) HiBench TeraSort small through ``TpuContext``
+    (bench_engine_terasort's job); (c) its fault runs at a tenth; (d) the
+    range-partitioned sort through ``ClusterContext``'s worker processes;
+    (e) the cluster's push route and executor loss at a tenth. The engine
+    does no device work: no hand-written kernel runs, every count is 0
+    from just before to just after, and no worker initialises CUDA."""
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+
+    # the workers are ``python -m sparkrdma_tpu_torch.engine.worker``: they
+    # find the package on PYTHONPATH from any working directory
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    import cloudpickle
+
+    t0 = time.perf_counter()
+    rc.reset_launch_counts()
+    pa.reset_launch_counts()
+    report = {"card": smi, "cloudpickle": f"{cloudpickle.__version__} {cloudpickle.__file__}"}
+    report["a"] = _en_quick_start()
+    keys = np.random.default_rng(EN_SEED).integers(0, 1 << 32, EN_RECORDS, dtype=np.uint64)
+    report["b"] = _en_terasort(keys)
+    report["c"] = _en_faults(keys[:EN_TENTH])
+    report["d"] = _en_cluster_sort(EN_RECORDS)
+    report["e"] = _en_cluster_faults(EN_TENTH)
+    launched = {k: n for k, n in _all_counts(rc, pa).items() if n}
+    if launched:
+        raise AssertionError(f"the engine launched kernels: {launched}")
+    emit(14, name="engine", launches={}, seconds=time.perf_counter() - t0, **report)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkrdma_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository")
@@ -3240,6 +3680,7 @@ def main():
     sp_training = phase_sp_training_path(torch, dev, step7_s)
     phase_spmd_models(torch, dev)
     phase_data_planes(torch, dev)
+    phase_engine(torch, dev)
     launches.update(training)
     for k, n in serving.items():
         launches[k] += n

@@ -11,7 +11,10 @@ line for line and the real plane drops in later without touching them:
   their names (ROADMAP M8, the analysis passes pointed at the port);
 - ``schedule_point``: does nothing (ROADMAP M8, with the analysis
   passes);
-- ``journal_emit``: does nothing (ROADMAP M8, the operations planes).
+- ``journal_emit``: does nothing (ROADMAP M8, the operations planes);
+- ``active_journal``: the process's event journal, which heartbeats
+  (``obs/telemetry.py``) ship from; None until the journal is ported
+  (ROADMAP M8).
 """
 
 from __future__ import annotations
@@ -58,3 +61,10 @@ def schedule_point(kind: str, label: str) -> None:
 def journal_emit(event: str, **fields) -> None:
     """An event for the cluster journal; dropped until the journal is
     ported (ROADMAP M8)."""
+
+
+def active_journal():
+    """The process's armed event journal, resolved per heartbeat by
+    ``obs/telemetry.py``'s ``Heartbeater``; None until the journal is
+    ported (ROADMAP M8)."""
+    return None

@@ -161,10 +161,18 @@ def _shuffle(tag, extra=None, method="wrapper", maps=4, partitions=4, n=1500,
              for i in range(executors)]
     stack = contextlib.ExitStack()
     try:
+        for ex in execs:
+            ex.start_node_if_missing()
+        # membership settles before any map runs: the push client routes
+        # over the executors each one knows, so an announce still in
+        # flight under load would leave pushes (and their faults) out
+        ids = {ex.executor_id for ex in execs}
+        deadline = time.monotonic() + 30.0
+        while any(not ids <= set(ex.known_executor_ids()) for ex in execs):
+            assert time.monotonic() < deadline, "executor membership did not settle"
+            time.sleep(0.005)
         plan = None
         if plan_for is not None:
-            for ex in execs:
-                ex.start_node_if_missing()
             plan = stack.enter_context(faults.installed(plan_for(execs), seed=3))
         handle = BaseShuffleHandle(shuffle_id=0, num_maps=maps,
                                    partitioner=HashPartitioner(partitions))

@@ -48,8 +48,47 @@ def test_importing_every_port_module_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     # every module of the port: a subpackage that fails to import
     # would drop its modules from the walk
-    assert len(res["imported"]) >= 84
+    assert len(res["imported"]) >= 94
+    assert set(ENGINE_MODULES) <= set(res["imported"])
     assert res["bad"] == []
+
+
+ENGINE_MODULES = [
+    "sparkrdma_tpu_torch.engine.rdd",
+    "sparkrdma_tpu_torch.engine.context",
+    "sparkrdma_tpu_torch.engine.worker",
+    "sparkrdma_tpu_torch.engine.cluster",
+    "sparkrdma_tpu_torch.obs.critpath",
+    "sparkrdma_tpu_torch.obs.attr",
+    "sparkrdma_tpu_torch.obs.profiler",
+    "sparkrdma_tpu_torch.obs.telemetry",
+    "sparkrdma_tpu_torch.elastic",
+    "sparkrdma_tpu_torch.elastic.speculation",
+]
+
+
+def test_engine_modules_alone_load_no_jax():
+    """The engine's modules, each imported first in a fresh interpreter
+    (no other port module imported before it), load neither jax nor the
+    JAX package; ``TpuContext`` resolves through the package's lazy
+    export."""
+    script = (
+        "import importlib, json, sys\n"
+        f"names = {ENGINE_MODULES!r}\n"
+        "for n in names: importlib.import_module(n)\n"
+        "from sparkrdma_tpu_torch.engine import TpuContext\n"
+        "assert TpuContext.__module__ == 'sparkrdma_tpu_torch.engine.context'\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'sparkrdma_tpu' or m.startswith('sparkrdma_tpu.'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
