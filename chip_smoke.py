@@ -202,6 +202,24 @@ exits nonzero and prints no result. Phases, each one JSON line:
    and ``exec:kill`` of one worker at its first reduce under the wrapper
    writer (output as (d)'s, one recovery, the worker exits 1); no kernel
    launches;
+15. ``native_plane``: the native plane (``transport=native``: the C++
+   data plane, the native arena, ``/dev/shm`` slabs, mapped delivery) on
+   the card's machine, with the libraries' g++ build seconds, io_uring
+   compiled in and the effective read backend, ``/dev/shm``'s free
+   bytes, the registered buffers by backing and ``transport.sq.*``:
+   (a) two native nodes and a python node, one-sided READ and SEND in
+   every direction, byte-equal, each native node counting one fast-path
+   and one streamed READ; (b) phase 10 (b)'s TeraSort over native
+   (every node a ``NativeTpuNode``, no slab fallen back to anonymous
+   memory, each reducer checked as in phase 2, the wave kernels
+   launched), the map split cold and on warm pools beside phase 10's;
+   (c) its blocks with ``deviceFetch.enabled=false`` by mapped
+   delivery: fast-path READs equal to the remote blocks, none streamed,
+   no pooled registered buffer taken, every block byte-equal to the
+   map's, the reduce beside phase 10 (c)'s; (d) phase 13 (a) over
+   native with its checks; (e) phase 14 (d) at a tenth over native, each
+   of the 4 workers running a ``NativeTpuNode`` without CUDA. Phases 10,
+   13 and 14 run the python plane;
 
 Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, where one
@@ -238,6 +256,10 @@ TF32_TENSOR_FLOPS = 495e12  # dense TF32 tensor-core peak, same sheet
 KEYS = 1 << 28
 EXECUTORS = 8
 REDUCERS = 8
+
+
+# what earlier phases measured, for later phases to print beside their own
+_REPORTS = {}
 
 
 def emit(phase, **fields):
@@ -1975,8 +1997,14 @@ def time_neighbor_pull(torch, dev):
 # transport) and DeviceShuffleIO publish and fetch
 # ----------------------------------------------------------------------
 HOST_EXECUTORS = 4  # dryrun sections 4 and 5 (__graft_entry__.py)
-# phase 10 (b)'s base knobs: none, the defaults (a rehearsal at a small
-# KEYS shrinks collective.waveBytes so the default run still pipelines)
+# phases 10, 13 and 14 run the python plane, as before the native plane
+# came (``transport=auto`` would now pick native), so their numbers stay
+# comparable; phase 15 runs their paths over the native plane
+PY_PLANE = {"tpu.shuffle.transport": "python"}
+NATIVE_PLANE = {"tpu.shuffle.transport": "native"}
+# phase 10 (b)'s and phase 15 (b)'s base knobs: none, the defaults (a
+# rehearsal at a small KEYS shrinks collective.waveBytes so the default
+# run still pipelines)
 HOST_PLANE_KNOBS = {}
 
 
@@ -1998,7 +2026,7 @@ def host_plane_sections(devices, knobs=None, prefix="dry"):
     from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
 
     n_exec = len(devices)
-    conf = TpuShuffleConf(knobs)
+    conf = TpuShuffleConf({**PY_PLANE, **(knobs or {})})
     driver = TpuShuffleManager(conf, is_driver=True)
     execs = [TpuShuffleManager(conf, is_driver=False, executor_id=f"{prefix}-{i}")
              for i in range(n_exec)]
@@ -2133,7 +2161,7 @@ def _tensor_publish_check(torch, dev):
     from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
     from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
 
-    conf = TpuShuffleConf()
+    conf = TpuShuffleConf(PY_PLANE)
     driver = TpuShuffleManager(conf, is_driver=True)
     execs = [TpuShuffleManager(conf, is_driver=False, executor_id=f"tens-{i}")
              for i in range(2)]
@@ -2180,6 +2208,70 @@ def _tensor_publish_check(torch, dev):
         driver.stop()
 
 
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _hp_map_phase(torch, dev, sorter, ios, shards, edges, shuffle_id):
+    """Phase 10 (b)'s map: sort, stage and publish every executor's
+    shard. Returns the wall, its split (sort, stage, publish), the
+    staged locations and every executor's sorted keys and cuts."""
+    split = {"sort_s": 0.0, "stage_s": 0.0, "publish_s": 0.0}
+    staged, sorted_keys = [], []
+    _sync(torch, dev)
+    t_map = time.perf_counter()
+    for e, io in enumerate(ios):
+        t = time.perf_counter()
+        keys, bounds = sorter.sort_partition(shards[e], edges)
+        t1 = time.perf_counter()
+        locs = io.stage_device_blocks(shuffle_id, {
+            r: keys[bounds[r]:bounds[r + 1]] for r in range(REDUCERS)})
+        t2 = time.perf_counter()
+        io.publish_staged(shuffle_id, locs)
+        t3 = time.perf_counter()
+        split["sort_s"] += t1 - t
+        split["stage_s"] += t2 - t1
+        split["publish_s"] += t3 - t2
+        staged.extend(locs)
+        sorted_keys.append((keys, bounds))
+    _sync(torch, dev)
+    return time.perf_counter() - t_map, split, staged, sorted_keys
+
+
+def _hp_reduce_all(torch, dev, ios, sid, want=None, fused=False, blocks=None):
+    """Every reducer ``r`` (on executor ``r``) fetches its partition and
+    merges it. Returns the wall and the merged outputs; with ``want``,
+    each is checked against ``np.sort`` of its range and the input's
+    count, sum and xor; with ``blocks`` (a list), each reducer's fetched
+    blocks' bytes are appended to it, read back after the wall."""
+    from sparkrdma_tpu_torch.models.terasort import merge_blocks
+
+    outs, fetched = [], []
+    _sync(torch, dev)
+    t = time.perf_counter()
+    for r, io in enumerate(ios):
+        got = io.fetch_device_blocks(sid, r, r + 1, dtype=np.uint32,
+                                     timeout_s=600, fused=fused)
+        merged, total = merge_blocks([b.array[: b.length // 4] for b in got[r]])
+        if blocks is None:
+            for b in got[r]:
+                b.free()
+        else:
+            fetched.append(got[r])
+        outs.append((merged, total))
+    _sync(torch, dev)
+    wall = time.perf_counter() - t
+    for bufs in fetched:
+        blocks.append(sorted(b.read(0, b.length) for b in bufs))
+        for b in bufs:
+            b.free()
+    if want is not None:
+        for r, (merged, total) in enumerate(outs):
+            _check_reducer(r, merged, total, want[r])
+    return wall, outs
+
+
 def phase_host_plane_path(torch, dev, data):
     """Phase 10: the host plane on the card. (a) dryrun sections 4 and 5
     on ``make_mesh([dev] * 4)``, and CUDA-tensor blocks through
@@ -2189,9 +2281,10 @@ def phase_host_plane_path(torch, dev, data):
     compiled waves and merges, run "default" (default knobs) and run
     "fused_512m" (``collective.waveBytes=512m``, fused); (c) the same
     published blocks with ``deviceFetch.enabled=false``: one-sided
-    READs over the python transport and host-to-device staging. Counts
-    from 0 just before, read just after."""
-    from sparkrdma_tpu_torch.models.terasort import MapShardSorter, merge_blocks
+    READs over the python transport and host-to-device staging. Every
+    run is on the python plane (phase 15 runs (b) and (c) on the native
+    one). Counts from 0 just before, read just after."""
+    from sparkrdma_tpu_torch.models.terasort import MapShardSorter
     from sparkrdma_tpu_torch.obs import get_registry
     from sparkrdma_tpu_torch.ops import remote_copy as rc
     from sparkrdma_tpu_torch.parallel import make_mesh
@@ -2228,7 +2321,7 @@ def phase_host_plane_path(torch, dev, data):
 
     # ---- (b) the 1 GiB TeraSort through driver, publish and fetch
     sid = 10
-    conf = TpuShuffleConf(HOST_PLANE_KNOBS)
+    conf = TpuShuffleConf({**PY_PLANE, **HOST_PLANE_KNOBS})
     driver = TpuShuffleManager(conf, is_driver=True)
     ids = [f"host-{e}" for e in range(EXECUTORS)]
     execs = [TpuShuffleManager(conf, is_driver=False, executor_id=i) for i in ids]
@@ -2245,29 +2338,9 @@ def phase_host_plane_path(torch, dev, data):
         base = torch.cuda.memory_allocated()
 
         def map_phase(shuffle_id):
-            """Sort, stage and publish every executor's shard; returns
-            the wall, its split and the staged locations."""
-            split = {"sort_s": 0.0, "stage_s": 0.0, "publish_s": 0.0}
-            staged = []
-            torch.cuda.synchronize()
-            t_map = time.perf_counter()
-            for e, io in enumerate(ios):
-                t = time.perf_counter()
-                keys, bounds = sorter.sort_partition(shards[e], edges)
-                t1 = time.perf_counter()
-                locs = io.stage_device_blocks(shuffle_id, {
-                    r: keys[bounds[r]:bounds[r + 1]] for r in range(REDUCERS)})
-                t2 = time.perf_counter()
-                io.publish_staged(shuffle_id, locs)
-                t3 = time.perf_counter()
-                split["sort_s"] += t1 - t
-                split["stage_s"] += t2 - t1
-                split["publish_s"] += t3 - t2
-                staged.extend(locs)
-            torch.cuda.synchronize()
-            return time.perf_counter() - t_map, split, staged
+            return _hp_map_phase(torch, dev, sorter, ios, shards, edges, shuffle_id)
 
-        map_s, split, staged_locs = map_phase(sid)
+        map_s, split, staged_locs, _ = map_phase(sid)
         if not all(loc.block.has_device for loc in staged_locs):
             raise AssertionError("a staged block has no device coordinates")
         stage = {k: sum(io.metrics_snapshot()[k] for io in ios)
@@ -2275,23 +2348,8 @@ def phase_host_plane_path(torch, dev, data):
                            "stage_bytes")}
 
         def reduce_all(fused, check):
-            outs = []
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for r, io in enumerate(ios):
-                got = io.fetch_device_blocks(sid, r, r + 1, dtype=np.uint32,
-                                             timeout_s=600, fused=fused)
-                merged, total = merge_blocks(
-                    [b.array[: b.length // 4] for b in got[r]])
-                for b in got[r]:
-                    b.free()
-                outs.append((merged, total))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            if check:
-                for r, (merged, total) in enumerate(outs):
-                    _check_reducer(r, merged, total, want[r])
-            return wall
+            return _hp_reduce_all(torch, dev, ios, sid, want if check else None,
+                                  fused)[0]
 
         # (knobs, their defaults, fused); each run restores what it set
         runs = {"default": ({}, {}, False),
@@ -2354,7 +2412,7 @@ def phase_host_plane_path(torch, dev, data):
         driver.register_shuffle(BaseShuffleHandle(
             shuffle_id=sid + 1, num_maps=EXECUTORS,
             partitioner=HashPartitioner(REDUCERS)))
-        warm_s, warm_split, _ = map_phase(sid + 1)
+        warm_s, warm_split, _, _ = map_phase(sid + 1)
         report["b"]["map_warm_pools"] = {
             "map_s": warm_s, "map_split": warm_split,
             "stage": {k: sum(io.metrics_snapshot()[k] for io in ios) - v
@@ -2383,6 +2441,7 @@ def phase_host_plane_path(torch, dev, data):
     counts = {"srt_wave_pull": rc.wave_pull_launches,
               "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches}
     emit(10, name="host_plane_path", launches=counts, **report)
+    _REPORTS[10] = report
     return counts
 
 
@@ -2972,7 +3031,7 @@ def _dp_cluster(method, prefix, knobs=None):
     from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
 
     conf = TpuShuffleConf({"tpu.shuffle.shuffleWriteMethod": method,
-                           **DP_KNOBS, **(knobs or {})})
+                           **PY_PLANE, **DP_KNOBS, **(knobs or {})})
     driver = TpuShuffleManager(conf, is_driver=True)
     execs = [TpuShuffleManager(conf, is_driver=False, executor_id=f"{prefix}-{e}")
              for e in range(DP_EXECUTORS)]
@@ -3242,7 +3301,7 @@ EN_WORKERS = 4  # ClusterContext's worker processes
 EN_MAPS = 8
 EN_MAP_SEED = 1400  # ClusterContext map m's keys: default_rng(EN_MAP_SEED + m)
 EN_EDGES = [((r + 1) << 32) // EN_PARTS for r in range(EN_PARTS - 1)]
-EN_KNOBS = {"tpu.shuffle.transport": "python"}
+EN_KNOBS = dict(PY_PLANE)
 # an executor lost under a materialized shuffle defers the later location
 # fetches until this timeout (twice: the fetch and its re-resolve) before
 # the recompute; the default 30 s would hold each loss run a minute
@@ -3456,15 +3515,23 @@ def _en_summary_fn(edges, counters=()):
 
 
 def _en_probe_fn():
-    """A reduce function that reports what its worker process loaded."""
+    """A reduce function that reports what its worker process loaded and
+    the transport node it runs."""
     def fn(it):
         import os
         import sys
+        import threading
 
         import torch as worker_torch
 
+        # each node names its event thread: a NativeTpuNode its CQ
+        # poller ``srt-cq-<id>``, a TpuNode its acceptor ``listener-<id>``
+        kinds = {"srt-cq-": "NativeTpuNode", "listener-": "TpuNode"}
         return {"pid": os.getpid(), "records": sum(1 for _ in it),
                 "cuda_initialized": worker_torch.cuda.is_initialized(),
+                "nodes": sorted({kind for t in threading.enumerate()
+                                 for prefix, kind in kinds.items()
+                                 if t.name.startswith(prefix)}),
                 "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                               or m == "sparkrdma_tpu" or m.startswith("sparkrdma_tpu.")),
                 "main": getattr(sys.modules["__main__"].__spec__, "name", None)}
@@ -3524,12 +3591,17 @@ def _en_cluster_job(cc, n, counters=()):
     return parts, keys, time.perf_counter() - t
 
 
-def _en_cluster_sort(n):
+def _en_cluster_sort(n, knobs=None, what="(d)"):
     """(d) The range-partitioned sort through ``ClusterContext``: 4 worker
     processes, 8 map functions making their keys in the workers, then a
-    probe of what each worker loaded."""
-    cc, startup = _en_cluster()
+    probe of what each worker loaded and which transport node it runs
+    (the plane ``knobs`` name: python unless they say otherwise)."""
+    plane = ("NativeTpuNode"
+             if (knobs or {}).get("tpu.shuffle.transport") == "native" else "TpuNode")
+    cc, startup = _en_cluster(knobs)
     try:
+        if type(cc.driver.node).__name__ != plane:
+            raise AssertionError(f"{what} the driver's node is not a {plane}")
         parts, keys, wall = _en_cluster_job(cc, n)
         bd = cc.last_breakdown
         probes = cc.run_map_reduce([_en_map_fn(7, 64)], num_partitions=EN_WORKERS,
@@ -3537,14 +3609,16 @@ def _en_cluster_sort(n):
     finally:
         cc.stop()
     if bd is None:
-        raise AssertionError("(d) the job left no breakdown")
-    _en_check_ranges(parts, keys, "(d)")
+        raise AssertionError(f"{what} the job left no breakdown")
+    _en_check_ranges(parts, keys, what)
     if len({p["pid"] for p in probes} | {os.getpid()}) != EN_WORKERS + 1:
-        raise AssertionError(f"(d) the probe did not run on {EN_WORKERS} worker processes")
+        raise AssertionError(f"{what} the probe did not run on {EN_WORKERS} worker processes")
     for p in probes:
         if (p["cuda_initialized"] or p["jax"]
                 or p["main"] != "sparkrdma_tpu_torch.engine.worker"):
-            raise AssertionError(f"(d) a worker touched CUDA or loaded jax: {p}")
+            raise AssertionError(f"{what} a worker touched CUDA or loaded jax: {p}")
+        if p["nodes"] != [plane]:
+            raise AssertionError(f"{what} a worker runs {p['nodes']}, not a {plane}")
     bdd = bd.to_dict()
     return {"records": len(keys), "startup_s": startup, "job_s": wall,
             "records_per_s": len(keys) / wall,
@@ -3552,7 +3626,8 @@ def _en_cluster_sort(n):
             "reducer_records": [p["count"] for p in parts],
             "breakdown": {"wall_ms": bdd["wall_ms"], "coverage": bdd["coverage"],
                           "categories_ms": bdd["categories_ms"]},
-            "workers": [{k: p[k] for k in ("pid", "cuda_initialized", "jax", "main")}
+            "workers": [{k: p[k] for k in ("pid", "cuda_initialized", "jax", "main",
+                                           "nodes")}
                         for p in probes]}
 
 
@@ -3645,6 +3720,336 @@ def phase_engine(torch, dev):
     emit(14, name="engine", launches={}, seconds=time.perf_counter() - t0, **report)
 
 
+# ----------------------------------------------------------------------
+# phase 15: the native plane
+# ----------------------------------------------------------------------
+NP_RT_BYTES = 8 << 20  # (a): each node's registered slab
+NP_RT_SEED = 15
+
+
+def native_plane_facts():
+    """What the native plane got on this machine: each library's build
+    seconds in this process (absent: loaded one already built from the
+    same source), io_uring compiled in, ``/dev/shm``'s free and total
+    bytes, and the registered buffers by backing so far."""
+    from sparkrdma_tpu_torch.memory import buffer
+    from sparkrdma_tpu_torch.native import arena
+    from sparkrdma_tpu_torch.native import transport_lib as tl
+
+    t = time.perf_counter()
+    lib = tl.require()
+    arena.require()
+    st = os.statvfs("/dev/shm")
+    return {"build_s": dict(tl.build_seconds), "load_s": time.perf_counter() - t,
+            "uring_compiled": bool(lib.srt_uring_compiled()),
+            "dev_shm_free_bytes": st.f_bavail * st.f_frsize,
+            "dev_shm_total_bytes": st.f_blocks * st.f_frsize,
+            "backings": buffer.backing_counts()}
+
+
+def native_round_trip(size=NP_RT_BYTES, seed=NP_RT_SEED):
+    """(a) Two port native nodes and a port python node: one-sided READ
+    and SEND in every direction on ``default_rng(seed)`` bytes,
+    byte-equal. Each native node reads the other's ``/dev/shm`` slab by
+    the same-host file fast path and the python node's anonymous region
+    streamed, so each counts read paths (1, 1)."""
+    import threading
+
+    from sparkrdma_tpu_torch.memory.buffer import TpuBuffer
+    from sparkrdma_tpu_torch.transport import FnListener
+    from sparkrdma_tpu_torch.transport.native_node import NativeTpuNode
+    from sparkrdma_tpu_torch.transport.node import TpuNode
+    from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+
+    rng = np.random.default_rng(seed)
+    names = ("native-0", "native-1", "python")
+    got = {n: [] for n in names}
+    lock = threading.Lock()
+
+    def on_recv(name):
+        def f(ch, payload):
+            with lock:
+                got[name].append(bytes(payload))
+        return f
+
+    nodes, bufs, sent = {}, {}, {n: [] for n in names}
+    t0 = time.perf_counter()
+    try:
+        for n in names:
+            cls, knobs = ((TpuNode, PY_PLANE) if n == "python"
+                          else (NativeTpuNode, NATIVE_PLANE))
+            nodes[n] = cls(TpuShuffleConf(knobs), "127.0.0.1", True, f"rt-{n}",
+                           recv_listener=on_recv(n))
+        src = {}
+        for n in names:
+            bufs[n] = TpuBuffer(nodes[n].pd, size)
+            src[n] = rng.integers(0, 256, size, np.uint8)
+            np.frombuffer(bufs[n].view, np.uint8)[:] = src[n]
+        if [bufs[n]._shm_path is not None for n in names] != [True, True, False]:
+            raise AssertionError("(a) a native slab is not on /dev/shm, or the python one is")
+        for dst in names:
+            for s in names:
+                if s == dst:
+                    continue
+                ch = nodes[dst].get_channel("127.0.0.1", nodes[s].port, purpose="data")
+                off = 4097 + 13 * names.index(s)
+                n_bytes = size - off - 1
+                out = memoryview(bytearray(n_bytes))
+                done, errs = threading.Event(), []
+                ch.read_in_queue(FnListener(lambda _: done.set(),
+                                            lambda e: (errs.append(e), done.set())),
+                                 [out], [(bufs[s].mkey, off, n_bytes)])
+                if not done.wait(60) or errs:
+                    raise AssertionError(f"(a) READ {dst} <- {s} failed: {errs}")
+                if bytes(out) != src[s][off:off + n_bytes].tobytes():
+                    raise AssertionError(f"(a) READ {dst} <- {s}: bytes differ")
+                msg = rng.integers(0, 256, 70_000, np.uint8).tobytes() + dst.encode()
+                done = threading.Event()
+                ch.send_in_queue(FnListener(lambda _: done.set()), [msg])
+                if not done.wait(60):
+                    raise AssertionError(f"(a) SEND {dst} -> {s} never completed")
+                sent[s].append(msg)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            with lock:
+                if all(len(got[n]) == len(sent[n]) for n in names):
+                    break
+            time.sleep(0.01)
+        for n in names:
+            if sorted(got[n]) != sorted(sent[n]):
+                raise AssertionError(f"(a) {n} received other SENDs than were sent")
+        stats = {n: nodes[n].read_path_stats() for n in names[:2]}
+        if any(v != (1, 1) for v in stats.values()):
+            raise AssertionError(f"(a) read paths (fast path, streamed) {stats}, not (1, 1)")
+        return {"wall_s": time.perf_counter() - t0, "bytes_read_each": size,
+                "reads": 6, "sends": 6, "read_path_stats": stats,
+                "sq": nodes["native-0"].sq_stats()}
+    finally:
+        for b in bufs.values():
+            b.free()
+        for node in nodes.values():
+            node.stop()
+
+
+def native_terasort(torch, dev, data, knobs=None, prefix="np", sid=150,
+                    keep=False):
+    """(b) and (c): phase 10 (b)'s TeraSort on the plane ``knobs`` name
+    (native unless they say otherwise): a driver and one executor a
+    shard, map (sort, stage, publish), then (b) every reducer fetches
+    its partition through the location RPC and the compiled waves and
+    merges, cold and warm, default knobs; (c) the same published blocks
+    with ``deviceFetch.enabled=false``, cold and warm: on the native
+    plane every remote block arrives by mapped delivery on the same-host
+    fast path (fast-path READs == remote blocks, none streamed, no
+    pooled registered buffer taken), byte-equal to the map's blocks;
+    then the map again on warm pools. Every reducer is checked against
+    ``np.sort`` of its range and the input's count, sum and xor. With
+    ``keep``, returns each run's merged outputs too."""
+    from sparkrdma_tpu_torch.models.terasort import MapShardSorter
+    from sparkrdma_tpu_torch.obs import get_registry
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+    from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
+    from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
+    from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
+    from sparkrdma_tpu_torch.transport.native_node import NativeTpuNode
+    from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+
+    shards, edges, want = data
+    n_exec = len(shards)
+    knobs = {**NATIVE_PLANE, **HOST_PLANE_KNOBS, **(knobs or {})}
+    native = knobs["tpu.shuffle.transport"] == "native"
+    reg = get_registry()
+    conf = TpuShuffleConf(knobs)
+    driver = TpuShuffleManager(conf, is_driver=True)
+    ids = [f"{prefix}-{e}" for e in range(n_exec)]
+    execs = [TpuShuffleManager(conf, is_driver=False, executor_id=i) for i in ids]
+    ios = [DeviceShuffleIO(ex, device=dev) for ex in execs]
+    report, outs = {"knobs": knobs}, {}
+
+    def launches():
+        return (rc.wave_pull_launches, rc.pipelined_wave_pull_launches)
+
+    def fetch_counts():
+        snaps = [io.metrics_snapshot() for io in ios]
+        return {"fast_path": sum(s.get("reads_samehost_fast_path", 0) for s in snaps),
+                "streamed": sum(s.get("reads_streamed", 0) for s in snaps),
+                **{k: sum(s[k] for s in snaps)
+                   for k in ("fetch_transport_s", "fetch_stage_s", "fetch_bytes")},
+                "pool_gets": (reg.counter("mempool.hits").value
+                              + reg.counter("mempool.misses").value),
+                **{f"collective.{k}": sum(reg.counter(f"collective.{k}", role=i).value
+                                          for i in ids)
+                   for k in ("blocks", "degrades")}}
+
+    try:
+        nodes = {type(ex.node).__name__ for ex in [driver, *execs]}
+        if native and nodes != {NativeTpuNode.__name__}:
+            raise AssertionError(f"the native run's nodes are {nodes}")
+        report["nodes"] = sorted(nodes)
+        driver.register_shuffle(BaseShuffleHandle(
+            shuffle_id=sid, num_maps=n_exec, partitioner=HashPartitioner(REDUCERS)))
+        sorter = MapShardSorter(dev)
+        map_s, split, staged, sorted_keys = _hp_map_phase(
+            torch, dev, sorter, ios, shards, edges, sid)
+        if not all(loc.block.has_device for loc in staged):
+            raise AssertionError("a staged block has no device coordinates")
+        report["map_s"], report["map_split"] = map_s, split
+        report["stage"] = {k: sum(io.metrics_snapshot()[k] for io in ios)
+                           for k in ("stage_copy_s", "stage_checksum_s",
+                                     "stage_arena_s", "stage_bytes")}
+        remote = sum(1 for loc in staged
+                     if loc.manager_id.executor_id != ids[loc.partition_id])
+
+        for name, run_knobs in (("b", {}),
+                                ("c", {"tpu.shuffle.deviceFetch.enabled": "false"})):
+            for k, v in run_knobs.items():
+                conf.set(k, v)
+            try:
+                c0, l0 = fetch_counts(), launches()
+                blobs = [] if name == "c" else None
+                cold, outs[f"{name}_cold"] = _hp_reduce_all(torch, dev, ios, sid, want,
+                                                           blocks=blobs)
+                warm, outs[f"{name}_warm"] = _hp_reduce_all(torch, dev, ios, sid)
+                c1 = fetch_counts()
+            finally:
+                for k in run_knobs:
+                    conf.set(k, "true")
+            run = {"knobs": run_knobs, "reduce_cold_s": cold, "reduce_warm_s": warm,
+                   "reduce_gbps_warm": sum(len(x) for x in shards) * 4 / warm / 1e9,
+                   "e2e_s": map_s + cold,
+                   "wave_launches": [x - y for x, y in zip(launches(), l0)],
+                   **{f"{k}_two_reduces": c1[k] - c0[k] for k in c0}}
+            report[name] = run
+            if name == "b":
+                if (run["collective.blocks_two_reduces"] != 2 * len(staged)
+                        or run["collective.degrades_two_reduces"]):
+                    raise AssertionError(f"(b) not every block rode a wave: {run}")
+            else:
+                if sum(run["wave_launches"]) or run["collective.blocks_two_reduces"]:
+                    raise AssertionError(f"(c) used the waves: {run}")
+                want_blobs = [sorted(k[b[r]:b[r + 1]].tobytes() for k, b in sorted_keys)
+                              for r in range(REDUCERS)]
+                if blobs != want_blobs:
+                    raise AssertionError("(c) a fetched block differs from the map's")
+                run["remote_blocks_two_reduces"] = 2 * remote
+                if native and (run["fast_path_two_reduces"] != 2 * remote
+                               or run["streamed_two_reduces"]
+                               or run["pool_gets_two_reduces"]):
+                    raise AssertionError(
+                        f"(c) not every remote block came by mapped delivery on the "
+                        f"same-host fast path without a pooled buffer: {run}")
+
+        # the map again on warm pools: unpublish returns the registered
+        # buffers and arena slabs, a second shuffle reuses them
+        for io in ios:
+            io.unpublish(sid)
+        driver.register_shuffle(BaseShuffleHandle(
+            shuffle_id=sid + 1, num_maps=n_exec, partitioner=HashPartitioner(REDUCERS)))
+        s0 = {k: sum(io.metrics_snapshot()[k] for io in ios)
+              for k in ("stage_copy_s", "stage_checksum_s", "stage_arena_s")}
+        warm_s, warm_split, _, _ = _hp_map_phase(torch, dev, sorter, ios, shards, edges,
+                                                 sid + 1)
+        report["map_warm_pools"] = {
+            "map_s": warm_s, "map_split": warm_split,
+            "stage": {k: sum(io.metrics_snapshot()[k] for io in ios) - v
+                      for k, v in s0.items()}}
+        if native:
+            report["sq"] = execs[0].node.sq_stats()
+    finally:
+        for io in ios:
+            io.stop()
+        for ex in execs:
+            ex.stop()
+        driver.stop()
+    return (report, outs) if keep else report
+
+
+def phase_native_plane(torch, dev, data):
+    """Phase 15: the native plane (``transport=native``: the C++ data
+    plane, the native arena, ``/dev/shm`` slabs and mapped delivery) on
+    the card's machine. (a) two native nodes and a python node, SEND
+    and READ every way; (b) phase 10 (b)'s 1 GiB TeraSort over native,
+    the wave-pull kernels launched; (c) its blocks again with
+    ``deviceFetch.enabled=false``, by mapped delivery; (d) phase 13 (a)
+    over native; (e) phase 14 (d) at a tenth over native, in 4 worker
+    processes. Every run asserts its nodes are ``NativeTpuNode``s.
+    Counts from 0 just before, read just after."""
+    from sparkrdma_tpu_torch.memory import buffer
+    from sparkrdma_tpu_torch.obs import get_registry
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+
+    reg = get_registry()
+    t0 = time.perf_counter()
+    report = {"facts": native_plane_facts()}
+    rc.reset_launch_counts()
+    report["a"] = native_round_trip()
+
+    # ---- (b) and (c): phase 10's TeraSort over native
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    b0 = buffer.backing_counts()
+    tera = native_terasort(torch, dev, data)
+    report["b_c"] = tera
+    report["b_c"]["backings"] = {k: v - b0[k] for k, v in buffer.backing_counts().items()}
+    report["b_c"]["peak_device_bytes_above_baseline"] = torch.cuda.max_memory_allocated() - base
+    p10 = _REPORTS.get(10)
+    if p10 is not None:
+        report["b_c"]["phase10_python_plane"] = {
+            "map_s": p10["b"]["map_s"], "map_split": p10["b"]["map_split"],
+            "stage": p10["b"]["stage"], "map_warm_pools": p10["b"]["map_warm_pools"],
+            "b_reduce_cold_warm_s": [p10["default"]["reduce_cold_s"],
+                                     p10["default"]["reduce_warm_s"]],
+            "c_reduce_cold_warm_s": [p10["c_device_fetch_off"]["reduce_cold_s"],
+                                     p10["c_device_fetch_off"]["reduce_warm_s"]],
+            "c_fetch_stats_two_reduces": p10["c_device_fetch_off"]["fetch_stats_two_reduces"]}
+    if report["b_c"]["backings"]["shm_fallback"]:
+        raise AssertionError(f"(b) slabs fell back to anonymous memory: "
+                             f"{report['b_c']['backings']}")
+    if tera["b"]["wave_launches"][1] <= 0:
+        raise AssertionError("(b) the pipelined wave-pull kernel never launched")
+
+    # ---- (d) phase 13 (a) over native
+    keys = np.random.default_rng(DP_SEED).integers(0, 1 << 32, DP_RECORDS, dtype=np.uint32)
+    want = _dp_expected(keys)
+    driver, execs = _dp_cluster("wrapper", "np-d", NATIVE_PLANE)
+    ids = [ex.executor_id for ex in execs]
+    try:
+        for ex in execs:
+            ex.start_node_if_missing()
+        nodes = {type(m.node).__name__ for m in [driver, *execs]}
+        if nodes != {"NativeTpuNode"}:
+            raise AssertionError(f"(d) the nodes are {nodes}")
+        f0 = [ex.node.read_path_stats() for ex in execs]
+        report["d"], _, _ = _dp_shuffle(driver, execs, 153, keys, want, "(d)")
+        for k in ("columnar_blocks", "view_decodes", "pickle_fallbacks"):
+            report["d"][k] = sum(reg.counter(f"block.{k}", role=i).value for i in ids)
+        report["d"]["read_path_stats"] = [
+            [x - y for x, y in zip(ex.node.read_path_stats(), f)] for ex, f in zip(execs, f0)]
+        if (report["d"]["columnar_blocks"] <= 0 or report["d"]["view_decodes"] <= 0
+                or report["d"]["pickle_fallbacks"]):
+            raise AssertionError(f"(d) did not negotiate columnar blocks: {report['d']}")
+    finally:
+        _dp_stop(driver, execs)
+    del keys, want
+
+    # ---- (e) phase 14 (d) at a tenth over native, in worker processes
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    report["e"] = _en_cluster_sort(EN_TENTH, NATIVE_PLANE, "(e)")
+
+    report["backings_total"] = buffer.backing_counts()
+    report["transport.sq"] = {
+        k: reg.counter(f"transport.sq.{k}").value
+        for k in ("submits", "batches", "completions", "backend_fallbacks")}
+    report["transport.sq"]["sqe_depth"] = reg.gauge("transport.sq.sqe_depth").value
+    counts = {"srt_wave_pull": rc.wave_pull_launches,
+              "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches}
+    emit(15, name="native_plane", launches=counts, seconds=time.perf_counter() - t0,
+         **report)
+    return counts
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkrdma_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository")
@@ -3676,11 +4081,12 @@ def main():
     spmd = phase_spmd_path(torch, dev)
     kernels.append(time_neighbor_pull(torch, dev))
     host_plane = phase_host_plane_path(torch, dev, data)
-    del data
     sp_training = phase_sp_training_path(torch, dev, step7_s)
     phase_spmd_models(torch, dev)
     phase_data_planes(torch, dev)
     phase_engine(torch, dev)
+    native_plane = phase_native_plane(torch, dev, data)
+    del data
     launches.update(training)
     for k, n in serving.items():
         launches[k] += n
@@ -3688,6 +4094,8 @@ def main():
     for k, n in host_plane.items():
         launches[k] += n
     for k, n in sp_training.items():
+        launches[k] += n
+    for k, n in native_plane.items():
         launches[k] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from sparkrdma_tpu_torch.obs import get_registry
-from sparkrdma_tpu_torch.tenancy import current_tenant
+from sparkrdma_tpu_torch.tenancy import current_tenant, tenant_scope
 from sparkrdma_tpu_torch.tenancy import quota as _quota
 from sparkrdma_tpu_torch.utils.torch_compat import resolve_device, torch_dtype
 
@@ -502,6 +502,43 @@ class DeviceBufferManager:
         finally:
             self._unpin(handle)
 
+    def ensure_device_all(self, bufs) -> None:
+        """Restore a working set to device memory without the set
+        victimizing itself. NOTE: protection ends when this returns:
+        consumers that touch ``.array`` directly should hold
+        ``pinned_on_device(bufs)`` across the access instead."""
+        with self.pinned_on_device(bufs):
+            pass
+
+    def prefetch(self, bufs) -> threading.Event:
+        """Start climbing ``bufs`` back toward the device on a
+        background thread, overlapping tier restores with whatever the
+        caller computes next. Returns an Event set when the pass
+        finishes (success or not). The climb uses the same pinned
+        restore as ``ensure_device_all`` (its slabs are allocated on
+        the arena's explicit device, so the thread needs no current
+        device); consumers still wrap their access in
+        ``pinned_on_device`` (a fast no-op once prefetched). Best
+        effort: under budget pressure later traffic may re-spill."""
+        bufs = list(bufs)
+        done = threading.Event()
+        # the climb re-spills victims and re-charges restores under the
+        # CALLER's tenant, so the background thread must re-enter its
+        # scope; otherwise the work bills the default tenant
+        tenant = current_tenant()
+
+        def run():
+            with tenant_scope(tenant):
+                try:
+                    self.ensure_device_all(bufs)
+                except Exception:
+                    logger.exception("device prefetch pass failed")
+                finally:
+                    done.set()
+
+        threading.Thread(target=run, daemon=True, name="hbm-prefetch").start()
+        return done
+
     def get(self, nbytes: int) -> DeviceBuffer:
         """Allocate (or reuse) a slab whose class covers ``nbytes``;
         under budget pressure LRU slabs spill to host first,
@@ -662,7 +699,10 @@ class DeviceBufferManager:
         along and the rest is zeroed. ``dtype`` types the staged bytes
         (e.g. uint32 keys a device merge consumes directly). The copy
         has finished reading the source when this returns, so callers
-        may recycle it."""
+        may recycle it. It must stay synchronous: mapped delivery
+        (``shuffle/device_io.py``) unmaps the page-cache window right
+        after this returns, so a ``non_blocking`` copy here would unmap
+        it under an in-flight transfer."""
         src = np.frombuffer(view, dtype=np.uint8)
         n = src.nbytes if valid_len is None else valid_len
         buf = self.get(n)

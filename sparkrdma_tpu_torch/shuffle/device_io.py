@@ -25,8 +25,11 @@ What differs:
   copy is a device-to-device copy of the same tensor; numpy arrays and
   CPU tensors take the host path of the JAX endpoint (one host copy,
   then a host-to-device copy into the arena);
-- mapped delivery is the native plane's (ROADMAP M4b), so every host
-  READ lands in a pooled registered buffer.
+- on the native plane (``transport=native``, or ``auto`` where g++
+  builds it) host READs take mapped delivery as in JAX: same-host blocks
+  stage straight from the peer's page-cache window with no pooled
+  registered buffer; on the python plane every host READ lands in a
+  pooled registered buffer.
 """
 
 from __future__ import annotations

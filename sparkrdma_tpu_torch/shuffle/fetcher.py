@@ -32,10 +32,9 @@ Analogue of RdmaShuffleFetcherIterator.scala (reference: RdmaShuffleFetcherItera
 A copy of the JAX package's ``shuffle/fetcher.py``, its imports
 rewritten to this package (the lock-order, model-checker and journal
 calls go to the inert seams of ``utils/seams.py``). The native plane's
-branches stay and go unreached on the python plane, until ROADMAP M4b:
-the read-completion ring drain (no port node has ``drain_read_ring``)
-and mapped delivery (``mapped_delivery_enabled`` is False on every port
-channel).
+branches run on ``NativeTpuNode``: the read-completion ring drain
+(``drain_read_ring``) and mapped delivery (``mapped_delivery_enabled``
+is True on a ``NativeTpuChannel`` with ``mappedFetch`` on).
 """
 
 from __future__ import annotations

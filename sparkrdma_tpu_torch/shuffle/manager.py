@@ -20,8 +20,9 @@ Semantics preserved (SURVEY.md §5.1):
 A copy of the JAX package's ``shuffle/manager.py``, cut only where
 another plane is missing from the port:
 
-- the node is the python transport's: the native plane comes with
-  ROADMAP item M4b (``transport/__init__.py``);
+- ``transport=native`` (and ``auto`` where g++ is present) never falls
+  back to the python plane: a failed build raises
+  (``transport/__init__.py``);
 - the driver's telemetry hub stays None until ROADMAP item M8, so
   ``partition_sizes`` reads the location registry (JAX's branch with
   telemetry off);

@@ -7,10 +7,10 @@ supports chunk recycling across flushes (:28-32), and converts one-shot
 into an immutable chunk list, freeing unused chunks (:81-100).
 
 A copy of the JAX package's ``shuffle/writer/chunked_buffer.py``, its imports
-rewritten to this package. Its chunks ask for ``arena=True``, the JAX
-package's native C++ arena; the port's ``memory/buffer.py`` has no arena
-yet (ROADMAP M4b) and maps every chunk anonymously, so ``free()`` is
-the mapping's, which refuses while a view is exported.
+rewritten to this package. Its chunks ask for ``arena=True``, the
+port's native C++ arena (``native/arena.cpp``), whose ``free()`` is
+unconditional; where g++ cannot build it, ``memory/buffer.py`` maps the
+chunk anonymously.
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@ device exchange plane (bucket sizes, mesh axes).
 
 A copy of the JAX package's ``utils/config.py``: the same keys, defaults
 and clamping, so one conf dict serves both packages. One getter differs:
-``transport`` resolves ``auto`` to ``python`` and refuses ``native``
-(the native plane is ROADMAP item M4b).
+``transport=auto`` raises where g++ is present but the native plane
+fails to build, where the JAX getter quietly picks ``python``.
 """
 
 from __future__ import annotations
@@ -759,22 +759,25 @@ class TpuShuffleConf:
     @property
     def transport(self) -> str:
         """Host transport data plane: ``auto`` (default), ``python`` or
-        ``native``. In the JAX package ``auto`` resolves to the native
-        C++ plane when its toolchain is available. The port has only the
-        python plane until ROADMAP item M4b ports the native one, so
-        ``auto`` resolves to ``python`` here, and an explicit ``native``
-        raises ``NotImplementedError`` instead of quietly running
-        another plane than the one asked for. Both packages' python
-        planes speak the same wire format and interoperate."""
+        ``native`` (C++ epoll loop, sparkrdma_tpu_torch/native/transport.cpp).
+        Both speak the same wire format and interoperate. ``auto``
+        resolves to native as in the JAX package: where g++ is present
+        (``transport_lib.toolchain_available()``), and then a failed
+        build raises ``NativeBuildError`` instead of hiding the breakage
+        behind the python plane; without g++, ``auto`` is ``python``.
+        ``transport=python`` is the escape hatch back to the pure-Python
+        plane."""
         raw = (self._conf.get(PREFIX + "transport", "auto") or "auto").lower()
         if raw not in ("python", "native", "auto"):
             raw = "auto"
-        if raw == "native":
-            raise NotImplementedError(
-                "tpu.shuffle.transport=native needs the native plane, which "
-                "the port brings with ROADMAP item M4b"
-            )
-        return "python"
+        if raw == "auto":
+            from sparkrdma_tpu_torch.native import transport_lib
+
+            if not transport_lib.toolchain_available():
+                return "python"
+            transport_lib.require()
+            return "native"
+        return raw
 
     @property
     def file_fastpath(self) -> bool:

@@ -443,3 +443,70 @@ def test_reduce_pipeline_drains_on_abort(how):
     snap = get_registry().snapshot(prefix="reader.pipeline")
     (gk,) = [k for k in snap["gauges"] if "inflight" in k and f"role={role}" in k]
     assert snap["gauges"][gk]["value"] == 0
+
+
+def test_two_tenant_fault_isolation(monkeypatch):
+    """The counterpart of tests/test_fault_injection.py's tenancy test on
+    the port's ``TpuContext``, pinned to the python plane (the seam is
+    the python channel's ``read_in_queue``): persistent READ faults
+    scoped to ONE tenant's tasks fail that tenant's job and open only
+    that tenant's breakers. A concurrent quiet tenant sharing the same
+    executors, pools and peers completes with plain Python's counts,
+    and none of its tenant-scoped breaker keys opens."""
+    from sparkrdma_tpu_torch import tenancy
+    from sparkrdma_tpu_torch.engine.context import TpuContext
+    from sparkrdma_tpu_torch.transport.channel import ChannelError, TpuChannel
+
+    state = {"injected": 0}
+    lock = threading.Lock()
+    original = TpuChannel.read_in_queue
+
+    def noisy_only(self, listener, dst_views, blocks):
+        # posted from a tenant-scoped thread (fair-share worker or the
+        # fetcher's re-scoped retry rung): the scope names the tenant
+        if tenancy.current_tenant() == "noisy":
+            with lock:
+                state["injected"] += 1
+            listener.on_failure(ChannelError("injected noisy-tenant fault"))
+            return
+        return original(self, listener, dst_views, blocks)
+
+    monkeypatch.setattr(TpuChannel, "read_in_queue", noisy_only)
+    conf = TpuShuffleConf({
+        "tpu.shuffle.transport": "python",
+        "tpu.shuffle.resilience.maxFetchAttempts": "2",
+        "tpu.shuffle.resilience.retryBackoffMs": "5",
+        "tpu.shuffle.resilience.retryBackoffMaxMs": "10",
+        "tpu.shuffle.resilience.circuitFailureThreshold": "2",
+        "tpu.shuffle.resilience.circuitOpenMs": "60000",
+    })
+    results, errors = {}, {}
+
+    with TpuContext(num_executors=2, conf=conf, task_threads=4) as ctx:
+        def job(tenant, n, mod):
+            try:
+                rdd = (ctx.parallelize(range(n), 4)
+                       .map(lambda x: (x % mod, 1))
+                       .reduce_by_key(lambda a, b: a + b, num_partitions=4))
+                results[tenant] = dict(ctx.run_job(rdd, tenant=tenant))
+            except Exception as e:  # noqa: BLE001 — inspected below
+                errors[tenant] = e
+
+        threads = [threading.Thread(target=job, args=("noisy", 1200, 5)),
+                   threading.Thread(target=job, args=("quiet", 2000, 9))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert all(type(m.node).__name__ == "TpuNode" for m in ctx.executors)
+        assert isinstance(errors.get("noisy"), ShuffleError), errors
+        assert state["injected"] >= 2
+        assert "quiet" not in errors, errors.get("quiet")
+        assert results["quiet"] == {k: len(range(k, 2000, 9)) for k in range(9)}
+        states = {}
+        for mgr in ctx.executors:
+            states.update(mgr.health.states())
+        assert any(k.startswith("noisy:") and v == "open" for k, v in states.items()), states
+        for key, st in states.items():
+            if key.startswith("quiet:") or ":" not in key:
+                assert st == "closed", f"fault bled across tenants: breaker {key} is {st}"

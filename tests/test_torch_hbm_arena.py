@@ -138,3 +138,51 @@ def test_put_at_keeps_the_given_handle():
     assert t.get(100).handle == 8
     with pytest.raises(ValueError):
         t.put_at(7, torch.zeros(4), 16)
+
+
+def test_ensure_device_all_and_prefetch_match_jax(tmp_path):
+    """Under a two-slab ``hbm.maxBytes`` (and a one-slab host tier, so
+    spills cascade to disk), ``prefetch`` climbs a spilled set back on
+    a background thread and ``ensure_device_all`` restores another, in
+    both arenas: the same residency, spill counts, budget and bytes
+    after each step. The prefetch thread runs under the caller's
+    tenant."""
+    from sparkrdma_tpu_torch.tenancy import current_tenant, tenant_scope
+
+    kw = dict(max_bytes=2 * tarena.MIN_BLOCK_SIZE,
+              max_host_bytes=tarena.MIN_BLOCK_SIZE)
+    for sub in ("j", "t"):
+        (tmp_path / sub).mkdir()
+    j = jarena.DeviceBufferManager(spill_dir=str(tmp_path / "j"), **kw)
+    t = tarena.DeviceBufferManager(device="cpu", spill_dir=str(tmp_path / "t"), **kw)
+    payload = [bytes([i + 1]) * (200 + 31 * i) for i in range(5)]
+    seen = {}
+    for arena in (j, t):
+        bufs = [arena.stage_bytes(p) for p in payload]
+        state = [[b.spilled for b in bufs]]
+        done = arena.prefetch(bufs[:2])
+        assert done.wait(30)
+        state.append([b.spilled for b in bufs])
+        arena.ensure_device_all(bufs[2:4])
+        state.append([b.spilled for b in bufs])
+        with arena.pinned_on_device(bufs[:2]):
+            data = [b.read(0, len(p)) for b, p in zip(bufs[:2], payload)]
+        data += [b.read(0, len(p)) for b, p in zip(bufs[2:], payload[2:])]
+        seen[arena is t] = (state, arena.spill_count, arena.disk_spill_count,
+                            arena.in_use_bytes, data)
+        for b in bufs:
+            b.free()
+        assert arena.in_use_bytes == 0
+        arena.stop()
+    assert seen[True] == seen[False]
+    state = seen[True][0]
+    assert any(state[0][:2]) and not any(state[1][:2]) and not any(state[2][2:4])
+    assert seen[True][4] == payload
+
+    tenants = []
+    arena = tarena.DeviceBufferManager(device="cpu", **kw)
+    arena.ensure_device_all = lambda bufs: tenants.append(current_tenant())
+    with tenant_scope("alice"):
+        assert arena.prefetch([]).wait(30)
+    assert tenants == ["alice"]
+    arena.stop()

@@ -48,8 +48,9 @@ def test_importing_every_port_module_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     # every module of the port: a subpackage that fails to import
     # would drop its modules from the walk
-    assert len(res["imported"]) >= 94
+    assert len(res["imported"]) >= 98
     assert set(ENGINE_MODULES) <= set(res["imported"])
+    assert set(NATIVE_MODULES) <= set(res["imported"])
     assert res["bad"] == []
 
 
@@ -89,6 +90,37 @@ def test_engine_modules_alone_load_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+NATIVE_MODULES = [
+    "sparkrdma_tpu_torch.native",
+    "sparkrdma_tpu_torch.native.transport_lib",
+    "sparkrdma_tpu_torch.native.arena",
+    "sparkrdma_tpu_torch.transport.native_node",
+]
+
+
+def test_native_modules_alone_load_no_jax_and_build_nothing():
+    """The native plane's modules, imported first in a fresh
+    interpreter, load neither jax nor the JAX package, and importing
+    them builds and loads no library (that happens at first use)."""
+    script = (
+        "import importlib, json, sys\n"
+        f"names = {NATIVE_MODULES!r}\n"
+        "for n in names: importlib.import_module(n)\n"
+        "from sparkrdma_tpu_torch.native import arena, transport_lib as tl\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'sparkrdma_tpu' or m.startswith('sparkrdma_tpu.'))\n"
+        "print(json.dumps([bad, tl.LIBRARY.lib is None and arena.LIBRARY.lib is None,"
+        " tl.build_seconds]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], True, {}]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
