@@ -220,6 +220,33 @@ exits nonzero and prints no result. Phases, each one JSON line:
    native with its checks; (e) phase 14 (d) at a tenth over native, each
    of the 4 workers running a ``NativeTpuNode`` without CUDA. Phases 10,
    13 and 14 run the python plane;
+16. ``operations_planes``: the telemetry and journal plane on the card's
+   host, the card's name and power limit beside it. Phases 10 and 13-15
+   run with the driver's ``TelemetryHub`` on (``obs.telemetry.enabled``,
+   the default), and phase 14 (b) reports what the hub held after its
+   job. (a) The hub alone: 600 synthetic heartbeats from each of 8
+   executors, one of them 20 times busier, through
+   ``TelemetryHub.ingest`` with the SLO engine and the capacity plane
+   on: microseconds per ingest (p50, p99), only the outlier flagged; the
+   OpenMetrics render of the process registry (ms, bytes); a
+   10,000-event journal from 8 processes merged through ``JournalHub``
+   as heartbeats ship it (each beat re-ships the last): microseconds per
+   event, the merge in ``sort_key`` order without duplicates or gaps.
+   (b) Phase 14 (b)'s job with ``obs.telemetry.enabled=false`` beside
+   phase 14 (b)'s wall with the hub on (the difference is the hub's
+   cost; at a tenth, printed, if phase 14 (b) took over 45 s): both
+   outputs ``np.sort`` of the keys, both executors in phase 14 (b)'s
+   hub, no missed heartbeat. (c) ``ClusterContext``'s 4 workers at phase
+   14 (d)'s shape at a tenth, each worker's first READ failing once
+   under a one-failure breaker: the poll loop builds a series for every
+   worker, the workers' circuit events reach the driver's merged
+   journal, and rounds of the poll loop's request are timed. (d) Phase
+   10 (b)'s default run (1 GiB, a driver and 8 executors, python plane)
+   reduced twice, as phase 10 (b) ran (no engine breakdown published):
+   the ``autotune.adjust`` events equal the tuners' adjustment counters,
+   the wave launches phase 10 (b)'s, every reducer ``np.sort`` of its
+   range; the breakdown gate's verdict on the last engine job's
+   breakdown is printed;
 
 Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, where one
@@ -3397,13 +3424,39 @@ def _en_sort(ctx, data):
     return ctx.parallelize(data, EN_PARTS).sort_by_key(num_partitions=EN_PARTS)
 
 
-def _en_terasort(keys):
-    """(b) bench_engine_terasort's job through ``TpuContext``."""
+def _en_hub_view(ctx, since_ms):
+    """What the driver's telemetry hub holds after a job, one beat from
+    every executor flushed in first: executors and windows, missed
+    heartbeats, stragglers, SLO pages and warns, and the journal events
+    from ``since_ms`` on (the process journal also holds earlier
+    phases' events)."""
+    hub = ctx.driver.telemetry
+    ctx.telemetry_flush()
+    summary = hub.summary()
+    slo = hub.slo.summary()
+    merged = hub.journal.merged(since_wall_ms=since_ms)
+    kinds = {}
+    for e in merged:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    severities = [b["severity"] for b in slo["breach_records"]]
+    return {"executors": {e: v["windows"] for e, v in summary["executors"].items()},
+            "missed_heartbeats": summary["missed_heartbeats"],
+            "stragglers": summary["stragglers"],
+            "slo_pages": severities.count("page"), "slo_warns": severities.count("warn"),
+            "slo_diagnoses": slo["diagnosis_count"], "slo_evaluations": slo["evaluations"],
+            "journal_events": len(merged), "journal_kinds": kinds}
+
+
+def _en_terasort(keys, knobs=None):
+    """(b) bench_engine_terasort's job through ``TpuContext``; with the
+    telemetry hub on (the default), what the hub holds after it."""
     from sparkrdma_tpu_torch.obs import get_registry
 
     reg = get_registry()
     before = reg.snapshot(prefix="engine.")
-    with _en_ctx() as ctx:
+    hub = None
+    since_ms = int(time.time() * 1000)
+    with _en_ctx(knobs) as ctx:
         t = time.perf_counter()
         data = [(int(k), EN_PAYLOAD) for k in keys]
         data_s = time.perf_counter() - t
@@ -3411,6 +3464,11 @@ def _en_terasort(keys):
         out = ctx.run_job(_en_sort(ctx, data))
         wall = time.perf_counter() - t
         bd = ctx.last_breakdown
+        execs = sorted(ex.executor_id for ex in ctx.executors)
+        if ctx.driver.telemetry is not None:
+            hub = _en_hub_view(ctx, since_ms)
+    if hub is not None and (sorted(hub["executors"]) != execs or hub["missed_heartbeats"]):
+        raise AssertionError(f"(b) the hub holds {hub}, the executors are {execs}")
     if bd is None:
         raise AssertionError("(b) the job left no breakdown")
     _en_check_sorted(out, keys, "(b)")
@@ -3425,7 +3483,8 @@ def _en_terasort(keys):
             "breakdown": {"wall_ms": bdd["wall_ms"], "coverage": bdd["coverage"],
                           "categories_ms": bdd["categories_ms"],
                           "gap_frames": dict(list(bdd.get("gap_frames", {}).items())[:5])},
-            "stage_recomputes": recomputes, "task_ms": _en_task_ms(delta["histograms"])}
+            "stage_recomputes": recomputes, "task_ms": _en_task_ms(delta["histograms"]),
+            "telemetry_hub": hub}
 
 
 def _en_faults(keys):
@@ -3718,6 +3777,7 @@ def phase_engine(torch, dev):
     if launched:
         raise AssertionError(f"the engine launched kernels: {launched}")
     emit(14, name="engine", launches={}, seconds=time.perf_counter() - t0, **report)
+    _REPORTS[14] = report
 
 
 # ----------------------------------------------------------------------
@@ -4050,6 +4110,345 @@ def phase_native_plane(torch, dev, data):
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase 16: the operations planes (telemetry hub, SLO, capacity, journal)
+# ----------------------------------------------------------------------
+OBS_EXECUTORS = 8
+OBS_BEATS = 600  # heartbeats from each executor into the hub alone
+OBS_OUTLIER = 5  # obs-exec-5's map tasks run 20 times longer
+OBS_SEED = 16
+OBS_JOURNAL_EVENTS = 10_000
+OBS_JOURNAL_BATCH = 16  # events a heartbeat ships, besides the last beat's again
+OBS_DEADLINE_S = 20.0
+# (c): one transient READ fault in each worker under a one-failure
+# breaker: the circuit opens, the retry's half-open trial closes it, and
+# the workers' circuit events ride their heartbeats to the driver
+OBS_CLUSTER_KNOBS = {
+    "tpu.shuffle.faultPlan": "read:fail:1",
+    "tpu.shuffle.resilience.circuitFailureThreshold": "1",
+    "tpu.shuffle.resilience.circuitOpenMs": "1",
+    "tpu.shuffle.resilience.retryBackoffMs": "5",
+}
+OBS_PULL_ROUNDS = 5
+# (b) runs at a tenth when phase 14 (b)'s job took longer than this
+OBS_B_BUDGET_S = 45.0
+
+
+def _obs_beat(rng, seq):
+    """One synthetic heartbeat from every executor at beat ``seq``: the
+    payloads ``Heartbeater.beat`` ships (map-task latencies with their
+    buckets, read and write bytes, an in-flight gauge)."""
+    out = []
+    for i in range(OBS_EXECUTORS):
+        eid = f"obs-exec-{i}"
+        n = int(rng.integers(8, 12))
+        task_ms = float(rng.uniform(90.0, 110.0)) * (20.0 if i == OBS_OUTLIER else 1.0)
+        slow = i == OBS_OUTLIER
+        out.append({
+            "v": 1, "executor_id": eid, "seq": seq,
+            "wall_ms": 1_000_000 + seq * 1000 + int(rng.integers(0, 50)),
+            "interval_ms": 1000, "epoch_ms": 940_000,
+            "counters": {f"transport.read_bytes{{role={eid}}}": int(rng.integers(60 << 20, 70 << 20)),
+                         f"writer.bytes_written{{role={eid}}}": int(rng.integers(60 << 20, 70 << 20))},
+            "gauges": {f"reader.inflight_bytes{{role={eid}}}":
+                       {"value": int(rng.integers(0, 1 << 24)), "hwm": 1 << 24}},
+            "histograms": {f"engine.task_ms{{kind=map,role={eid},tenant=default}}": {
+                "count": n, "sum": task_ms * n,
+                "buckets": {"le_250": 0 if slow else n, "le_2500": n if slow else 0,
+                            "overflow": 0}}},
+        })
+    return out
+
+
+def _obs_hub_alone():
+    """(a) The driver's hub alone: ``OBS_BEATS`` synthetic beats from each
+    of 8 executors (one busy outlier) through ``TelemetryHub.ingest``
+    with the SLO engine and the capacity plane on, on the process
+    registry, under a clock that follows the beats; then the OpenMetrics
+    render of that registry; then a 10,000-event journal from 8
+    processes merged through ``JournalHub`` as heartbeats ship it (each
+    beat re-ships the previous beat's batch)."""
+    from sparkrdma_tpu_torch.obs import journal as _journal
+    from sparkrdma_tpu_torch.obs.metrics import MetricsRegistry
+    from sparkrdma_tpu_torch.obs.telemetry import TelemetryHub
+    from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+
+    rng = np.random.default_rng(OBS_SEED)
+    now = [1_000.0]
+    hub = TelemetryHub(TpuShuffleConf(), role="obs-hub", clock=lambda: now[0])
+    ingest_ns = []
+    try:
+        for seq in range(1, OBS_BEATS + 1):
+            for p in _obs_beat(rng, seq):
+                now[0] = p["wall_ms"] / 1000.0
+                t = time.perf_counter_ns()
+                hub.ingest(p)
+                ingest_ns.append(time.perf_counter_ns() - t)
+        report = hub.straggler_report()
+        summary = hub.summary()
+        slo = hub.slo.summary()
+        t = time.perf_counter()
+        text = hub.render_openmetrics()
+        render_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        hub.stop()
+    us = np.asarray(ingest_ns, np.float64) / 1e3
+    out = {"executors": OBS_EXECUTORS, "beats_each": OBS_BEATS, "ingests": len(us),
+           "ingest_us_p50": float(np.percentile(us, 50)),
+           "ingest_us_p99": float(np.percentile(us, 99)),
+           "ingest_us_mean": float(us.mean()),
+           "windows_each": sorted({v["windows"] for v in summary["executors"].values()}),
+           "stragglers": report["stragglers"], "missed_heartbeats": summary["missed_heartbeats"],
+           "slo_evaluations": slo["evaluations"], "slo_breaches": slo["breach_count"],
+           "capacity_evaluations": summary["capacity"]["evaluations"],
+           "openmetrics_render_ms": render_ms, "openmetrics_bytes": len(text.encode()),
+           "openmetrics_lines": text.count("\n")}
+    if report["stragglers"] != [f"obs-exec-{OBS_OUTLIER}"]:
+        raise AssertionError(f"(a) flagged {report['stragglers']}, not obs-exec-{OBS_OUTLIER}")
+
+    # the journal merge
+    reg = MetricsRegistry()
+    per = OBS_JOURNAL_EVENTS // OBS_EXECUTORS
+    kinds = ("circuit.open", "quota.block", "autotune.adjust", "straggler.flag")
+    clocks = [[2_000.0] for _ in range(OBS_EXECUTORS)]
+    journals = [_journal.EventJournal(f"obs-exec-{i}", origin=f"obs-proc-{i}",
+                                      ring_size=2 * per, registry=reg,
+                                      clock=lambda c=clocks[i]: c[0])
+                for i in range(OBS_EXECUTORS)]
+    for k in range(per):
+        for i, j in enumerate(journals):
+            clocks[i][0] += float(rng.integers(0, 3)) / 1000.0
+            j.emit(kinds[(k + i) % len(kinds)], executor=f"obs-exec-{(k + i) % 8}", beat=k)
+    beats = []
+    for j in journals:
+        events, prev = j.events(), []
+        for lo in range(0, len(events), OBS_JOURNAL_BATCH):
+            fresh = events[lo:lo + OBS_JOURNAL_BATCH]
+            beats.append(prev + fresh)
+            prev = fresh
+    jhub = _journal.JournalHub(reg, role="obs-hub", ring_size=2 * OBS_JOURNAL_EVENTS)
+    t = time.perf_counter()
+    for b in beats:
+        jhub.ingest(b)
+    merge_s = time.perf_counter() - t
+    merged = [e for e in jhub.merged() if e["origin"].startswith("obs-proc-")]
+    keys = [_journal.sort_key(e) for e in merged]
+    jsum = jhub.summary()
+    out["journal"] = {"events": len(merged), "shipped": sum(len(b) for b in beats),
+                      "beats": len(beats), "merge_s": merge_s,
+                      "us_per_event": merge_s * 1e6 / OBS_JOURNAL_EVENTS,
+                      "duplicates": jsum["duplicates"], "gaps": jsum["gaps"]}
+    if (len(merged) != OBS_JOURNAL_EVENTS or keys != sorted(keys)
+            or len(set(keys)) != len(keys) or jsum["gaps"]):
+        raise AssertionError(f"(a) the merged journal: {out['journal']}")
+    return out
+
+
+def _obs_cluster(n):
+    """(c) ``ClusterContext``'s 4 workers at phase 14 (d)'s shape, each
+    worker's first READ failing once (``OBS_CLUSTER_KNOBS``): the poll
+    loop must build a series for every worker and carry the workers'
+    circuit events into the driver's merged journal. Then rounds of the
+    poll loop's request to every worker, timed."""
+    from sparkrdma_tpu_torch.testing import faults
+
+    try:
+        cc, startup = _en_cluster(OBS_CLUSTER_KNOBS)
+        try:
+            parts, keys, wall = _en_cluster_job(cc, n)
+            hub = cc.driver.telemetry
+            ids = sorted(w.executor_id for w in cc.workers)
+            t = time.perf_counter()
+            deadline = t + OBS_DEADLINE_S
+            while True:
+                events = [e for e in hub.journal.merged() if e.get("role") in ids]
+                have = hub.executors()
+                if (have == ids and all(len(hub.series(e)) for e in ids) and events) \
+                        or time.perf_counter() > deadline:
+                    break
+                time.sleep(0.05)
+            waited = time.perf_counter() - t
+            pull_ms = []
+            for _ in range(OBS_PULL_ROUNDS):
+                t = time.perf_counter()
+                for w in cc.workers:
+                    for p in w.request({"kind": "telemetry"}, timeout_s=10.0) or []:
+                        hub.ingest(p)
+                pull_ms.append((time.perf_counter() - t) * 1e3)
+            summary = hub.summary()
+            poll = cc._telemetry_thread
+        finally:
+            cc.stop()
+    finally:
+        faults.uninstall()
+    _en_check_ranges(parts, keys, "(c)")
+    kinds = {}
+    for e in events:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    out = {"records": len(keys), "knobs": OBS_CLUSTER_KNOBS, "startup_s": startup,
+           "job_s": wall, "waited_s": waited,
+           "windows": {e: v["windows"] for e, v in summary["executors"].items()},
+           "worker_events": kinds,
+           "worker_event_roles": sorted({e["role"] for e in events}),
+           "pull_round_ms": pull_ms, "pull_round_ms_p50": float(np.median(pull_ms)),
+           "poll_thread_joined": poll is not None and not poll.is_alive()}
+    if have != ids or not all(out["windows"].get(e) for e in ids):
+        raise AssertionError(f"(c) the poll loop built series for {out['windows']}, not {ids}")
+    if not events:
+        raise AssertionError("(c) no worker event reached the driver's merged journal")
+    if not out["poll_thread_joined"]:
+        raise AssertionError("(c) stop() did not join the poll loop")
+    return out
+
+
+def _obs_wave_pulls(torch, dev, data):
+    """(d) Phase 10 (b)'s default run under the hub: the 1 GiB keys
+    through a driver and 8 executors (python plane, default knobs), the
+    stage reduced twice so the wave tuner sees one shape twice. It runs
+    as phase 10 (b) ran, before any engine job had published a
+    breakdown; the breakdown gate's verdict on the last engine job's
+    breakdown is read after. The journal's ``autotune.adjust`` events of
+    these executors must equal their tuners' adjustment counters, the
+    wave launches phase 10 (b)'s, every reducer ``np.sort`` of its
+    range."""
+    from sparkrdma_tpu_torch.models.terasort import MapShardSorter
+    from sparkrdma_tpu_torch.obs import attr, get_registry
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+    from sparkrdma_tpu_torch.shuffle.autotune import WaveAutoTuner
+    from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
+    from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
+    from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
+    from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+
+    shards, edges, want = data
+    reg = get_registry()
+    sid = 16
+    conf = TpuShuffleConf({**PY_PLANE, **HOST_PLANE_KNOBS})
+    ids = [f"obs-{e}" for e in range(EXECUTORS)]
+    engine_bd = attr.last_breakdown()
+    attr.publish_breakdown(None)
+    driver = TpuShuffleManager(conf, is_driver=True)
+    execs = [TpuShuffleManager(conf, is_driver=False, executor_id=i) for i in ids]
+    ios = [DeviceShuffleIO(ex, device=dev) for ex in execs]
+    try:
+        if driver.telemetry is None:
+            raise AssertionError("(d) the driver built no telemetry hub")
+        driver.register_shuffle(BaseShuffleHandle(
+            shuffle_id=sid, num_maps=EXECUTORS, partitioner=HashPartitioner(REDUCERS)))
+        sorter = MapShardSorter(dev)
+        map_s, _, _, _ = _hp_map_phase(torch, dev, sorter, ios, shards, edges, sid)
+        adj0 = sum(reg.counter("collective.autotune_adjustments", role=i).value for i in ids)
+        l0 = (rc.wave_pull_launches, rc.pipelined_wave_pull_launches)
+        cold = _hp_reduce_all(torch, dev, ios, sid, want)[0]
+        warm = _hp_reduce_all(torch, dev, ios, sid, want)[0]
+        launches = [rc.wave_pull_launches - l0[0], rc.pipelined_wave_pull_launches - l0[1]]
+        adjusts = sum(reg.counter("collective.autotune_adjustments", role=i).value
+                      for i in ids) - adj0
+        events = driver.telemetry.journal.merged(kinds=["autotune.adjust"])
+        events = [e for e in events if e.get("role") in ids]
+        hub_summary = driver.telemetry.summary()
+    finally:
+        attr.publish_breakdown(engine_bd)
+        for io in ios:
+            io.stop()
+        for ex in execs:
+            ex.stop()
+        driver.stop()
+    gate = {"engine_breakdown": engine_bd is not None}
+    if engine_bd is not None:
+        fraction, transfer = attr.dma_wave_signal(engine_bd)
+        gate.update(dma_wave_fraction=fraction, transfer_gap_frames=transfer,
+                    allows=WaveAutoTuner(conf, "obs-gate")._breakdown_allows())
+    p10 = _REPORTS.get(10, {}).get("default", {}).get("wave_launches")
+    out = {"keys": KEYS, "executors": EXECUTORS, "map_s": map_s, "reduce_cold_s": cold,
+           "reduce_warm_s": warm, "wave_launches": launches,
+           "phase10_default_wave_launches": p10,
+           "autotune_adjust_events": len(events), "autotune_adjustments": adjusts,
+           "events": [{"role": e["role"], **e.get("attrs", {})} for e in events],
+           "gate_on_last_engine_breakdown": gate,
+           "hub_journal": hub_summary["journal"]}
+    if len(events) != adjusts:
+        raise AssertionError(f"(d) {len(events)} autotune.adjust events for {adjusts} "
+                             "adjustments")
+    if p10 is not None and launches != p10:
+        raise AssertionError(f"(d) wave launches {launches}, phase 10 (b)'s {p10}")
+    if launches[1] <= 0:
+        raise AssertionError("(d) the pipelined wave-pull kernel never launched")
+    return out
+
+
+def phase_operations_planes(torch, dev, data):
+    """Phase 16: the telemetry and journal plane on the card's host. (a)
+    the hub alone on synthetic heartbeats and a 10,000-event journal
+    merge; (b) phase 14 (b)'s job once with ``obs.telemetry.enabled=false``
+    beside phase 14 (b)'s run with the hub on, and what the hub held
+    then; (c) ``ClusterContext``'s poll loop and the workers' journals;
+    (d) phase 10 (b)'s wave pulls under the hub, the tuner's journal
+    events against its counters."""
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    rc.reset_launch_counts()
+    pa.reset_launch_counts()
+    report = {"card": smi}
+    t = time.perf_counter()
+    report["a"] = _obs_hub_alone()
+    report["a"]["seconds"] = time.perf_counter() - t
+
+    # ---- (b) the engine job with the hub off, beside phase 14 (b)'s
+    p14 = _REPORTS.get(14, {}).get("b")
+    n = EN_RECORDS
+    if p14 is not None and p14["wall_s"] > OBS_B_BUDGET_S:
+        n = EN_TENTH
+    keys = np.random.default_rng(EN_SEED).integers(0, 1 << 32, n, dtype=np.uint64)
+    t = time.perf_counter()
+    off = _en_terasort(keys, {"tpu.shuffle.obs.telemetry.enabled": "false"})
+    del keys
+    report["b"] = {"records": n, "cut": None if n == EN_RECORDS else
+                   f"a tenth: phase 14 (b) took {p14['wall_s']:.1f} s",
+                   "hub_off_wall_s": off["wall_s"], "hub_off_records_per_s": off["records_per_s"],
+                   "hub_off_telemetry": off["telemetry_hub"],
+                   "seconds": time.perf_counter() - t}
+    if p14 is not None:
+        on = p14["telemetry_hub"]
+        report["b"].update(
+            phase14_hub_on_wall_s=p14["wall_s"],
+            hub_cost_s=p14["wall_s"] - off["wall_s"] if n == EN_RECORDS else None,
+            phase14_hub=on)
+        if on is None or len(on["executors"]) != EN_EXECUTORS or on["missed_heartbeats"]:
+            raise AssertionError(f"(b) phase 14 (b)'s hub: {on}")
+    if off["telemetry_hub"] is not None:
+        raise AssertionError("(b) the hub ran with obs.telemetry.enabled=false")
+
+    # ---- (c) the cluster's poll loop and the workers' journals
+    t = time.perf_counter()
+    report["c"] = _obs_cluster(EN_TENTH)
+    report["c"]["seconds"] = time.perf_counter() - t
+
+    # ---- (d) phase 10 (b)'s wave pulls under the hub
+    rc.reset_launch_counts()
+    pa.reset_launch_counts()
+    t = time.perf_counter()
+    report["d"] = _obs_wave_pulls(torch, dev, data)
+    report["d"]["seconds"] = time.perf_counter() - t
+    launched = {k: v for k, v in _all_counts(rc, pa).items()
+                if v and k not in ("srt_wave_pull", "srt_pipelined_wave_pull")}
+    if launched:
+        raise AssertionError(f"phase 16 launched other kernels: {launched}")
+    counts = {"srt_wave_pull": rc.wave_pull_launches,
+              "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches}
+    emit(16, name="operations_planes", launches=counts, seconds=time.perf_counter() - t0,
+         **report)
+    return counts
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkrdma_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository")
@@ -4086,6 +4485,7 @@ def main():
     phase_data_planes(torch, dev)
     phase_engine(torch, dev)
     native_plane = phase_native_plane(torch, dev, data)
+    operations = phase_operations_planes(torch, dev, data)
     del data
     launches.update(training)
     for k, n in serving.items():
@@ -4096,6 +4496,8 @@ def main():
     for k, n in sp_training.items():
         launches[k] += n
     for k, n in native_plane.items():
+        launches[k] += n
+    for k, n in operations.items():
         launches[k] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -25,10 +25,10 @@ Everything here runs on the driver: the monitor loop borrows the
 calling thread, attempts ride the cluster's task pool.
 
 A copy of the JAX package's ``elastic/speculation.py``, its imports
-rewritten to this package (the model checker's schedule points and the
-journal go to the inert seams of ``utils/seams.py``). Until the
-telemetry hub comes with ROADMAP item M8 the suspects are the health
-registry's alone.
+rewritten to this package (the model checker's schedule points go to
+the inert seam of ``utils/seams.py``; journal events to
+``obs/journal.py``). The suspects are the health registry's, which the
+driver's telemetry hub feeds with its straggler report.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 from sparkrdma_tpu_torch.utils.seams import schedule_point
 from sparkrdma_tpu_torch.obs import get_registry
-from sparkrdma_tpu_torch.utils.seams import journal_emit
+from sparkrdma_tpu_torch.obs.journal import emit as journal_emit
 
 logger = logging.getLogger(__name__)
 

@@ -25,11 +25,13 @@ A copy of the JAX package's ``engine/cluster.py``, its imports rewritten
 to this package: it spawns this package's worker (``python -m
 sparkrdma_tpu_torch.engine.worker``), so the children need this package
 on their ``sys.path`` (the driver's working directory, or
-``PYTHONPATH``). The driver's telemetry hub is None until ROADMAP item
-M8, so no telemetry poll runs. The ``driver:kill`` rig waits for the
-finished maps' publishes before it wipes the hub, as ``TpuContext``'s
-does (``engine/context.py`` ``await_published_maps``; the JAX rig lacks
-the wait).
+``PYTHONPATH``). With ``obs.telemetry.enabled`` (the default) a poll
+thread drains each worker's heartbeat outbox into the driver's
+``TelemetryHub``; the driver's breakdown covers the driver's own spans,
+as in JAX. The ``driver:kill`` rig waits for the finished maps'
+publishes before it wipes the hub, as ``TpuContext``'s does
+(``engine/context.py`` ``await_published_maps``; the JAX rig lacks the
+wait).
 """
 
 from __future__ import annotations

@@ -10,12 +10,13 @@ RdmaShuffleFetcherIterator.scala:381-391).
 
 A copy of the JAX package's ``engine/context.py``, its imports
 rewritten to this package. The engine does no tensor work and touches
-no device. The driver's telemetry hub is None in the port until ROADMAP
-item M8 (``shuffle/manager.py``), so no heartbeater starts here and
-``telemetry_flush`` does nothing; attribution (``last_breakdown``) and
-the process profiler run as in JAX. One fix the JAX module lacks: the
-``driver:kill`` rig waits for the finished maps' publishes before it
-wipes the hub (:func:`await_published_maps`), where the JAX rig can
+no device. With ``obs.telemetry.enabled`` (the default) the driver's
+``TelemetryHub`` runs (``shuffle/manager.py``): each executor's
+heartbeater sends into it, failures leave a flight record, and the
+breakdown and SLO summary reach it; attribution (``last_breakdown``)
+and the process profiler run as in JAX. One fix the JAX module lacks:
+the ``driver:kill`` rig waits for the finished maps' publishes before
+it wipes the hub (:func:`await_published_maps`), where the JAX rig can
 count a map twice and lose another's records.
 """
 

@@ -26,10 +26,11 @@ seam of ``utils/seams.py``). Run as ``python -m
 sparkrdma_tpu_torch.engine.worker``; ``engine/cluster.py`` spawns it, so
 the child must find this package on its ``sys.path`` (the driver's
 working directory, or ``PYTHONPATH``). The worker does no tensor work:
-it never initialises CUDA. Cut where a plane is missing from the port:
-the event journal is not armed (ROADMAP M8), and the shuffle-service
-``handoff`` request raises ``NotImplementedError`` (``elastic/service.py``,
-ROADMAP M8).
+it never initialises CUDA. With telemetry on it arms the process event
+journal (``obs/journal.py``) before its heartbeater starts, so its
+events ride the beats the driver pulls. Cut where a plane is missing
+from the port: the shuffle-service ``handoff`` request raises
+``NotImplementedError`` (``elastic/service.py``, ROADMAP M8b).
 """
 
 from __future__ import annotations
@@ -96,9 +97,12 @@ class Worker:
         # on a timer; the driver pulls them with {"kind": "telemetry"}
         self.heartbeater = None
         if conf.telemetry_enabled:
-            # (the JAX worker arms the process event journal here; the
-            # port's journal is the inert seam until ROADMAP M8, and the
-            # beats resolve it per beat through utils/seams.py)
+            # arm the process event journal: this worker's control-plane
+            # transitions (circuit trips, quota blocks) ride the
+            # heartbeat payloads below into the driver's merged journal
+            from sparkrdma_tpu_torch.obs import journal as _journal
+
+            _journal.configure(conf, role=executor_id)
             self.heartbeater = Heartbeater(
                 get_registry(),
                 executor_id,
@@ -300,7 +304,7 @@ class Worker:
             # hard-links and re-mmaps the same inodes
             raise NotImplementedError(
                 "the shuffle-service handoff needs elastic/service.py, "
-                "which the port brings with ROADMAP item M8"
+                "which the port brings with ROADMAP item M8b"
             )
         if kind == "telemetry":
             # control-plane pull: hand buffered heartbeats to the driver

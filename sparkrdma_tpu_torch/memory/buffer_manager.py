@@ -13,8 +13,8 @@ TPU-native analogue of RdmaBufferManager.java (reference: RdmaBufferManager.java
 - ``stop`` prints per-size allocation statistics (:131-141).
 
 A copy of the JAX package's ``memory/buffer_manager.py``, its imports
-rewritten to this package (the lock-order, model-checker and journal
-calls go to the inert seams of ``utils/seams.py``).
+rewritten to this package (the lock-order and model-checker calls go to the
+inert seams of ``utils/seams.py``).
 """
 
 from __future__ import annotations

@@ -34,8 +34,8 @@ topology lock with shard epochs mirrored in (so the apply path needs
 the leaf lock only).
 
 A copy of the JAX package's ``metastore/store.py``, its imports
-rewritten to this package (the lock-order, model-checker and journal
-calls go to the inert seams of ``utils/seams.py``).
+rewritten to this package (the lock-order and model-checker calls go to the
+inert seams of ``utils/seams.py``; journal events to ``obs/journal.py``).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ from sparkrdma_tpu_torch.locations import PartitionLocation
 from sparkrdma_tpu_torch.metastore.lease import LeaseTable, StaleEpochError
 from sparkrdma_tpu_torch.metastore.shardmap import ShardMap
 from sparkrdma_tpu_torch.obs import get_registry
-from sparkrdma_tpu_torch.utils.seams import journal_emit
+from sparkrdma_tpu_torch.obs.journal import emit as journal_emit
 from sparkrdma_tpu_torch.resilience.retry import RetryPolicy
 from sparkrdma_tpu_torch.testing import faults as _faults
 

@@ -1,10 +1,32 @@
-"""Observability of the port: the process-wide metrics registry, the
-span tracer, critical-path attribution (``critpath``, ``attr``), the
-sampling profiler and the executor half of the telemetry plane
-(``Heartbeater``): copies of the JAX package's ``obs/`` modules of the
-same names. The telemetry hub, the journal and the rest of ``obs/`` come
-with ROADMAP item M8."""
+"""Observability of the port: the metrics registry, span tracing,
+critical-path attribution (``critpath``, ``attr``), the sampling
+profiler and the cluster telemetry plane (heartbeats, the driver's
+``TelemetryHub`` with its time-series rings, straggler detection, SLO
+engine, diagnosis, capacity plane and OpenMetrics export, and the event
+journal): copies of the JAX package's ``obs/`` modules of the same
+names, with the same exports. The obs CLI (``python -m
+sparkrdma_tpu.obs``) comes with ROADMAP item M8b; ``python -m
+sparkrdma_tpu_torch.obs.trend`` runs the trend engine.
+"""
 
+from sparkrdma_tpu_torch.obs.capacity import CapacityPlane
+from sparkrdma_tpu_torch.obs.export import (
+    OpenMetricsServer,
+    extract_snapshot,
+    render_openmetrics,
+    write_openmetrics,
+)
+from sparkrdma_tpu_torch.obs.journal import (
+    HLC,
+    EventJournal,
+    JournalHub,
+    active_journal,
+    emit,
+    events_to_chrome,
+    extract_events,
+    get_journal,
+    render_timeline,
+)
 from sparkrdma_tpu_torch.obs.metrics import (
     Counter,
     Gauge,
@@ -24,7 +46,18 @@ from sparkrdma_tpu_torch.obs.profiler import (
     release_profiler,
     render_flamegraph_html,
 )
-from sparkrdma_tpu_torch.obs.telemetry import Heartbeater
+from sparkrdma_tpu_torch.obs.diagnose import build_diagnosis, render_diagnosis
+from sparkrdma_tpu_torch.obs.slo import (
+    Breach,
+    Objective,
+    SLOEngine,
+    burn_rate,
+    exceedance,
+    judge,
+    multi_window_burn,
+)
+from sparkrdma_tpu_torch.obs.telemetry import Heartbeater, TelemetryHub
+from sparkrdma_tpu_torch.obs.timeseries import TimeSeriesRing, Window
 from sparkrdma_tpu_torch.obs.trace import (
     Span,
     SpanHandle,
@@ -40,31 +73,57 @@ from sparkrdma_tpu_torch.obs.trace import (
 )
 
 __all__ = [
+    "Breach",
+    "CapacityPlane",
     "Counter",
+    "EventJournal",
     "Gauge",
+    "HLC",
     "Heartbeater",
     "Histogram",
+    "JournalHub",
     "MetricsRegistry",
+    "Objective",
+    "OpenMetricsServer",
+    "SLOEngine",
     "ProfileHub",
     "SamplingProfiler",
     "Span",
     "SpanHandle",
+    "TelemetryHub",
+    "TimeSeriesRing",
     "Tracer",
+    "Window",
     "acquire_profiler",
+    "active_journal",
     "all_tracers",
+    "build_diagnosis",
+    "burn_rate",
     "collect_spans",
     "collect_spans_with_epochs",
+    "emit",
+    "events_to_chrome",
+    "exceedance",
     "export_chrome_trace",
+    "extract_events",
+    "extract_snapshot",
+    "get_journal",
     "get_profiler",
     "get_registry",
     "get_tracer",
+    "judge",
     "metric_key",
     "mint_trace_id",
+    "multi_window_burn",
     "now",
     "parse_metric_key",
     "release_profiler",
+    "render_diagnosis",
     "render_flamegraph_html",
+    "render_openmetrics",
+    "render_timeline",
     "snapshot_delta",
     "strip_label",
     "to_chrome_trace",
+    "write_openmetrics",
 ]

@@ -30,7 +30,7 @@ Loadable from live tracers (:func:`job_breakdown`, wired into
 
 A copy of the JAX package's ``obs/critpath.py``, its imports rewritten
 to this package. The JAX package's ``python -m sparkrdma_tpu.obs
---critical-path`` CLI over saved exports comes with ROADMAP item M8.
+--critical-path`` CLI over saved exports comes with ROADMAP item M8b.
 
 Stdlib-only and jax-free, like the rest of ``obs/``.
 """

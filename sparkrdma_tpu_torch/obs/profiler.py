@@ -33,10 +33,10 @@ intervals as "blocked in ``socket.recv``" rather than a blank.
 The sampler's own self-time accrues to ``profile.overhead_ms``.
 
 A copy of the JAX package's ``obs/profiler.py``, its imports rewritten
-to this package. Its consumers on the driver side, ``TelemetryHub`` and
-the obs CLI's ``--flamegraph``, come with ROADMAP item M8; the engine's
-contexts and workers already run the sampler, and ``job_breakdown``
-annotates gap segments from it.
+to this package. The driver's ``TelemetryHub`` merges the executors'
+tables (``ProfileHub``); the obs CLI's ``--flamegraph`` comes with
+ROADMAP item M8b. The engine's contexts and workers run the sampler,
+and ``job_breakdown`` annotates gap segments from it.
 
 Stdlib-only and jax-free, like the rest of ``obs/``.
 """

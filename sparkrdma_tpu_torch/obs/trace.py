@@ -28,8 +28,8 @@ end, ``ph:"f"`` at the follower's start), and ``obs/critpath.py``
 walks the same edges to extract the per-job critical path.
 
 A copy of the JAX package's ``obs/trace.py``, its imports rewritten to
-this package. Exporting journal events raises until the journal comes
-with ROADMAP item M8.
+this package; merged journal events (``obs/journal.py``) draw as
+instant markers on a ``journal`` track, as in JAX.
 """
 
 from __future__ import annotations
@@ -394,10 +394,11 @@ def to_chrome_trace(tracers: Optional[Iterable[Tracer]] = None,
             })
     instants: List[Dict] = []
     if journal_events:
-        raise NotImplementedError(
-            "journal events need obs/journal.py, which the port brings "
-            "with ROADMAP item M8"
-        )
+        from sparkrdma_tpu_torch.obs.journal import events_to_chrome
+
+        jpid = len(pids) + 1
+        instants = events_to_chrome(journal_events, pid=jpid)
+        pids["journal"] = jpid
     meta = [
         {"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
          "args": {"name": role}}

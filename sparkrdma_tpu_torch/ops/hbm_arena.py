@@ -23,7 +23,7 @@ quota broker installed (``tenancy/quota.py``), ``get`` charges the
 calling tenant a slab class for the get-to-put lifetime, ``put``
 releases it, and an over-quota tenant's slabs are the first spill
 victims. The lock-order detector of the JAX arena waits for ROADMAP
-item M8; plain ``threading`` locks guard the tables.
+item M8c; plain ``threading`` locks guard the tables.
 """
 
 from __future__ import annotations

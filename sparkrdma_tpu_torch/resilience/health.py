@@ -17,8 +17,8 @@ State transitions are counted in the process-wide obs registry under
 ``resilience.circuit_open`` / ``resilience.circuit_close``.
 
 A copy of the JAX package's ``resilience/health.py``, its imports
-rewritten to this package (the lock-order, model-checker and journal
-calls go to the inert seams of ``utils/seams.py``).
+rewritten to this package (the lock-order and model-checker calls go to the
+inert seams of ``utils/seams.py``; journal events to ``obs/journal.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from typing import Callable, Dict, Optional
 
 from sparkrdma_tpu_torch import tenancy
 from sparkrdma_tpu_torch.obs import get_registry
-from sparkrdma_tpu_torch.utils.seams import journal_emit
+from sparkrdma_tpu_torch.obs.journal import emit as journal_emit
 
 logger = logging.getLogger(__name__)
 

@@ -8,10 +8,12 @@ identical stage runs with the adjusted cut. The tuned budget never
 drops below the stage's largest partition group (fusion needs a
 partition's rows in one wave) nor rises above the configured cap.
 
-The JAX tuner also consults the job's critical-path breakdown and emits
-a journal event; both planes wait for the port's observability slice.
-Until then the breakdown gate allows, which is the JAX tuner's own
-answer when no breakdown exists.
+As in JAX, the tuner consults the last job's critical-path breakdown
+(``obs/attr.py``): when ``dma-wave`` carries under
+``MIN_DMA_WAVE_FRACTION`` of the job's wall and the profiler's gap
+frames do not implicate the transfer plane, re-cutting cannot move the
+job and the tuner holds still; no breakdown means no veto. Each re-cut
+emits an ``autotune.adjust`` event into the journal (``obs/journal.py``).
 """
 
 from __future__ import annotations
@@ -21,9 +23,15 @@ import threading
 from typing import Dict, Optional, Tuple
 
 from sparkrdma_tpu_torch.obs import get_registry
+from sparkrdma_tpu_torch.obs.journal import emit as journal_emit
 from sparkrdma_tpu_torch.ops.exchange import round_bucket
 
 logger = logging.getLogger(__name__)
+
+# fraction of job wall the dma-wave category must carry before the
+# tuner will re-cut a stage on breakdown evidence; below this the
+# shuffle is not the job's problem and re-cutting is churn
+MIN_DMA_WAVE_FRACTION = 0.05
 
 
 def stage_signature(schedule: str, lanes: int, rows_class: int,
@@ -96,6 +104,10 @@ class WaveAutoTuner:
             self._choices[sig] = target
         self._m_adjust.inc()
         self._m_tuned.set(target)
+        journal_emit(
+            "autotune.adjust", role=self._executor_id,
+            prev=prev or 0, wave_bytes=target, waves=report.waves,
+        )
         logger.debug(
             "autotune: stage %r waveBytes %s -> %d (waves=%d depth=%d "
             "dispatch=%.2fms wall=%.2fms overlap=%.2fms)",
@@ -127,5 +139,18 @@ class WaveAutoTuner:
         return budget
 
     def _breakdown_allows(self) -> bool:
-        """Attribution gate; no breakdown plane yet, so no veto."""
-        return True
+        """Attribution gate: when the last job's TimeBreakdown says the
+        wall went elsewhere (and its gap frames don't implicate the
+        transfer plane), hold still. No breakdown (critpath off, first
+        job) means no veto — wave stats alone are enough to act."""
+        try:
+            from sparkrdma_tpu_torch.obs.attr import dma_wave_signal, last_breakdown
+
+            bd = last_breakdown()
+            if bd is None:
+                return True
+            fraction, transfer_gaps = dma_wave_signal(bd)
+            return fraction >= MIN_DMA_WAVE_FRACTION or transfer_gaps
+        except Exception:
+            logger.exception("autotune breakdown gate failed; allowing")
+            return True

@@ -30,8 +30,8 @@ Analogue of RdmaShuffleFetcherIterator.scala (reference: RdmaShuffleFetcherItera
 - per-fetch latency histogram hook (:186-189).
 
 A copy of the JAX package's ``shuffle/fetcher.py``, its imports
-rewritten to this package (the lock-order, model-checker and journal
-calls go to the inert seams of ``utils/seams.py``). The native plane's
+rewritten to this package (the lock-order and model-checker calls go to the
+inert seams of ``utils/seams.py``). The native plane's
 branches run on ``NativeTpuNode``: the read-completion ring drain
 (``drain_read_ring``) and mapped delivery (``mapped_delivery_enabled``
 is True on a ``NativeTpuChannel`` with ``mappedFetch`` on).

@@ -23,13 +23,16 @@ another plane is missing from the port:
 - ``transport=native`` (and ``auto`` where g++ is present) never falls
   back to the python plane: a failed build raises
   (``transport/__init__.py``);
-- the driver's telemetry hub stays None until ROADMAP item M8, so
-  ``partition_sizes`` reads the location registry (JAX's branch with
-  telemetry off);
 - the elastic replica store (``elastic.replicas`` > 0) raises
-  ``NotImplementedError`` until ROADMAP item M8;
-- the lock-order detector, the model checker's schedule points and the
-  journal are the inert seams of ``utils/seams.py``.
+  ``NotImplementedError`` until ROADMAP item M8b;
+- the lock-order detector and the model checker's schedule points are
+  the inert seams of ``utils/seams.py``.
+
+The driver builds the telemetry hub (``obs/telemetry.py``
+``TelemetryHub``) when ``obs.telemetry.enabled`` is true, as in JAX:
+its per-partition bytes feed ``partition_sizes`` and the adaptive
+planner, and its straggler report feeds the health registry. Journal
+events go to ``obs/journal.py``.
 
 Record writers and readers (``get_writer`` / ``get_reader``), the
 push/merge plane and fault plans run as in JAX; device blocks publish
@@ -53,7 +56,8 @@ from sparkrdma_tpu_torch.locations import PartitionLocation, ShuffleManagerId
 from sparkrdma_tpu_torch.metastore import ShardedMetaStore, StaleEpochError
 from sparkrdma_tpu_torch.obs import SpanHandle, Tracer, get_registry, mint_trace_id
 from sparkrdma_tpu_torch.obs import now as obs_now
-from sparkrdma_tpu_torch.utils.seams import journal_emit
+from sparkrdma_tpu_torch.obs.journal import emit as journal_emit
+from sparkrdma_tpu_torch.obs.telemetry import TelemetryHub
 from sparkrdma_tpu_torch.resilience import SourceHealthRegistry
 from sparkrdma_tpu_torch.tenancy import AdmissionController, FairShareExecutor
 from sparkrdma_tpu_torch.tenancy import quota as _tquota
@@ -205,9 +209,12 @@ class TpuShuffleManager:
         # for every shuffle) folds executor heartbeats into per-executor
         # time series and runs the straggler detector; its report feeds
         # the health registry as an advisory signal (obs/telemetry.py)
-        # (the hub is ROADMAP item M8: until then the driver runs as
-        # JAX's does with obs.telemetry.enabled off)
         self.telemetry = None
+        if is_driver and conf.telemetry_enabled:
+            self.telemetry = TelemetryHub(
+                conf, role=self.executor_id, health=self.health,
+                registry=self.registry,
+            )
 
         if is_driver:
             # driver starts its node eagerly and records the negotiated
@@ -252,7 +259,7 @@ class TpuShuffleManager:
         if conf.elastic_replicas > 0 and not is_driver:
             raise NotImplementedError(
                 "tpu.shuffle.elastic.replicas > 0 needs the elastic plane, "
-                "which the port brings with ROADMAP item M8"
+                "which the port brings with ROADMAP item M8b"
             )
         # publish-time checksum tagging pool (lazy; see _checksummed)
         self._ck_pool: Optional[ThreadPoolExecutor] = None

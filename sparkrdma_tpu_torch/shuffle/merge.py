@@ -35,8 +35,8 @@ resolver/locations API (DESIGN.md §18):
   original per-map reads — never duplicated, never lost.
 
 A copy of the JAX package's ``shuffle/merge.py``, its imports
-rewritten to this package (the lock-order, model-checker and journal
-calls go to the inert seams of ``utils/seams.py``).
+rewritten to this package (the lock-order and model-checker calls go to the
+inert seams of ``utils/seams.py``).
 """
 
 from __future__ import annotations

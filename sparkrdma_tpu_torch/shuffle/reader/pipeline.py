@@ -47,8 +47,8 @@ Observability (docs/OBSERVABILITY.md): per-item latency histograms
 — per-run sum-of-stage-busy minus wall, the time the overlap SAVED.
 
 A copy of the JAX package's ``shuffle/reader/pipeline.py``, its imports
-rewritten to this package (the lock-order, model-checker and journal
-calls go to the inert seams of ``utils/seams.py``).
+rewritten to this package (the lock-order and model-checker calls go to the
+inert seams of ``utils/seams.py``).
 """
 
 from __future__ import annotations

@@ -35,8 +35,8 @@ Observability (docs/OBSERVABILITY.md): per-stage latency histograms
 SAVED (zero means the pipeline degenerated to sequential).
 
 A copy of the JAX package's ``shuffle/writer/pipeline.py``, its imports
-rewritten to this package (the lock-order, model-checker and journal
-calls go to the inert seams of ``utils/seams.py``).
+rewritten to this package (the lock-order and model-checker calls go to the
+inert seams of ``utils/seams.py``).
 """
 
 from __future__ import annotations

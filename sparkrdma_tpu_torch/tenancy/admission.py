@@ -10,8 +10,8 @@ served strictly FIFO; a job that waits past its deadline raises
 on the queue forever.
 
 A copy of the JAX package's ``tenancy/admission.py``, its imports
-rewritten to this package (the lock-order, model-checker and journal
-calls go to the inert seams of ``utils/seams.py``).
+rewritten to this package (the lock-order and model-checker calls go to the
+inert seams of ``utils/seams.py``; journal events to ``obs/journal.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Deque, Iterator, Optional
 
 from sparkrdma_tpu_torch.utils.seams import named_lock
 from sparkrdma_tpu_torch.obs import get_registry
-from sparkrdma_tpu_torch.utils.seams import journal_emit
+from sparkrdma_tpu_torch.obs.journal import emit as journal_emit
 
 
 class AdmissionTimeout(RuntimeError):

@@ -21,8 +21,8 @@ never accumulates while idle — the classic DRR anti-hoarding rules.
 With a single tenant the whole mechanism degenerates to plain FIFO.
 
 A copy of the JAX package's ``tenancy/fairshare.py``, its imports
-rewritten to this package (the lock-order, model-checker and journal
-calls go to the inert seams of ``utils/seams.py``).
+rewritten to this package (the lock-order and model-checker calls go to the
+inert seams of ``utils/seams.py``).
 """
 
 from __future__ import annotations

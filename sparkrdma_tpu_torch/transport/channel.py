@@ -21,8 +21,8 @@ semantics:
   and must tolerate it.
 
 A copy of the JAX package's ``transport/channel.py``, its imports
-rewritten to this package (the lock-order, model-checker and journal
-calls go to the inert seams of ``utils/seams.py``).
+rewritten to this package (the lock-order and model-checker calls go to the
+inert seams of ``utils/seams.py``).
 """
 
 from __future__ import annotations

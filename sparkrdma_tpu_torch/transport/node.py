@@ -20,8 +20,8 @@ The reference pins one CQ thread per channel to a CPU vector from
 deliberate no-op, but the per-channel completion-thread model is kept.
 
 A copy of the JAX package's ``transport/node.py``, its imports rewritten
-to this package (the lock-order, model-checker and journal calls go to
-the inert seams of ``utils/seams.py``).
+to this package (the lock-order and model-checker calls go to the inert seams
+of ``utils/seams.py``).
 """
 
 from __future__ import annotations

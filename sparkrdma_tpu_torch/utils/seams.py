@@ -1,20 +1,20 @@
-"""Inert seams for the JAX package's planes that the port has not reached.
+"""Inert seams for the JAX package's analysis planes that the port has
+not reached.
 
-The host-plane modules the port copies call into three planes that have
-no port module yet: the lock-order detector (``analysis/lockorder.py``),
-the model checker's schedule points (``analysis/modelcheck``) and the
-cluster event journal (``obs/journal.py``). Each gets a stand-in here
-with the same name and call shape, so the copies keep the JAX call sites
-line for line and the real plane drops in later without touching them:
+The host-plane modules the port copies call into two planes that have
+no port module yet: the lock-order detector (``analysis/lockorder.py``)
+and the model checker's schedule points (``analysis/modelcheck``). Each
+gets a stand-in here with the same name and call shape, so the copies
+keep the JAX call sites line for line and the real plane drops in later
+without touching them:
 
 - ``named_lock`` / ``OrderedLock``: plain ``threading`` locks that keep
-  their names (ROADMAP M8, the analysis passes pointed at the port);
-- ``schedule_point``: does nothing (ROADMAP M8, with the analysis
-  passes);
-- ``journal_emit``: does nothing (ROADMAP M8, the operations planes);
-- ``active_journal``: the process's event journal, which heartbeats
-  (``obs/telemetry.py``) ship from; None until the journal is ported
-  (ROADMAP M8).
+  their names (ROADMAP M8c, the analysis passes pointed at the port);
+- ``schedule_point``: does nothing (ROADMAP M8c, with the analysis
+  passes).
+
+The cluster event journal is ``obs/journal.py``; its emitters import
+``emit`` from there, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import threading
 class OrderedLock:
     """A named lock. The JAX package's version feeds a lock-order
     detector that reads its flags; this one only keeps the name (ROADMAP
-    M8)."""
+    M8c)."""
 
     __slots__ = ("name", "_lock")
 
@@ -55,16 +55,4 @@ def named_lock(name: str, *, hot: bool = False, recursive: bool = False,
 
 def schedule_point(kind: str, label: str) -> None:
     """A model-checker interleaving seam; inert until the model checker
-    is pointed at the port (ROADMAP M8)."""
-
-
-def journal_emit(event: str, **fields) -> None:
-    """An event for the cluster journal; dropped until the journal is
-    ported (ROADMAP M8)."""
-
-
-def active_journal():
-    """The process's armed event journal, resolved per heartbeat by
-    ``obs/telemetry.py``'s ``Heartbeater``; None until the journal is
-    ported (ROADMAP M8)."""
-    return None
+    is pointed at the port (ROADMAP M8c)."""

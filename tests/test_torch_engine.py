@@ -30,6 +30,17 @@ from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_registry_left_clean():
+    """The JAX code run here counts into the JAX package's process
+    registry, which later test files in this worker read (a diagnosis
+    reads its quota and metastore counters): zero it when the module
+    ends."""
+    yield
+    jax_registry().reset()
+
+
 KNOBS = {"tpu.shuffle.transport": "python"}
 # an executor lost between two reads defers every later location fetch
 # until this timeout (twice: the fetch and its re-resolve) before the

@@ -298,8 +298,8 @@ def test_heartbeat_payloads_equal_jax():
 
 
 def test_heartbeat_ships_an_attached_journal_and_profile():
-    """With a journal attached (the port resolves none until ROADMAP M8)
-    each beat carries the new events and the previous beat's again, and
+    """With a journal attached (in place of the process journal) each
+    beat carries the new events and the previous beat's again, and
     a profiler's drained table rides the payload, as in JAX."""
     class Journal:
         def __init__(self):

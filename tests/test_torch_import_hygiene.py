@@ -48,9 +48,10 @@ def test_importing_every_port_module_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     # every module of the port: a subpackage that fails to import
     # would drop its modules from the walk
-    assert len(res["imported"]) >= 98
+    assert len(res["imported"]) >= 105
     assert set(ENGINE_MODULES) <= set(res["imported"])
     assert set(NATIVE_MODULES) <= set(res["imported"])
+    assert set(OBS_MODULES) <= set(res["imported"])
     assert res["bad"] == []
 
 
@@ -121,6 +122,42 @@ def test_native_modules_alone_load_no_jax_and_build_nothing():
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], True, {}]
+
+
+OBS_MODULES = [
+    "sparkrdma_tpu_torch.obs.journal",
+    "sparkrdma_tpu_torch.obs.timeseries",
+    "sparkrdma_tpu_torch.obs.export",
+    "sparkrdma_tpu_torch.obs.capacity",
+    "sparkrdma_tpu_torch.obs.trend",
+    "sparkrdma_tpu_torch.obs.diagnose",
+    "sparkrdma_tpu_torch.obs.slo",
+    "sparkrdma_tpu_torch.obs.telemetry",
+]
+
+
+@pytest.mark.parametrize("name", OBS_MODULES)
+def test_obs_module_alone_loads_no_jax_and_arms_nothing(name):
+    """Each module of the telemetry and journal plane, imported first in
+    a fresh interpreter, loads neither jax nor the JAX package, arms no
+    process journal and starts no thread (the hub does that when a
+    driver builds it)."""
+    script = (
+        "import importlib, json, sys, threading\n"
+        f"importlib.import_module({name!r})\n"
+        "from sparkrdma_tpu_torch.obs import journal, TelemetryHub\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'sparkrdma_tpu' or m.startswith('sparkrdma_tpu.'))\n"
+        "print(json.dumps([bad, journal.active_journal() is None,"
+        " threading.active_count()]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], True, 1]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)

@@ -12,6 +12,7 @@ import torch
 from sparkrdma_tpu import locations as jloc
 from sparkrdma_tpu.metastore import ShardedMetaStore as JaxStore
 from sparkrdma_tpu.metastore import StaleEpochError as JaxStale
+from sparkrdma_tpu.obs import get_registry as jax_registry
 from sparkrdma_tpu.utils.config import TpuShuffleConf as JaxConf
 from sparkrdma_tpu_torch import locations as tloc
 from sparkrdma_tpu_torch.metastore import ShardedMetaStore as TorchStore
@@ -19,6 +20,17 @@ from sparkrdma_tpu_torch.metastore import StaleEpochError as TorchStale
 from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_registry_left_clean():
+    """The JAX code run here counts into the JAX package's process
+    registry, which later test files in this worker read (a diagnosis
+    reads its quota and metastore counters): zero it when the module
+    ends."""
+    yield
+    jax_registry().reset()
+
 
 EXECS = [f"ms-exec-{i}" for i in range(5)]
 
