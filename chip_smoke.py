@@ -247,6 +247,38 @@ exits nonzero and prints no result. Phases, each one JSON line:
    the wave launches phase 10 (b)'s, every reducer ``np.sort`` of its
    range; the breakdown gate's verdict on the last engine job's
    breakdown is printed;
+17. ``elastic_planes``: the elastic plane, the obs CLI and the
+   invariant suite on the card's host, the card's name and power limit
+   beside it. (a) HiBench TeraSort small (3,200,000 records of an int key
+   and a 90-byte value naming its map and row; keys as phase 14 (d)'s)
+   through ``ClusterContext``'s 4 workers and a ``RangePartitioner``,
+   three times: without replicas, with ``elastic.replicas=1``, and with
+   it and ``exec:kill`` of proc-exec-1 at its first reduce. Each
+   reducer's records (count and SHA-256, sorted) equal those numpy
+   computes from ``np.sort`` of the generator's keys, so the three runs
+   agree byte for byte; the killed run recomputes no map and promotes
+   replicas. Replicated bytes, the map stage's wall with and without
+   replicas, and the recovery's wall (from the driver seeing the dead
+   worker to the job's end). (b) ``TpuContext`` with replicas at a
+   tenth: ``lose_executor`` between two reads of one sort, equal, no
+   stage recompute, promotions. (c) At a tenth, ``driver:kill`` at
+   reduce-phase entry then ``exec:kill``: no recompute, adoptions and
+   promotions, the output exact. (d) ``python -m
+   sparkrdma_tpu_torch.elastic.service`` adopts proc-exec-0's maps
+   (``transport=auto``, a tenth): the adopted maps are that worker's,
+   linked or copied is printed, and the survivor's reads before the
+   handoff, after it and after the worker's SIGKILL are the same bytes;
+   the handoff's wall. (e) Phase 10 (b)'s default run with the port's
+   lock-order detector enabled (``analysis.lockorder.default``): 0
+   violations, the lock names and order edges, the wave launches phase
+   10 (b)'s, the warm reduce again with the detector off (its cost);
+   then ``python -m sparkrdma_tpu_torch.analysis`` on the checkout exits
+   0, clean. (f) The obs CLI as child processes over (a)-(d)'s
+   artifacts (the driver's flight record of (a)'s killed run, the
+   process's Chrome trace and registry snapshot): ``--openmetrics``,
+   ``--timeline``, ``--diagnose``, ``--critical-path``,
+   ``--flamegraph``, ``--flight-recorder`` and ``--demo``, each exiting
+   0 with output, none loading jax or initialising CUDA;
 
 Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, where one
@@ -266,6 +298,7 @@ script exits nonzero.
 """
 
 import contextlib
+import hashlib
 import json
 import os
 import re
@@ -4449,6 +4482,584 @@ def phase_operations_planes(torch, dev, data):
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase 17: the elastic plane, the obs CLI and the invariant suite
+# ----------------------------------------------------------------------
+EL_REPLICAS = {"tpu.shuffle.elastic.replicas": "1"}
+EL_KILL = "exec:kill:1:peer=proc-exec-1,stage=reduce_task"
+EL_SERVICE_ID = "svc-17"
+EL_FILLER = b"x" * 84  # a record's value: map id (2 bytes), row (4), filler: 90 bytes
+EL_DEADLINE_S = 30.0
+EL_ANALYSIS_MIN_FILES = 150  # the port's package and tests held 163 files when this was set
+EL_COUNTERS = ("elastic.replicated_bytes", "elastic.replicated_maps", "elastic.replica_accepts",
+               "elastic.replica_drops", "elastic.replica_errors")
+# the obs CLI's flags in (f), each over an artifact of (a)-(d) ("{dir}")
+EL_CLI = {
+    "openmetrics": ["--openmetrics", "-", "--from-snapshot", "{dir}/snapshot.json"],
+    "timeline": ["--timeline", "{dir}/flight.json"],
+    "diagnose": ["--diagnose", "{dir}/flight.json"],
+    "critical_path": ["--critical-path", "{dir}/trace.json"],
+    "flamegraph": ["--flamegraph", "{dir}/flame.html", "--from-snapshot", "{dir}/flight.json"],
+    "flight_recorder": ["--flight-recorder", "{dir}/flight.json"],
+    "demo": ["--demo", "--trace-out", "{dir}/demo_trace.json", "--indent", "0"],
+}
+CLI_PROBE = "CLI_PROBE "
+# runs ``python -m <argv[1]> <argv[2:]>`` and, at exit, prints which
+# jax modules the child loaded and whether it initialised CUDA
+_CLI_WRAPPER = """\
+import atexit, json, runpy, sys
+def _probe():
+    t = sys.modules.get("torch")
+    print(%r + json.dumps({
+        "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                      or m == "sparkrdma_tpu" or m.startswith("sparkrdma_tpu.")),
+        "cuda_initialized": bool(t is not None and t.cuda.is_initialized())}),
+        file=sys.stderr, flush=True)
+atexit.register(_probe)
+sys.argv = sys.argv[1:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+""" % CLI_PROBE
+
+
+def _cli_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return env
+
+
+def start_obs_cli(args, module="sparkrdma_tpu_torch.obs"):
+    """Start ``python -m <module> <args>`` as a child process from the
+    checkout root; :func:`finish_obs_cli` collects it."""
+    return subprocess.Popen([sys.executable, "-c", _CLI_WRAPPER, module, *args], cwd=HERE,
+                            env=_cli_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_obs_cli(proc, timeout=240):
+    """The child's exit code, standard output and error, and what it
+    loaded: ``{"jax": [...], "cuda_initialized": bool}`` (None when the
+    child died before its exit handlers ran)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    lines = [ln for ln in err.splitlines() if ln.startswith(CLI_PROBE)]
+    probe = json.loads(lines[-1][len(CLI_PROBE):]) if lines else None
+    return proc.returncode, out, err, probe
+
+
+def obs_cli(args, module="sparkrdma_tpu_torch.obs", timeout=240):
+    """``python -m <module> <args>`` in a child process (see
+    :func:`finish_obs_cli`)."""
+    return finish_obs_cli(start_obs_cli(args, module), timeout)
+
+
+def _el_map_fn(seed, m, n):
+    """A map function making map ``m``'s keys in the worker; each
+    record's value names its map and row, so a record read twice or
+    read from the wrong copy changes the output's bytes."""
+    def fn():
+        keys = np.random.default_rng(seed).integers(0, 1 << 32, n, dtype=np.uint64)
+        head = m.to_bytes(2, "big")
+        return ((int(k), head + i.to_bytes(4, "big") + EL_FILLER) for i, k in enumerate(keys))
+
+    return fn
+
+
+def _el_digest_fn(edges, counters=EL_COUNTERS):
+    """A reduce function: the records sorted, their count and SHA-256
+    (each record its key's 8 big-endian bytes, then its value), the
+    partitions they fall in, and the worker's totals of ``counters``."""
+    def fn(it):
+        import bisect
+        import hashlib as _hashlib
+
+        from sparkrdma_tpu_torch.obs import get_registry
+
+        recs = sorted(it)
+        h = _hashlib.sha256()
+        for k, v in recs:
+            h.update(k.to_bytes(8, "big"))
+            h.update(v)
+        reg = get_registry()
+        return {"count": len(recs), "sha": h.hexdigest(),
+                "parts": sorted({bisect.bisect_left(edges, k) for k, _ in recs}),
+                "counters": {c: sum(reg.snapshot(prefix=c)["counters"].values())
+                             for c in counters}}
+
+    return fn
+
+
+def _el_expected(n):
+    """What ``n`` records of ``_el_map_fn`` must come out as: per
+    partition, the count and the SHA-256 of its records sorted, computed
+    from ``np.sort`` of the generator's keys (numpy, no engine)."""
+    import hashlib
+
+    per, keys = _en_keys(n)
+    m = np.repeat(np.arange(EN_MAPS, dtype=np.uint64), per)
+    i = np.tile(np.arange(per, dtype=np.uint64), EN_MAPS)
+    order = np.lexsort((i, m, keys))
+    keys, m, i = keys[order], m[order], i[order]
+    rows = np.empty((len(keys), 8 + 6 + len(EL_FILLER)), np.uint8)
+    rows[:, :8] = keys.astype(">u8").view(np.uint8).reshape(-1, 8)
+    rows[:, 8:10] = m.astype(">u2").view(np.uint8).reshape(-1, 2)
+    rows[:, 10:14] = i.astype(">u4").view(np.uint8).reshape(-1, 4)
+    rows[:, 14:] = np.frombuffer(EL_FILLER, np.uint8)
+    cuts = np.searchsorted(keys, np.asarray(EN_EDGES, np.uint64), side="left")
+    bounds = [0, *cuts.tolist(), len(keys)]
+    return rows, bounds
+
+
+def _el_check(parts, expected, what):
+    """Each reducer's records byte-equal to the expected records of the
+    partitions it read; every partition read once."""
+    rows, bounds = expected
+    seen = []
+    for r, p in enumerate(parts):
+        if not p["count"]:
+            continue
+        lo, hi = bounds[p["parts"][0]], bounds[p["parts"][-1] + 1]
+        if (p["count"], p["sha"]) != (hi - lo, hashlib.sha256(rows[lo:hi].tobytes()).hexdigest()):
+            raise AssertionError(f"{what} reducer {r}: its records differ from np.sort of "
+                                 "the generator's keys")
+        seen.extend(p["parts"])
+    if sorted(seen) != list(range(len(bounds) - 1)) or len(seen) != len(set(seen)):
+        raise AssertionError(f"{what}: partitions read twice or missing: {seen}")
+
+
+def _el_instrument(cc):
+    """Time ``cc``'s map-stage calls and note when its driver first sees
+    a dead worker."""
+    marks = {"map_s": [], "dead_at": None}
+    run_map, reap = cc._run_map_phase, cc._reap_dead
+
+    def timed_map(handle, items, tenant, recompute):
+        t = time.perf_counter()
+        try:
+            return run_map(handle, items, tenant, recompute)
+        finally:
+            marks["map_s"].append({"recompute": recompute, "s": time.perf_counter() - t})
+
+    def noted_reap():
+        dead = reap()
+        if dead and marks["dead_at"] is None:
+            marks["dead_at"] = time.perf_counter()
+        return dead
+
+    cc._run_map_phase = timed_map
+    cc._reap_dead = noted_reap
+    return marks
+
+
+def _el_job(n, knobs, expected, what, keep=None):
+    """One range-partitioned job of ``n`` records through 4 worker
+    processes (``_el_map_fn``, ``_el_digest_fn``), checked byte for byte
+    against ``expected``. ``keep(cc)`` runs before the context stops.
+    Returns the walls, the driver's and the workers' elastic counters."""
+    from sparkrdma_tpu_torch.obs import get_registry
+    from sparkrdma_tpu_torch.shuffle.handle import RangePartitioner
+    from sparkrdma_tpu_torch.testing import faults
+
+    reg = get_registry()
+    names = ("elastic.recomputed_maps", "elastic.recoveries", "elastic.replica_promotions",
+             "metastore.adoptions")
+    before = {c: reg.counter(c, role="driver").value for c in names}
+    recomputes = reg.counter("engine.stage_recomputes")
+    r0 = recomputes.value
+    per = n // EN_MAPS
+    kept = None
+    try:
+        cc, startup = _en_cluster(knobs)
+        try:
+            marks = _el_instrument(cc)
+            t = time.perf_counter()
+            parts = cc.run_map_reduce(
+                [_el_map_fn(EN_MAP_SEED + m, m, per) for m in range(EN_MAPS)],
+                num_partitions=EN_PARTS, partitioner=RangePartitioner(EN_EDGES),
+                reduce_fn=_el_digest_fn(EN_EDGES))
+            end = time.perf_counter()
+            live = sorted(w.executor_id for w in cc.workers)
+            # read before stop(): the workers' exits are peer losses too
+            driver = {c: reg.counter(c, role="driver").value - before[c] for c in names}
+            stage_recomputes = recomputes.value - r0
+            if keep is not None:
+                kept = keep(cc)
+        finally:
+            cc.stop()
+    finally:
+        faults.uninstall()
+    _el_check(parts, expected, what)
+    first_map = next(m["s"] for m in marks["map_s"] if not m["recompute"])
+    out = {"records": n, "knobs": knobs, "startup_s": startup, "job_s": end - t,
+           "map_stage_s": first_map,
+           "recovery_map_calls": [m for m in marks["map_s"] if m["recompute"]],
+           "recovery_s": None if marks["dead_at"] is None else end - marks["dead_at"],
+           "live_after": live, "driver": driver, "stage_recomputes": stage_recomputes,
+           "workers": {c: sum(p["counters"][c] for p in parts) for c in EL_COUNTERS}}
+    return out, kept
+
+
+def _el_artifacts(cc, tmp):
+    """Keep the driver's flight record (with the workers' profile
+    windows and the journal) of a cluster job for (f)."""
+    hub = cc.driver.telemetry
+    deadline = time.perf_counter() + EL_DEADLINE_S
+    while not hub.profiles.total_samples:
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"(a) no profile window within {EL_DEADLINE_S} s")
+        time.sleep(0.05)
+    path = hub.flight_record("phase17_exec_kill", path=os.path.join(tmp, "flight.json"))
+    if path is None:
+        raise AssertionError("(a) the driver's hub wrote no flight record")
+    with open(path) as f:
+        doc = json.load(f)
+    return {"journal_events": len(doc.get("journal") or []),
+            "profiles": sorted(doc.get("profiles") or {}), "slo": "slo" in doc}
+
+
+def _el_replication(tmp):
+    """(a) HiBench TeraSort small through 4 worker processes: without
+    replicas, with ``elastic.replicas=1``, and with it and ``exec:kill``
+    of proc-exec-1 at its first reduce."""
+    expected = _el_expected(EN_RECORDS)
+    plain, _ = _el_job(EN_RECORDS, dict(EN_KNOBS), expected, "(a) no replicas")
+    rep, _ = _el_job(EN_RECORDS, {**EN_KNOBS, **EL_REPLICAS}, expected, "(a) replicas")
+    kill, flight = _el_job(
+        EN_RECORDS, {**EN_KNOBS, **EL_REPLICAS, **EN_LOST_KNOBS,
+                     "tpu.shuffle.faultPlan": EL_KILL},
+        expected, "(a) replicas, exec:kill", keep=lambda cc: _el_artifacts(cc, tmp))
+    del expected
+    report = {"no_replicas": plain, "replicas": rep, "replicas_exec_kill": kill,
+              "flight_record": flight,
+              "replication_cost_map_s": rep["map_stage_s"] - plain["map_stage_s"],
+              "replication_cost_job_s": rep["job_s"] - plain["job_s"],
+              "loss_cost_job_s": kill["job_s"] - rep["job_s"]}
+    p14 = _REPORTS.get(14, {}).get("e", {}).get("exec_kill")
+    if p14 is not None:
+        report["phase14_exec_kill_no_replicas_tenth"] = {
+            k: p14[k] for k in ("records", "job_s", "recoveries", "recomputed_maps")}
+    if rep["workers"]["elastic.replicated_bytes"] <= 0 or rep["workers"]["elastic.replica_errors"]:
+        raise AssertionError(f"(a) replication: {rep['workers']}")
+    if plain["workers"]["elastic.replicated_bytes"]:
+        raise AssertionError("(a) bytes were replicated with elastic.replicas=0")
+    if plain["driver"]["elastic.replica_promotions"] or rep["driver"]["elastic.replica_promotions"]:
+        raise AssertionError("(a) a replica was promoted in a run that lost no executor")
+    d = kill["driver"]
+    if d["elastic.recomputed_maps"] or kill["stage_recomputes"]:
+        raise AssertionError(f"(a) exec:kill under replicas recomputed maps: {d}")
+    if d["elastic.replica_promotions"] <= 0 or "proc-exec-1" in kill["live_after"]:
+        raise AssertionError(f"(a) exec:kill: no promotion, or proc-exec-1 lived: {kill}")
+    if kill["recovery_s"] is None:
+        raise AssertionError("(a) exec:kill: the driver never saw a dead worker")
+    return report
+
+
+def _el_inprocess():
+    """(b) ``TpuContext`` with ``elastic.replicas=1`` at a tenth: a
+    materialized sort read, ``lose_executor("exec-1")``, and read again."""
+    from sparkrdma_tpu_torch.obs import get_registry
+
+    reg = get_registry()
+    keys = np.random.default_rng(EN_SEED).integers(0, 1 << 32, EN_TENTH, dtype=np.uint64)
+    data = [(int(k), EN_PAYLOAD) for k in keys]
+    recomputes = reg.counter("engine.stage_recomputes")
+    with _en_ctx({**EL_REPLICAS, **EN_LOST_KNOBS}) as ctx:
+        promos = reg.counter("elastic.replica_promotions", role=ctx.driver.executor_id)
+        rdd = _en_sort(ctx, data)
+        t = time.perf_counter()
+        first = rdd.collect()
+        first_s = time.perf_counter() - t
+        r0, p0 = recomputes.value, promos.value
+        ctx.lose_executor("exec-1")
+        t = time.perf_counter()
+        again = rdd.collect()
+        again_s = time.perf_counter() - t
+        survivors = [m.executor_id for m in ctx.executors]
+    _en_check_sorted(first, keys, "(b)")
+    out = {"records": EN_TENTH, "first_read_s": first_s, "reread_after_loss_s": again_s,
+           "survivors": survivors, "stage_recomputes": recomputes.value - r0,
+           "replica_promotions": promos.value - p0}
+    if again != first:
+        raise AssertionError("(b) the re-read after the loss differs from the first read")
+    if out["stage_recomputes"] or out["replica_promotions"] <= 0 or survivors != ["exec-0"]:
+        raise AssertionError(f"(b) {out}")
+    p14 = _REPORTS.get(14, {}).get("c")
+    if p14 is not None:
+        out["phase14_lost_executor_reread_s"] = p14["lost_executor_reread_s"]
+    return out
+
+
+def _el_chaos():
+    """(c) The chaos bar at a tenth: ``driver:kill`` at reduce-phase
+    entry, then ``exec:kill`` of proc-exec-1 at its first reduce, under
+    ``elastic.replicas=1``: zero recompute, adoptions and promotions."""
+    expected = _el_expected(EN_TENTH)
+    out, _ = _el_job(EN_TENTH, {**EN_KNOBS, **EL_REPLICAS, **EN_LOST_KNOBS,
+                                "tpu.shuffle.faultPlan":
+                                    f"driver:kill:1:stage=reduce_phase;{EL_KILL}"},
+                     expected, "(c)")
+    d = out["driver"]
+    if d["elastic.recomputed_maps"] or out["stage_recomputes"]:
+        raise AssertionError(f"(c) maps recomputed: {out}")
+    if d["metastore.adoptions"] <= 0 or d["elastic.replica_promotions"] <= 0:
+        raise AssertionError(f"(c) no adoption or no promotion: {d}")
+    return out
+
+
+def _el_service(tmp):
+    """(d) The daemon: ``python -m sparkrdma_tpu_torch.elastic.service``
+    adopts proc-exec-0's maps (4 workers, a tenth, ``transport=auto``);
+    the reads before the handoff, after it and after proc-exec-0's
+    SIGKILL are the same bytes."""
+    import glob
+    import tempfile
+
+    from sparkrdma_tpu_torch.elastic.service import _recv_obj, _send_obj
+    from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, RangePartitioner
+
+    def ask(port, obj):
+        import socket
+
+        with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+            s.settimeout(10)
+            _send_obj(s, obj)
+            return _recv_obj(s)
+
+    expected = _el_expected(EN_TENTH)
+    per = EN_TENTH // EN_MAPS
+    report = {"records": EN_TENTH, "transport": "auto"}
+    svc = None
+    cc, startup = _en_cluster({"tpu.shuffle.transport": "auto", **EN_LOST_KNOBS})
+    try:
+        handle = BaseShuffleHandle(shuffle_id=cc._next_shuffle_id(), num_maps=EN_MAPS,
+                                   partitioner=RangePartitioner(EN_EDGES))
+        cc.driver.register_shuffle(handle)
+        items = [(m, _el_map_fn(EN_MAP_SEED + m, m, per)) for m in range(EN_MAPS)]
+        t = time.perf_counter()
+        cc._run_map_phase(handle, items, "default", recompute=False)
+        report["map_stage_s"] = time.perf_counter() - t
+        mine = sorted(m for m, e in cc.driver.map_owners(handle.shuffle_id).items()
+                      if e == "proc-exec-0")
+
+        def read_all(worker, what):
+            got = worker.request({"kind": "reduce", "handle": handle, "start": 0,
+                                  "end": EN_PARTS, "reduce_fn": _el_digest_fn(EN_EDGES, ()),
+                                  "tenant": "default"})
+            _el_check([got], expected, what)
+            return got["sha"]
+
+        base = read_all(cc.workers[1], "(d) before the handoff")
+        t = time.perf_counter()
+        svc = subprocess.Popen(
+            [sys.executable, "-m", "sparkrdma_tpu_torch.elastic.service",
+             "--service-id", EL_SERVICE_ID, "--conf", json.dumps(cc.conf.to_dict())],
+            cwd=HERE, env=_cli_env(), stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+            text=True)
+        port = None
+        while port is None:
+            line = svc.stdout.readline()
+            if not line:
+                raise AssertionError("(d) the daemon exited before it announced its port")
+            if line.startswith("SERVICE_PORT "):
+                port = int(line.split()[1])
+        report["daemon_start_s"] = time.perf_counter() - t
+        if ask(port, {"kind": "ping"}).get("result") != "pong":
+            raise AssertionError("(d) the daemon did not answer its ping")
+        t = time.perf_counter()
+        adopted = cc.workers[0].request({"kind": "handoff", "service": ("127.0.0.1", port)})
+        report["handoff_s"] = time.perf_counter() - t
+        files = sorted(glob.glob(os.path.join(tempfile.gettempdir(),
+                                              f"tpu-shuffle-svc-{EL_SERVICE_ID}-*",
+                                              f"shuffle_{handle.shuffle_id}_*.data")))
+        maps = sorted(int(os.path.basename(f)[:-5].rsplit("_", 1)[1]) for f in files)
+        links = [os.stat(f).st_nlink for f in files]
+        report.update(adopted=adopted, exec0_maps=mine, daemon_maps=maps,
+                      adopted_bytes=sum(os.path.getsize(f) for f in files),
+                      linked=sum(1 for n in links if n > 1),
+                      copied=sum(1 for n in links if n == 1))
+        if adopted != len(mine) or maps != mine or not mine:
+            raise AssertionError(f"(d) adopted {adopted} maps {maps}, proc-exec-0's are {mine}")
+        parked = read_all(cc.workers[1], "(d) after the handoff")
+        w0 = cc.workers[0]
+        w0.proc.kill()
+        w0.proc.wait(timeout=10)
+        dead = [w.executor_id for w in cc._reap_dead()]
+        t = time.perf_counter()
+        served = read_all(cc.workers[0], "(d) from the daemon")
+        report["read_after_kill_s"] = time.perf_counter() - t
+        report["dead"] = dead
+        if dead != ["proc-exec-0"] or not (base == parked == served):
+            raise AssertionError(f"(d) the reads differ, or the wrong worker died: {report}")
+        if not ask(port, {"kind": "stop"}).get("ok"):
+            raise AssertionError("(d) the daemon refused to stop")
+        report["daemon_exit"] = svc.wait(timeout=15)
+        svc = None
+        if report["daemon_exit"] != 0:
+            raise AssertionError(f"(d) the daemon exited {report['daemon_exit']}")
+    finally:
+        if svc is not None:
+            svc.kill()
+            svc.wait(timeout=10)
+        cc.stop()
+    report["startup_s"] = startup
+    return report
+
+
+def _el_lock_order(torch, dev, data):
+    """(e) Phase 10 (b)'s default run with the port's lock-order detector
+    enabled: the map, then the stage reduced cold and warm, then warm
+    again with the detector off; then ``python -m
+    sparkrdma_tpu_torch.analysis`` on the checkout."""
+    from sparkrdma_tpu_torch.analysis import lockorder
+    from sparkrdma_tpu_torch.models.terasort import MapShardSorter
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+    from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
+    from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
+    from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
+    from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+
+    shards, edges, want = data
+    sid = 17
+    det = lockorder.default
+    conf = TpuShuffleConf({**PY_PLANE, **HOST_PLANE_KNOBS})
+    ids = [f"lo-{e}" for e in range(EXECUTORS)]
+    det.reset()
+    det.enable()
+    try:
+        driver = TpuShuffleManager(conf, is_driver=True)
+        execs = [TpuShuffleManager(conf, is_driver=False, executor_id=i) for i in ids]
+        ios = [DeviceShuffleIO(ex, device=dev) for ex in execs]
+        try:
+            driver.register_shuffle(BaseShuffleHandle(
+                shuffle_id=sid, num_maps=EXECUTORS, partitioner=HashPartitioner(REDUCERS)))
+            map_s, _, _, _ = _hp_map_phase(torch, dev, MapShardSorter(dev), ios, shards,
+                                           edges, sid)
+            l0 = (rc.wave_pull_launches, rc.pipelined_wave_pull_launches)
+            cold = _hp_reduce_all(torch, dev, ios, sid, want)[0]
+            warm = _hp_reduce_all(torch, dev, ios, sid, want)[0]
+            launches = [rc.wave_pull_launches - l0[0], rc.pipelined_wave_pull_launches - l0[1]]
+            det.disable()
+            off = _hp_reduce_all(torch, dev, ios, sid, want)[0]
+        finally:
+            for io in ios:
+                io.stop()
+            for ex in execs:
+                ex.stop()
+            driver.stop()
+    finally:
+        det.disable()
+    edges_seen = sorted(f"{a} -> {b}" for a, bs in det.edges.items() for b in bs)
+    names = sorted(set(det.edges) | {b for bs in det.edges.values() for b in bs})
+    p10 = _REPORTS.get(10, {}).get("default", {})
+    out = {"keys": KEYS, "executors": EXECUTORS, "map_s": map_s, "reduce_cold_s": cold,
+           "reduce_warm_s": warm, "reduce_warm_detector_off_s": off,
+           "detector_cost_warm_s": warm - off, "wave_launches": launches,
+           "phase10_default_wave_launches": p10.get("wave_launches"),
+           "phase10_reduce_cold_warm_s": [p10.get("reduce_cold_s"), p10.get("reduce_warm_s")],
+           "lock_names": names, "order_edges": edges_seen, "violations": list(det.violations)}
+    if det.violations:
+        raise AssertionError(f"(e) lock-order violations: {det.violations}")
+    if not edges_seen:
+        raise AssertionError("(e) the detector recorded no lock order")
+    if p10.get("wave_launches") is not None and launches != p10["wave_launches"]:
+        raise AssertionError(f"(e) wave launches {launches}, phase 10 (b)'s "
+                             f"{p10['wave_launches']}")
+    if launches[1] <= 0:
+        raise AssertionError("(e) the pipelined wave-pull kernel never launched")
+    t = time.perf_counter()
+    rc_, text, err, probe = obs_cli([], module="sparkrdma_tpu_torch.analysis")
+    out["analysis"] = {"rc": rc_, "stdout": text.strip(), "seconds": time.perf_counter() - t,
+                       "probe": probe}
+    files = re.match(r"analysis: clean \((\d+) files", text)
+    if rc_ != 0 or files is None or int(files.group(1)) < EL_ANALYSIS_MIN_FILES:
+        raise AssertionError(f"(e) python -m sparkrdma_tpu_torch.analysis: rc {rc_}\n{text}\n"
+                             f"{err[-2000:]}")
+    return out
+
+
+def _el_obs_cli(tmp):
+    """(f) The obs CLI as child processes over (a)-(d)'s artifacts, all
+    started together: each exits 0 with output, and none loads jax or
+    initialises CUDA."""
+    from sparkrdma_tpu_torch.obs import export_chrome_trace, get_registry
+
+    export_chrome_trace(os.path.join(tmp, "trace.json"))
+    with open(os.path.join(tmp, "snapshot.json"), "w") as f:
+        json.dump({"obs_registry": get_registry().snapshot()}, f)
+    t = time.perf_counter()
+    procs = {name: start_obs_cli([a.format(dir=tmp) for a in args])
+             for name, args in EL_CLI.items()}
+    out = {}
+    for name, p in procs.items():
+        rc_, text, err, probe = finish_obs_cli(p)
+        if name == "flamegraph":
+            with open(os.path.join(tmp, "flame.html")) as f:
+                text += f.read()
+        out[name] = {"rc": rc_, "bytes": len(text), "first_line": text.split("\n", 1)[0][:160],
+                     "probe": probe}
+        if rc_ != 0 or not text.strip():
+            raise AssertionError(f"(f) {name}: rc {rc_}, {len(text)} bytes\n{err[-2000:]}")
+        if probe is None or probe["jax"] or probe["cuda_initialized"]:
+            raise AssertionError(f"(f) {name} loaded jax or initialised CUDA: {probe}")
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def phase_elastic_planes(torch, dev, data):
+    """Phase 17: the elastic plane, the obs CLI and the invariant suite on
+    the card's host. (a) Replication in cluster mode at HiBench TeraSort
+    small; (b) an in-process executor loss under replication; (c) the
+    chaos bar (``driver:kill``, then ``exec:kill``); (d) the
+    shuffle-service daemon; (e) phase 10 (b)'s wave pulls under the
+    lock-order detector, and the static passes; (f) the obs CLI."""
+    import shutil
+    import tempfile
+
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+
+    os.environ["PYTHONPATH"] = _cli_env()["PYTHONPATH"]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    rc.reset_launch_counts()
+    pa.reset_launch_counts()
+    report = {"card": smi}
+    tmp = tempfile.mkdtemp(prefix="phase17-")
+    try:
+        for key, run in (("a", lambda: _el_replication(tmp)), ("b", _el_inprocess),
+                         ("c", _el_chaos), ("d", lambda: _el_service(tmp))):
+            t = time.perf_counter()
+            report[key] = run()
+            report[key]["seconds"] = time.perf_counter() - t
+        launched = {k: n for k, n in _all_counts(rc, pa).items() if n}
+        if launched:
+            raise AssertionError(f"(a)-(d) launched kernels: {launched}")
+        t = time.perf_counter()
+        report["e"] = _el_lock_order(torch, dev, data)
+        report["e"]["seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        report["f"] = _el_obs_cli(tmp)
+        report["f"]["seconds"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = {k: v for k, v in _all_counts(rc, pa).items()
+                if v and k not in ("srt_wave_pull", "srt_pipelined_wave_pull")}
+    if launched:
+        raise AssertionError(f"phase 17 launched other kernels: {launched}")
+    counts = {"srt_wave_pull": rc.wave_pull_launches,
+              "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches}
+    emit(17, name="elastic_planes", launches=counts, seconds=time.perf_counter() - t0,
+         **report)
+    return counts
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkrdma_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository")
@@ -4486,6 +5097,7 @@ def main():
     phase_engine(torch, dev)
     native_plane = phase_native_plane(torch, dev, data)
     operations = phase_operations_planes(torch, dev, data)
+    elastic = phase_elastic_planes(torch, dev, data)
     del data
     launches.update(training)
     for k, n in serving.items():
@@ -4498,6 +5110,8 @@ def main():
     for k, n in native_plane.items():
         launches[k] += n
     for k, n in operations.items():
+        launches[k] += n
+    for k, n in elastic.items():
         launches[k] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -28,9 +28,9 @@ the child must find this package on its ``sys.path`` (the driver's
 working directory, or ``PYTHONPATH``). The worker does no tensor work:
 it never initialises CUDA. With telemetry on it arms the process event
 journal (``obs/journal.py``) before its heartbeater starts, so its
-events ride the beats the driver pulls. Cut where a plane is missing
-from the port: the shuffle-service ``handoff`` request raises
-``NotImplementedError`` (``elastic/service.py``, ROADMAP M8b).
+events ride the beats the driver pulls. The shuffle-service ``handoff``
+request sends the committed map outputs' manifests to the daemon
+(``elastic/service.py`` ``send_adopt``), as in JAX.
 """
 
 from __future__ import annotations
@@ -302,10 +302,21 @@ class Worker:
             # committed map outputs by file path + partition lengths and
             # ask the daemon to adopt them — no byte copy; the daemon
             # hard-links and re-mmaps the same inodes
-            raise NotImplementedError(
-                "the shuffle-service handoff needs elastic/service.py, "
-                "which the port brings with ROADMAP item M8b"
+            from sparkrdma_tpu_torch.elastic.service import send_adopt
+
+            host, port = req["service"]
+            manifests = {}
+            for sid in self.manager.resolver.shuffle_ids():
+                data = self.manager.resolver.get_shuffle_data(sid)
+                manifest = getattr(data, "handoff_manifest", None)
+                if manifest is not None:
+                    maps = manifest()
+                    if maps:
+                        manifests[sid] = maps
+            adopted = send_adopt(
+                (host, port), self.manager.executor_id, manifests
             )
+            return {"ok": True, "result": adopted}
         if kind == "telemetry":
             # control-plane pull: hand buffered heartbeats to the driver
             payloads = (

@@ -4,8 +4,8 @@ profiler and the cluster telemetry plane (heartbeats, the driver's
 ``TelemetryHub`` with its time-series rings, straggler detection, SLO
 engine, diagnosis, capacity plane and OpenMetrics export, and the event
 journal): copies of the JAX package's ``obs/`` modules of the same
-names, with the same exports. The obs CLI (``python -m
-sparkrdma_tpu.obs``) comes with ROADMAP item M8b; ``python -m
+names, with the same exports. The obs CLI is ``python -m
+sparkrdma_tpu_torch.obs`` (``obs/__main__.py``); ``python -m
 sparkrdma_tpu_torch.obs.trend`` runs the trend engine.
 """
 

@@ -29,8 +29,8 @@ Loadable from live tracers (:func:`job_breakdown`, wired into
 (:func:`spans_from_chrome`).
 
 A copy of the JAX package's ``obs/critpath.py``, its imports rewritten
-to this package. The JAX package's ``python -m sparkrdma_tpu.obs
---critical-path`` CLI over saved exports comes with ROADMAP item M8b.
+to this package. ``python -m sparkrdma_tpu_torch.obs --critical-path``
+replays it over saved exports.
 
 Stdlib-only and jax-free, like the rest of ``obs/``.
 """

@@ -54,7 +54,7 @@ An injected fault outranks everything because it is the one cause we
 *know* is real; infrastructure evidence (dead executor, straggler)
 outranks symptom evidence (dominant category), which outranks
 historical context (trend). Rendered by :func:`render` (the obs CLI's
-``--diagnose <file>`` comes with ROADMAP item M8b).
+``--diagnose <file>``, ``python -m sparkrdma_tpu_torch.obs``).
 
 Stdlib-only, jax-free, and best-effort throughout: a diagnosis pass
 must never add a failure mode to the breach path it explains.

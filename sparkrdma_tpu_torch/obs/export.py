@@ -16,7 +16,7 @@ inside a bench/workload artifact) as OpenMetrics text:
 Two egress paths: :class:`OpenMetricsServer` (a stdlib ``http.server``
 thread for scrapes, conf ``obs.telemetry.httpPort``) and
 :func:`write_openmetrics` (a file for scrape-less runs; the obs CLI's
-``--openmetrics`` comes with ROADMAP item M8b).
+``--openmetrics``, ``python -m sparkrdma_tpu_torch.obs``).
 
 Stdlib-only and jax-free, like the rest of ``obs/``.
 A copy of the JAX package's ``obs/export.py``, its imports rewritten

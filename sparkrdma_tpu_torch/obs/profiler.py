@@ -34,9 +34,10 @@ The sampler's own self-time accrues to ``profile.overhead_ms``.
 
 A copy of the JAX package's ``obs/profiler.py``, its imports rewritten
 to this package. The driver's ``TelemetryHub`` merges the executors'
-tables (``ProfileHub``); the obs CLI's ``--flamegraph`` comes with
-ROADMAP item M8b. The engine's contexts and workers run the sampler,
-and ``job_breakdown`` annotates gap segments from it.
+tables (``ProfileHub``); the obs CLI's ``--flamegraph`` and
+``--folded`` render them (``python -m sparkrdma_tpu_torch.obs``). The
+engine's contexts and workers run the sampler, and ``job_breakdown``
+annotates gap segments from it.
 
 Stdlib-only and jax-free, like the rest of ``obs/``.
 """

@@ -23,7 +23,7 @@ runs had dashboards but no judge: nothing watched the
   answers each with an automated root-cause
   :mod:`~sparkrdma_tpu_torch.obs.diagnose` pass, and both ride
   ``metrics_snapshot()["slo"]``, flight records, soak/bench ledgers,
-  and the obs CLI's ``--diagnose`` renderer (ROADMAP item M8b).
+  and the obs CLI's ``--diagnose`` renderer (``obs/__main__.py``).
 
 Burn-rate semantics (unit-tested against hand-computed windows in
 tests/test_slo.py):

@@ -22,8 +22,10 @@ Tenancy quota charging works as in the JAX arena: with an ``hbm``
 quota broker installed (``tenancy/quota.py``), ``get`` charges the
 calling tenant a slab class for the get-to-put lifetime, ``put``
 releases it, and an over-quota tenant's slabs are the first spill
-victims. The lock-order detector of the JAX arena waits for ROADMAP
-item M8c; plain ``threading`` locks guard the tables.
+victims. The tables' locks are the JAX arena's named locks
+(``hbm.buffer`` outer, ``hbm.manager`` inner, ``hbm.evict``), which the
+lock-order detector (``analysis/lockorder.py``) watches when it is
+enabled.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.analysis.lockorder import named_lock
 from sparkrdma_tpu_torch.obs import get_registry
 from sparkrdma_tpu_torch.tenancy import current_tenant, tenant_scope
 from sparkrdma_tpu_torch.tenancy import quota as _quota
@@ -97,7 +100,7 @@ class DeviceBuffer:
         self._disk = None  # spill-file path while in disk tier
         # serializes tier moves of this buffer; buffer lock OUTER,
         # manager lock inner (the JAX arena's ordering rules)
-        self._tier_lock = threading.Lock()
+        self._tier_lock = named_lock("hbm.buffer", allow_self_nest=True)
         self.last_use = 0
         self.tenant = None  # owning tenant id (spill-victim preference)
         self._quota_tag = None  # (broker, tenant, cls) while charged
@@ -295,8 +298,8 @@ class DeviceBufferManager:
         self._pin_threads: Dict[int, List[int]] = {}  # handle -> owner idents
         # budget reserved by get() for slabs not yet in the handle table
         self._allocating = 0
-        self._evict_cond = threading.Condition(threading.Lock())
-        self._lock = threading.Lock()
+        self._evict_cond = threading.Condition(named_lock("hbm.evict"))
+        self._lock = named_lock("hbm.manager")
         self._stopped = False
         # optional warm-up (reference maxAggPrealloc,
         # RdmaBufferManager.java:84-91): ``prealloc`` slabs of

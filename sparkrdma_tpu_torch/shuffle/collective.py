@@ -51,7 +51,6 @@ span per adopted wave under it, the JAX compiler's span names.
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from collections import deque
 from contextlib import ExitStack, nullcontext
@@ -60,6 +59,7 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.analysis.lockorder import named_lock
 from sparkrdma_tpu_torch.locations import PartitionLocation
 from sparkrdma_tpu_torch.obs import get_registry
 from sparkrdma_tpu_torch.ops import remote_copy
@@ -218,7 +218,7 @@ class ShuffleScheduleCompiler:
         self._tracer = tracer
         # program-shape bookkeeping for the compile-churn metrics
         self._seen_programs: set = set()
-        self._cache_lock = threading.Lock()
+        self._cache_lock = named_lock("collective.compiler")
         self._tuner = WaveAutoTuner(conf, executor_id)
         # device time of each recent kernel launch, in ms (CUDA events)
         self.kernel_ms: Deque[float] = deque(maxlen=4096)

@@ -23,10 +23,13 @@ another plane is missing from the port:
 - ``transport=native`` (and ``auto`` where g++ is present) never falls
   back to the python plane: a failed build raises
   (``transport/__init__.py``);
-- the elastic replica store (``elastic.replicas`` > 0) raises
-  ``NotImplementedError`` until ROADMAP item M8b;
-- the lock-order detector and the model checker's schedule points are
-  the inert seams of ``utils/seams.py``.
+- the lock-order detector's locks come through ``utils/seams.py``
+  (``analysis/lockorder.py``), and the model checker's schedule points
+  are its inert seam (ROADMAP M8c-b).
+
+Executors with ``elastic.replicas`` > 0 build the replica client and
+store (``elastic/replication.py``), as in JAX; ``stop()`` unregisters
+and stops the store.
 
 The driver builds the telemetry hub (``obs/telemetry.py``
 ``TelemetryHub``) when ``obs.telemetry.enabled`` is true, as in JAX:
@@ -257,10 +260,11 @@ class TpuShuffleManager:
         self.replica_client = None
         self.replica_store = None
         if conf.elastic_replicas > 0 and not is_driver:
-            raise NotImplementedError(
-                "tpu.shuffle.elastic.replicas > 0 needs the elastic plane, "
-                "which the port brings with ROADMAP item M8b"
-            )
+            from sparkrdma_tpu_torch import elastic as _elastic
+
+            self.replica_client = _elastic.ReplicaClient(self)
+            self.replica_store = _elastic.ReplicaStore(self)
+            _elastic.register_store(self.replica_store)
         # publish-time checksum tagging pool (lazy; see _checksummed)
         self._ck_pool: Optional[ThreadPoolExecutor] = None
 
@@ -1262,6 +1266,11 @@ class TpuShuffleManager:
 
             _merge.unregister_endpoint(self.merge_endpoint)
             self.merge_endpoint.stop()
+        if self.replica_store is not None:
+            from sparkrdma_tpu_torch import elastic as _elastic
+
+            _elastic.unregister_store(self.replica_store)
+            self.replica_store.stop()
         if self.telemetry is not None:
             self.telemetry.stop()
         if self.reader_stats is not None:

@@ -1,17 +1,17 @@
-"""Inert seams for the JAX package's analysis planes that the port has
-not reached.
+"""Seams between the host-plane modules and the analysis planes.
 
-The host-plane modules the port copies call into two planes that have
-no port module yet: the lock-order detector (``analysis/lockorder.py``)
-and the model checker's schedule points (``analysis/modelcheck``). Each
-gets a stand-in here with the same name and call shape, so the copies
-keep the JAX call sites line for line and the real plane drops in later
-without touching them:
+The host-plane modules the port copies call into two analysis planes of
+the JAX package: the lock-order detector (``analysis/lockorder.py``)
+and the model checker's schedule points (``analysis/modelcheck``). The
+copies import both from here, so they keep the JAX call sites line for
+line:
 
-- ``named_lock`` / ``OrderedLock``: plain ``threading`` locks that keep
-  their names (ROADMAP M8c, the analysis passes pointed at the port);
-- ``schedule_point``: does nothing (ROADMAP M8c, with the analysis
-  passes).
+- ``named_lock`` / ``OrderedLock``: the port's lock-order detector
+  (``sparkrdma_tpu_torch/analysis/lockorder.py``), re-exported;
+- ``schedule_point`` and ``active``: the model checker's seam, inert
+  until the model checker is pointed at the port (ROADMAP M8c-b).
+  ``active`` stands for the JAX ``modelcheck.sched.active`` scheduler,
+  which ``OrderedLock`` reads on every acquire; it stays ``None`` here.
 
 The cluster event journal is ``obs/journal.py``; its emitters import
 ``emit`` from there, as in the JAX package.
@@ -19,40 +19,24 @@ The cluster event journal is ``obs/journal.py``; its emitters import
 
 from __future__ import annotations
 
-import threading
-
-
-class OrderedLock:
-    """A named lock. The JAX package's version feeds a lock-order
-    detector that reads its flags; this one only keeps the name (ROADMAP
-    M8c)."""
-
-    __slots__ = ("name", "_lock")
-
-    def __init__(self, name: str, *, recursive: bool = False):
-        self.name = name
-        self._lock = threading.RLock() if recursive else threading.Lock()
-
-    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
-        return self._lock.acquire(blocking, timeout)
-
-    def release(self) -> None:
-        self._lock.release()
-
-    def __enter__(self) -> bool:
-        return self._lock.acquire()
-
-    def __exit__(self, *exc) -> None:
-        self._lock.release()
-
-
-def named_lock(name: str, *, hot: bool = False, recursive: bool = False,
-               allow_self_nest: bool = False) -> OrderedLock:
-    """A named lock (the JAX ``analysis.lockorder.named_lock`` signature;
-    ``hot`` and ``allow_self_nest`` are the detector's flags)."""
-    return OrderedLock(name, recursive=recursive)
+#: the model checker's active scheduler; ``None`` until ROADMAP M8c-b
+active = None
 
 
 def schedule_point(kind: str, label: str) -> None:
     """A model-checker interleaving seam; inert until the model checker
-    is pointed at the port (ROADMAP M8c)."""
+    is pointed at the port (ROADMAP M8c-b)."""
+
+
+def __getattr__(name: str):
+    # ``named_lock`` / ``OrderedLock`` resolve on first use: lockorder
+    # imports this module for ``active``, so neither may import the
+    # other at the top
+    if name in ("named_lock", "OrderedLock"):
+        from sparkrdma_tpu_torch.analysis import lockorder
+
+        return getattr(lockorder, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["OrderedLock", "active", "named_lock", "schedule_point"]

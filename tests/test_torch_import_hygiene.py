@@ -48,10 +48,11 @@ def test_importing_every_port_module_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     # every module of the port: a subpackage that fails to import
     # would drop its modules from the walk
-    assert len(res["imported"]) >= 105
+    assert len(res["imported"]) >= 117
     assert set(ENGINE_MODULES) <= set(res["imported"])
     assert set(NATIVE_MODULES) <= set(res["imported"])
     assert set(OBS_MODULES) <= set(res["imported"])
+    assert set(ELASTIC_CLI_ANALYSIS_MODULES) <= set(res["imported"])
     assert res["bad"] == []
 
 
@@ -158,6 +159,66 @@ def test_obs_module_alone_loads_no_jax_and_arms_nothing(name):
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], True, 1]
+
+
+ELASTIC_CLI_ANALYSIS_MODULES = [
+    "sparkrdma_tpu_torch.elastic.replication",
+    "sparkrdma_tpu_torch.elastic.service",
+    "sparkrdma_tpu_torch.obs.__main__",
+    "sparkrdma_tpu_torch.version",
+    "sparkrdma_tpu_torch.analysis",
+    "sparkrdma_tpu_torch.analysis.__main__",
+    "sparkrdma_tpu_torch.analysis.knobs",
+    "sparkrdma_tpu_torch.analysis.metrics_pass",
+    "sparkrdma_tpu_torch.analysis.tenancy_pass",
+    "sparkrdma_tpu_torch.analysis.wire",
+    "sparkrdma_tpu_torch.analysis.lockorder",
+    "sparkrdma_tpu_torch.analysis.pytest_plugin",
+]
+
+
+@pytest.mark.parametrize("name", ELASTIC_CLI_ANALYSIS_MODULES)
+def test_elastic_cli_and_analysis_module_alone_loads_no_jax(name):
+    """Each module of the elastic plane, the obs CLI and the invariant
+    suite, imported first in a fresh interpreter, loads neither jax nor
+    the JAX package, initialises no CUDA, patches no blocking call and
+    starts no thread."""
+    script = (
+        "import importlib, json, socket, sys, threading, time\n"
+        "sleep0, connect0 = time.sleep, socket.create_connection\n"
+        f"importlib.import_module({name!r})\n"
+        "t = sys.modules.get('torch')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'sparkrdma_tpu' or m.startswith('sparkrdma_tpu.'))\n"
+        "print(json.dumps([bad, bool(t is not None and t.cuda.is_initialized()),"
+        " time.sleep is sleep0 and socket.create_connection is connect0,"
+        " threading.active_count()]))\n"
+    )
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "SPARKRDMA_LOCK_ORDER")}
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False, True, 1]
+
+
+@pytest.mark.parametrize("module, args, says", [
+    ("sparkrdma_tpu_torch.obs", ["--prefix", "no.such.prefix."], '"counters": {}'),
+    ("sparkrdma_tpu_torch.elastic.service", ["--help"], "--service-id"),
+    ("sparkrdma_tpu_torch.analysis", ["--list"], "knob-registry"),
+])
+def test_port_entry_points_run_as_modules_without_jax(module, args, says):
+    """``python -m`` of the obs CLI, the shuffle-service daemon and the
+    analysis runner: each exits 0 and, when it exits, has loaded neither
+    jax nor the JAX package and never initialised CUDA."""
+    import chip_smoke
+
+    rc, out, err, probe = chip_smoke.obs_cli(args, module=module, timeout=120)
+    assert rc == 0, err[-2000:]
+    assert says in out
+    assert probe == {"jax": [], "cuda_initialized": False}
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)

@@ -358,16 +358,3 @@ def test_chip_smoke_hub_alone_phase_on_the_cpu(monkeypatch):
     assert out["journal"]["events"] == 800 and out["journal"]["duplicates"] > 0
     assert out["openmetrics_bytes"] > 0
 
-
-def test_elastic_replicas_and_the_obs_cli_still_wait_for_m8b():
-    """The elastic replica store and the obs CLI are ROADMAP M8b: an
-    executor asked for replicas raises naming it, and the port has no
-    ``obs/__main__.py``."""
-    import importlib.util
-
-    from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
-
-    conf = TpuShuffleConf(dict(PYTHON, **{"tpu.shuffle.elastic.replicas": "1"}))
-    with pytest.raises(NotImplementedError, match="M8b"):
-        TpuShuffleManager(conf, is_driver=False, executor_id="m8b-exec")
-    assert importlib.util.find_spec("sparkrdma_tpu_torch.obs.__main__") is None
