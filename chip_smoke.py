@@ -279,6 +279,33 @@ exits nonzero and prints no result. Phases, each one JSON line:
    ``--timeline``, ``--diagnose``, ``--critical-path``,
    ``--flamegraph``, ``--flight-recorder`` and ``--demo``, each exiting
    0 with output, none loading jax or initialising CUDA;
+18. ``models_and_ranks``: the model checker, two ranks and the live
+   schedule-point seam, the card's name and power limit beside them.
+   (a) The model checker as child processes on the card's host, none
+   loading jax or initialising CUDA: ``python -m
+   sparkrdma_tpu_torch.analysis.modelcheck --walks 25`` (every model
+   clean), ``--mutants`` (18 of 18 caught), a child that runs the gate
+   and replays each caught schedule three times (identical text) and
+   once without its mutant (clean, or unable to follow the schedule,
+   never a violation), ``--replay`` of one caught schedule a model, and
+   ``--exhaustive --max-schedules 2000`` of each model, all started
+   together and alone on the host: schedules
+   explored, complete or not, walls. (b) Two ranks on the card (the
+   default compute mode, read from ``nvidia-smi``, is required):
+   ``multihost.initialize`` over loopback (gloo), 4 shards a rank on
+   ``cuda:0`` (E = 8), each rank feeding its half of phase 9's 1 GiB
+   study send through ``exchange`` and ``ring_exchange``, 6 calls each:
+   every received shard's SHA-256 equal to the one-process program's,
+   computed here; cold and warm walls, per-process ``exchange.*``
+   deltas, 14 ``srt_neighbor_pull`` launches a ring call on each rank,
+   the bytes that crossed ranks and the path they took (gloo's
+   ``all_to_all_single`` takes CUDA tensors; the ring's hops stage
+   through pinned host buffers). Before it, ``srt_neighbor_pull`` with
+   its last row read from a separate tensor against its plain version.
+   (c) Phase 10 (b)'s map and reduces with the live ``schedule_point``
+   and no scheduler active: the schedule points reached, the wave
+   launches of the cold and warm reduce equal to phase 10 (b)'s, then
+   warm reduces with the seam live and stubbed, in turns;
 
 Then the timing phases (every kernel at its main path's shapes: the
 kernel's time against its bound, the plain version's and, where one
@@ -5060,6 +5087,578 @@ def phase_elastic_planes(torch, dev, data):
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase 18: the model checker on the card's host, two ranks on the card,
+# and the live schedule-point seam on the device path
+# ----------------------------------------------------------------------
+MC_MODULE = "sparkrdma_tpu_torch.analysis.modelcheck"
+MC_MODELS = ("merge_seal", "meta_lease", "quota_stall", "replica_promotion", "speculation")
+MC_WALKS = 25  # the CI smoke's walks (python -m ... --walks 25)
+MC_MAX_SCHEDULES = 2000  # the nightly's bound (python -m ... --exhaustive --max-schedules 2000)
+MC_MUTANTS = 18
+MC_TIMEOUT_S = 300
+RK_RANKS = 2
+RK_SHARDS = 4  # shards a rank holds on the one card: E = 8, phase 9's mesh
+RK_CALLS = 6  # one cold call and five warm a schedule
+RK_TIMEOUT_S = 300
+SEAM_ORDER = ("live", "stub", "stub", "live") * 2  # warm reduces, in turns
+# runs ``python -c <code>`` (argv[1]) with argv[2:] as its arguments and,
+# at exit, prints what the child loaded, as _CLI_WRAPPER does
+_CODE_WRAPPER = _CLI_WRAPPER.split("sys.argv = sys.argv[1:]")[0] + """\
+code = sys.argv[1]
+sys.argv = sys.argv[1:]
+exec(compile(code, "<child>", "exec"), {"__name__": "__main__"})
+"""
+
+
+def start_code_child(code, args=()):
+    """Start ``python -c <code> <args>`` from the checkout root, probed as
+    :func:`start_obs_cli`'s children are; :func:`finish_obs_cli` collects
+    it."""
+    return subprocess.Popen([sys.executable, "-c", _CODE_WRAPPER, code, *map(str, args)],
+                            cwd=HERE, env=_cli_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def start_mc_exhaustive():
+    """The bounded exhaustive search of every model, one CLI child a
+    model, all started together; their output goes to files, so no
+    child blocks on a pipe while another is waited for. Each step of a
+    search is two thread handoffs between cores, and searches that share
+    the cores slow each other several times over (two on an 8-core x86
+    host: 107 s against 35 s alone), so where the host has a core to
+    spare for each, each search is pinned to a core of its own
+    (``cpus``; two pinned there: 35 s)."""
+    import tempfile
+
+    t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase18-exhaustive-")
+    cores = sorted(os.sched_getaffinity(0))
+    cpus = dict(zip(MC_MODELS, cores[-len(MC_MODELS):])) if len(cores) > len(MC_MODELS) else {}
+    procs, files = {}, {}
+    for m in MC_MODELS:
+        files[m] = (open(os.path.join(tmp, m + ".out"), "w+"),
+                    open(os.path.join(tmp, m + ".err"), "w+"))
+        pin = (lambda c=cpus[m]: os.sched_setaffinity(0, {c})) if m in cpus else None
+        procs[m] = subprocess.Popen(
+            [sys.executable, "-c", _CLI_WRAPPER, MC_MODULE, "--model", m, "--exhaustive",
+             "--max-schedules", str(MC_MAX_SCHEDULES)],
+            cwd=HERE, env=_cli_env(), stdout=files[m][0], stderr=files[m][1],
+            text=True, preexec_fn=pin)
+    return {"procs": procs, "files": files, "dir": tmp, "t0": t, "cpus": cpus}
+
+
+def _finish_file_child(proc, files, timeout):
+    """As :func:`finish_obs_cli`, for a child whose output went to files."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    texts = []
+    for f in files:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    out, err = texts
+    lines = [ln for ln in err.splitlines() if ln.startswith(CLI_PROBE)]
+    probe = json.loads(lines[-1][len(CLI_PROBE):]) if lines else None
+    return proc.returncode, out, err, probe
+
+
+def stop_children(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+_MC_GATE_CODE = """\
+import json, logging, os, sys, time
+logging.disable(logging.WARNING)  # every speculation schedule logs its clone
+from sparkrdma_tpu_torch.analysis.modelcheck.explore import replay_artifact, save_artifact
+from sparkrdma_tpu_torch.analysis.modelcheck.mutants import run_gate
+from sparkrdma_tpu_torch.analysis.modelcheck.sched import ReplayDivergence
+out = sys.argv[1]
+t = time.perf_counter()
+gate = run_gate(walks=40)
+gate_s = time.perf_counter() - t
+rows = {}
+t = time.perf_counter()
+for name, r in sorted(gate.items()):
+    f = r["failure"]
+    row = {"model": r["model"], "how": r["how"], "kind": f and f["kind"],
+           "trace_steps": f and len(f["trace"]), "violation": r["violation"]}
+    if f is not None:
+        save_artifact(f, os.path.join(out, name + ".json"))
+        texts = [replay_artifact(f) for _ in range(3)]
+        row["replays_identical"] = len(set(texts)) == 1 and texts[0] == r["violation"]
+        try:
+            row["without_mutant"] = replay_artifact(dict(f, mutant=None)) or "clean"
+        except ReplayDivergence as e:
+            row["without_mutant"] = "diverged: " + str(e).split(":")[0]
+    rows[name] = row
+print("GATE " + json.dumps({"gate_s": gate_s, "replay_s": time.perf_counter() - t,
+                             "mutants": rows}))
+"""
+
+
+def _mc_children(tmp):
+    """(a) The model checker as children, all started together: the
+    CLI's walks, mutation gate, replays and exhaustive search, and the
+    gate's caught schedules replayed in a child of their own."""
+    import shutil
+
+    out = {}
+    t = time.perf_counter()
+    exhaustive = start_mc_exhaustive()
+    try:
+        _mc_collect(tmp, exhaustive, out)
+    finally:
+        stop_children(exhaustive["procs"].values())
+    out["seconds"] = time.perf_counter() - t
+    shutil.rmtree(tmp, ignore_errors=True)
+    shutil.rmtree(exhaustive["dir"], ignore_errors=True)
+    return out
+
+
+def _mc_collect(tmp, exhaustive, out):
+    t = time.perf_counter()
+    cli = {"walks": start_obs_cli(["--walks", str(MC_WALKS)], module=MC_MODULE),
+           "mutants": start_obs_cli(["--mutants"], module=MC_MODULE)}
+    gate = start_code_child(_MC_GATE_CODE, [tmp])
+    rc_, text, err, probe = finish_obs_cli(gate, timeout=MC_TIMEOUT_S)
+    lines = [ln for ln in text.splitlines() if ln.startswith("GATE ")]
+    if rc_ != 0 or not lines:
+        raise AssertionError(f"(a) the gate's replay child: rc {rc_}\n{err[-3000:]}")
+    g = json.loads(lines[-1][len("GATE "):])
+    rows = g["mutants"]
+    caught = [m for m, r in rows.items() if r["how"] is not None]
+    if len(rows) != MC_MUTANTS or len(caught) != MC_MUTANTS:
+        raise AssertionError(f"(a) the gate caught {len(caught)} of {len(rows)} mutants")
+    bad = {m: r for m, r in rows.items() if not r["replays_identical"] or not (
+        r["without_mutant"] == "clean" or r["without_mutant"].startswith("diverged"))}
+    if bad:
+        raise AssertionError(f"(a) replays of the gate's failures: {bad}")
+    out["gate"] = {"mutants": len(rows), "caught": len(caught), "gate_s": g["gate_s"],
+                   "replay_s": g["replay_s"], "replayed_three_times_identical": len(rows),
+                   "without_mutant_clean": sorted(m for m, r in rows.items()
+                                                  if r["without_mutant"] == "clean"),
+                   "without_mutant_diverged": {m: r["without_mutant"] for m, r in rows.items()
+                                               if r["without_mutant"] != "clean"},
+                   "how": {m: [r["how"], r["kind"], r["trace_steps"]] for m, r in rows.items()},
+                   "probe": probe}
+    # the CLI replays one caught schedule of each model
+    first = {}
+    for m, r in sorted(rows.items()):
+        first.setdefault(r["model"], m)
+    cli.update({f"replay_{model}": start_obs_cli(
+        ["--replay", os.path.join(tmp, m + ".json")], module=MC_MODULE)
+        for model, m in first.items()})
+    runs = {}
+    for name, p in cli.items():
+        rc_, text, err, probe = finish_obs_cli(p, timeout=MC_TIMEOUT_S)
+        runs[name] = {"rc": rc_, "last_line": text.strip().splitlines()[-1][:200] if text.strip()
+                      else "", "probe": probe}
+        if rc_ != 0:
+            raise AssertionError(f"(a) modelcheck {name}: rc {rc_}\n{text[-2000:]}{err[-2000:]}")
+        if name == "walks":
+            runs[name]["schedules"] = {m: int(n) for m, n in re.findall(
+                r"model (\S+)\s+clean: (\d+) schedules", text)}
+            if runs[name]["schedules"] != {m: MC_WALKS + 1 for m in MC_MODELS}:
+                raise AssertionError(f"(a) the walks: {text[-2000:]}")
+    out["cli"] = runs
+    out["cli_s"] = time.perf_counter() - t
+    ex = {}
+    walls = {}
+    deadline = exhaustive["t0"] + MC_TIMEOUT_S
+    while len(walls) < len(exhaustive["procs"]) and time.perf_counter() < deadline:
+        for m, p in exhaustive["procs"].items():
+            if m not in walls and p.poll() is not None:
+                walls[m] = time.perf_counter() - exhaustive["t0"]
+        time.sleep(0.1)
+    for m, p in exhaustive["procs"].items():
+        rc_, text, err, probe = _finish_file_child(p, exhaustive["files"][m], 1.0)
+        found = re.search(r"clean: (\d+) schedules \((\w+)\)", text)
+        if rc_ != 0 or found is None:
+            raise AssertionError(f"(a) exhaustive {m}: rc {rc_}\n{text[-2000:]}{err[-2000:]}")
+        ex[m] = {"rc": rc_, "schedules": int(found.group(1)),
+                 "complete": found.group(2) == "complete", "wall_s": walls[m], "probe": probe}
+    out["exhaustive"] = ex
+    out["exhaustive_cpus"] = exhaustive["cpus"]
+    out["exhaustive_wall_s"] = time.perf_counter() - exhaustive["t0"]
+    probes = [r["probe"] for r in list(runs.values()) + list(ex.values())] + [
+        out["gate"]["probe"]]
+    if any(p is None or p["jax"] or p["cuda_initialized"] for p in probes):
+        raise AssertionError(f"(a) a model-checker child loaded jax or initialised CUDA: {probes}")
+
+
+def _study_rows(torch, dev, e, block, srcs):
+    """The exchange study's send rows of the shards ``srcs`` (row src*e+dst
+    holds its (src, dst) payload) and their counts, built on the card."""
+    srcs = list(srcs)
+    send = torch.zeros((len(srcs) * e, block), dtype=torch.uint8, device=dev)
+    counts = np.zeros(len(srcs) * e, np.int32)
+    for i, src in enumerate(srcs):
+        for dst in range(e):
+            n, v = _study_payload_len(src, dst, block)
+            send[i * e + dst, :n] = v
+            counts[i * e + dst] = n
+    return send, torch.from_numpy(counts).to(dev)
+
+
+def _shard_digests(torch, recv, rcounts, e):
+    """SHA-256 of each shard's received rows and counts."""
+    r = recv.view(-1, e, recv.shape[-1])
+    c = rcounts.view(-1, e)
+    out = []
+    for i in range(r.shape[0]):
+        h = hashlib.sha256(r[i].cpu().numpy().tobytes())
+        h.update(c[i].cpu().numpy().tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+_RANK_CODE = """\
+import sys
+import chip_smoke
+chip_smoke.rank_worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
+"""
+
+
+def rank_worker(rank, port, device="cuda", block=STUDY_BLOCK):
+    """One rank of (b): joins the group over loopback, holds RK_SHARDS
+    shards on ``device`` (the card's first, unless a CPU rehearsal asks
+    for ``cpu``) and feeds its rows of phase 9's study send (``block``
+    bytes a bucket) through both schedules; prints one ``RANK`` JSON
+    line."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from sparkrdma_tpu_torch.obs import get_registry
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+    from sparkrdma_tpu_torch.ops.exchange import ExchangeProgram
+    from sparkrdma_tpu_torch.parallel import multihost
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    t = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{port}", RK_RANKS, rank, backend="gloo")
+    mesh = multihost.global_mesh(shards_per_rank=RK_SHARDS, device=dev)
+    init_s = time.perf_counter() - t
+    e = mesh.num_shards
+    send, counts = _study_rows(torch, dev, e, block, mesh.local)
+    _sync(torch, dev)
+    prog = ExchangeProgram(mesh)
+    reg = get_registry()
+    fams = ("exchanges", "bytes_sent", "bytes_received", "bytes_received_valid")
+    res = {"rank": rank, "backend": dist.get_backend(), "world": dist.get_world_size(),
+           "local": [mesh.local.start, mesh.local.stop], "mesh": mesh.shape,
+           "init_s": init_s, "cross_rank_path": prog.cross_rank_path,
+           "local_send_bytes": send.numel()}
+    for label, fn in (("a2a", prog.exchange), ("ring", prog.ring_exchange)):
+        c0 = {f: reg.counter(f"exchange.{f}", schedule=label).value for f in fams}
+        x0 = prog.cross_rank_bytes[label]
+        walls, launches = [], []
+        for i in range(RK_CALLS):
+            dist.barrier()
+            _sync(torch, dev)
+            n0 = rc.neighbor_pull_launches
+            t = time.perf_counter()
+            recv, rcounts = fn(send, counts)
+            _sync(torch, dev)
+            walls.append(time.perf_counter() - t)
+            launches.append(rc.neighbor_pull_launches - n0)
+            if i == 0:
+                digests = _shard_digests(torch, recv, rcounts, e)
+            del recv, rcounts
+        res[label] = {
+            "digests": digests, "cold_s": walls[0], "warm_s": walls[1:],
+            "warm_median_s": statistics.median(walls[1:]),
+            "neighbor_pull_launches_per_call": launches,
+            "cross_rank_bytes_per_call": (prog.cross_rank_bytes[label] - x0) // RK_CALLS,
+            "exchange_deltas": {f: reg.counter(f"exchange.{f}", schedule=label).value - c0[f]
+                                for f in fams},
+            "stats": prog.stats[label]}
+    res["neighbor_pull_launches"] = rc.neighbor_pull_launches
+    dist.barrier()
+    dist.destroy_process_group()
+    print("RANK " + json.dumps(res), flush=True)
+
+
+def _boundary_row_kernel(torch, dev):
+    """srt_neighbor_pull with its last row read from a separate tensor
+    (the ring's receive buffer) against its plain version, byte for byte:
+    small, odd and misaligned stacks and the ring's [4, 128 MiB] hop."""
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+
+    n0 = rc.neighbor_pull_launches
+    cases = [(1, (7,), torch.uint8, 0, 0), (3, (1025,), torch.int32, 0, 0),
+             (4, (MESH,), torch.int32, 0, 0), (2, (4097,), torch.bfloat16, 0, 0),
+             (4, ((64 << 10) + 3,), torch.uint8, 1, 3),
+             (RK_SHARDS, (MESH * STUDY_BLOCK,), torch.uint8, 0, 0)]
+    out = []
+    for n, shape, dtype, soff, doff in cases:
+        both = _offset_stack(torch, dev, n + 1, shape, dtype, soff)
+        blocks, last = both[:n], both[n].clone()
+        dst = _offset_stack(torch, dev, n, shape, dtype, doff, fill=0xA5)
+        got = rc.neighbor_pull(blocks, out=dst, last=last)
+        want = rc.neighbor_pull_reference(blocks, last)
+        torch.cuda.synchronize()
+        if not torch.equal(got.reshape(n, -1).view(torch.uint8),
+                           want.reshape(n, -1).view(torch.uint8)):
+            raise AssertionError(f"the boundary row differs from its plain version: n {n}, "
+                                 f"shard {shape} {dtype}, offsets {soff}/{doff}")
+        out.append({"n": n, "shard_bytes": last.numel() * last.element_size(),
+                    "dtype": str(dtype), "src_offset": soff, "dst_offset": doff})
+        del both, blocks, last, dst, got, want
+    return {"cases": out, "equal": True,
+            "comparison_launches": rc.neighbor_pull_launches - n0}
+
+
+def _two_ranks(torch, dev):
+    """(b) Two ranks on the card, E = 8: phase 9's study send, each rank
+    its half, through both schedules; every received shard's SHA-256
+    against the single-process program's, computed here."""
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sparkrdma_tpu_torch.ops import _build
+    from sparkrdma_tpu_torch.ops.exchange import ExchangeProgram
+    from sparkrdma_tpu_torch.parallel import make_mesh
+
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    if "exclusive" in mode.lower():
+        raise AssertionError(f"(b) the card's compute mode is {mode}: two processes cannot "
+                             "share it (the default mode is needed)")
+    e = RK_RANKS * RK_SHARDS
+    send, counts, want, want_counts = _study_send(torch, dev, e, STUDY_BLOCK)
+    ref = {}
+    prog = ExchangeProgram(make_mesh([dev] * e))
+    for label, fn in (("a2a", prog.exchange), ("ring", prog.ring_exchange)):
+        recv, rcounts = fn(send, counts)
+        if not (torch.equal(recv, want) and torch.equal(rcounts, want_counts)):
+            raise AssertionError(f"(b) the one-process {label} differs from the sent blocks")
+        ref[label] = _shard_digests(torch, recv, rcounts, e)
+        del recv, rcounts
+    if ref["a2a"] != ref["ring"]:
+        raise AssertionError("(b) the one-process schedules' digests differ")
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+
+    reference_launches = rc.neighbor_pull_launches
+    rc.reset_launch_counts()  # the reference's launches are a comparison's
+    del send, counts, want, want_counts, prog
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        _build.load()  # built once here, loaded by both ranks
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t = time.perf_counter()
+    procs = [start_code_child(_RANK_CODE, [r, port, dev.type, STUDY_BLOCK])
+             for r in range(RK_RANKS)]
+    try:
+        with ThreadPoolExecutor(RK_RANKS) as pool:
+            done = list(pool.map(lambda p: finish_obs_cli(p, timeout=RK_TIMEOUT_S), procs))
+    finally:
+        stop_children(procs)
+    wall = time.perf_counter() - t
+    ranks = []
+    for r, (rc_, text, err, probe) in enumerate(done):
+        lines = [ln for ln in text.splitlines() if ln.startswith("RANK ")]
+        if rc_ != 0 or not lines:
+            raise AssertionError(f"(b) rank {r}: rc {rc_}\n{text[-2000:]}\n{err[-4000:]}")
+        res = json.loads(lines[-1][len("RANK "):])
+        res["probe"] = probe
+        ranks.append(res)
+    for res in ranks:
+        lo, hi = res["local"]
+        for label in ("a2a", "ring"):
+            if res[label]["digests"] != ref[label][lo:hi]:
+                raise AssertionError(f"(b) rank {res['rank']}'s {label} rows differ from the "
+                                     "one-process program's")
+        # a CPU rehearsal's ranks take the plain version
+        per_call = 2 * (e - 1) if dev.type == "cuda" else 0
+        if res["ring"]["neighbor_pull_launches_per_call"] != [per_call] * RK_CALLS:
+            raise AssertionError(f"(b) rank {res['rank']} ring launches "
+                                 f"{res['ring']['neighbor_pull_launches_per_call']}")
+        if res["probe"] is None or res["probe"]["jax"]:
+            raise AssertionError(f"(b) rank {res['rank']} loaded jax: {res['probe']}")
+        # gloo's all-to-all takes CUDA tensors, its isend / irecv do not
+        path = {"a2a": "direct", "ring": "host-staged" if dev.type == "cuda" else "direct"}
+        if res["backend"] != "gloo" or res["cross_rank_path"] != path:
+            raise AssertionError(f"(b) rank {res['rank']}: backend {res['backend']}, "
+                                 f"path {res['cross_rank_path']}")
+    return {"ranks": RK_RANKS, "shards_a_rank": RK_SHARDS, "e": e, "compute_mode": mode,
+            "send_bytes": e * e * STUDY_BLOCK, "one_process_digests": ref["a2a"],
+            "one_process_reference_launches": reference_launches,
+            "digests_equal": True, "children_wall_s": wall, "per_rank": ranks}
+
+
+def _seam_modules():
+    """Every loaded port module outside the model checker that holds its
+    ``schedule_point``."""
+    from sparkrdma_tpu_torch.analysis.modelcheck import sched
+
+    return [m for name, m in sorted(sys.modules.items())
+            if name.startswith("sparkrdma_tpu_torch.") and m is not None
+            and not name.startswith(MC_MODULE)
+            and getattr(m, "schedule_point", None) is sched.schedule_point]
+
+
+@contextlib.contextmanager
+def _seam(mode):
+    """``live``: the port as it ships (``schedule_point`` and
+    ``OrderedLock`` read the scheduler module's ``active``); ``stub``: a
+    no-op ``schedule_point`` and a stand-in scheduler module in every
+    port module that holds them; ``count``: live, each call counted."""
+    import types
+
+    from sparkrdma_tpu_torch.analysis import lockorder
+    from sparkrdma_tpu_torch.analysis.modelcheck import sched
+
+    calls = {"schedule_point": 0}
+    if mode == "live":
+        yield calls
+        return
+    mods = _seam_modules()
+    real = sched.schedule_point
+
+    def counted(kind, name):
+        calls["schedule_point"] += 1
+        real(kind, name)
+
+    fn = counted if mode == "count" else (lambda kind, name: None)
+    for m in mods:
+        m.schedule_point = fn
+    if mode == "stub":
+        lockorder._sched = types.SimpleNamespace(active=None)
+    try:
+        yield calls
+    finally:
+        for m in mods:
+            m.schedule_point = real
+        lockorder._sched = sched
+
+
+def _live_seam(torch, dev, data):
+    """(c) Phase 10 (b)'s map and reduces with the live seam and no
+    scheduler active: the cold and warm reduce's wave launches against
+    phase 10 (b)'s, then warm reduces with the seam live and stubbed, in
+    turns."""
+    import statistics
+
+    from sparkrdma_tpu_torch.analysis.modelcheck import sched
+    from sparkrdma_tpu_torch.models.terasort import MapShardSorter
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+    from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
+    from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
+    from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
+    from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
+
+    if sched.active is not None:
+        raise AssertionError("(c) a scheduler is active")
+    shards, edges, want = data
+    sid = 18
+    conf = TpuShuffleConf({**PY_PLANE, **HOST_PLANE_KNOBS})
+    ids = [f"seam-{e}" for e in range(EXECUTORS)]
+    driver = TpuShuffleManager(conf, is_driver=True)
+    execs = [TpuShuffleManager(conf, is_driver=False, executor_id=i) for i in ids]
+    ios = [DeviceShuffleIO(ex, device=dev) for ex in execs]
+    walls = {"live": [], "stub": []}
+    try:
+        driver.register_shuffle(BaseShuffleHandle(
+            shuffle_id=sid, num_maps=EXECUTORS, partitioner=HashPartitioner(REDUCERS)))
+        with _seam("count") as calls:
+            map_s = _hp_map_phase(torch, dev, MapShardSorter(dev), ios, shards, edges, sid)[0]
+            map_calls = calls["schedule_point"]
+            l0 = (rc.wave_pull_launches, rc.pipelined_wave_pull_launches)
+            cold = _hp_reduce_all(torch, dev, ios, sid, want)[0]
+            warm = _hp_reduce_all(torch, dev, ios, sid, want)[0]
+            launches = [rc.wave_pull_launches - l0[0], rc.pipelined_wave_pull_launches - l0[1]]
+            reduce_calls = calls["schedule_point"] - map_calls
+        for mode in SEAM_ORDER:
+            with _seam(mode):
+                walls[mode].append(_hp_reduce_all(torch, dev, ios, sid)[0])
+    finally:
+        for io in ios:
+            io.stop()
+        for ex in execs:
+            ex.stop()
+        driver.stop()
+    p10 = _REPORTS.get(10, {}).get("default", {})
+    out = {"keys": KEYS, "map_s": map_s, "reduce_cold_s": cold, "reduce_warm_s": warm,
+           "wave_launches_cold_and_warm": launches,
+           "phase10_default_wave_launches": p10.get("wave_launches"),
+           "schedule_point_calls": {"map": map_calls, "cold_and_warm_reduce": reduce_calls},
+           "order": list(SEAM_ORDER), "warm_live_s": walls["live"], "warm_stub_s": walls["stub"],
+           "warm_live_median_s": statistics.median(walls["live"]),
+           "warm_stub_median_s": statistics.median(walls["stub"]),
+           "live_minus_stub_median_s": (statistics.median(walls["live"])
+                                        - statistics.median(walls["stub"]))}
+    if p10.get("wave_launches") is not None and launches != p10["wave_launches"]:
+        raise AssertionError(f"(c) wave launches {launches}, phase 10 (b)'s "
+                             f"{p10['wave_launches']}")
+    if launches[1] <= 0:
+        raise AssertionError("(c) the pipelined wave-pull kernel never launched")
+    if map_calls <= 0:
+        raise AssertionError("(c) no schedule point was reached on the map")
+    return out
+
+
+def phase_models_and_ranks(torch, dev, data):
+    """Phase 18: (a) the model checker as child processes on the card's
+    host; (b) two ranks on the card through ``torch.distributed``; (c)
+    phase 10 (b)'s reduce with the live schedule-point seam. Launches of
+    ``srt_neighbor_pull`` on the main path: the two ranks' ring calls."""
+    import tempfile
+
+    from sparkrdma_tpu_torch.ops import pallas_attention as pa
+    from sparkrdma_tpu_torch.ops import remote_copy as rc
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    os.environ["PYTHONPATH"] = _cli_env()["PYTHONPATH"]
+    t0 = time.perf_counter()
+    report = {"card": smi}
+    report["a"] = _mc_children(tempfile.mkdtemp(prefix="phase18-"))
+    emit("18a", name="model_checker", card=smi, **report["a"])
+    t = time.perf_counter()
+    report["boundary_row_kernel"] = _boundary_row_kernel(torch, dev)
+    rc.reset_launch_counts()
+    pa.reset_launch_counts()
+    report["b"] = _two_ranks(torch, dev)
+    report["b"]["seconds"] = time.perf_counter() - t
+    emit("18b", name="two_ranks", card=smi,
+         boundary_row_kernel=report["boundary_row_kernel"], **report["b"])
+    launched = {k: n for k, n in _all_counts(rc, pa).items() if n}
+    if launched:
+        raise AssertionError(f"(b) launched kernels in the parent: {launched}")
+    ring = sum(r["neighbor_pull_launches"] for r in report["b"]["per_rank"])
+    t = time.perf_counter()
+    report["c"] = _live_seam(torch, dev, data)
+    report["c"]["seconds"] = time.perf_counter() - t
+    emit("18c", name="live_seam", card=smi, **report["c"])
+    launched = {k: v for k, v in _all_counts(rc, pa).items()
+                if v and k not in ("srt_wave_pull", "srt_pipelined_wave_pull")}
+    if launched:
+        raise AssertionError(f"phase 18 launched other kernels: {launched}")
+    counts = {"srt_neighbor_pull": ring, "srt_wave_pull": rc.wave_pull_launches,
+              "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches}
+    emit(18, name="models_and_ranks", card=smi, launches=counts,
+         seconds=time.perf_counter() - t0, parts=["18a", "18b", "18c"],
+         seconds_by_part={k: report[k]["seconds"] for k in ("a", "b", "c")})
+    return counts
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkrdma_tpu_torch")):
         sys.exit("chip_smoke.py must run from a checkout of the repository")
@@ -5070,6 +5669,10 @@ def main():
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    _main(torch, dev)
+
+
+def _main(torch, dev):
     # the plain versions' f32 products in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5098,6 +5701,7 @@ def main():
     native_plane = phase_native_plane(torch, dev, data)
     operations = phase_operations_planes(torch, dev, data)
     elastic = phase_elastic_planes(torch, dev, data)
+    ranks = phase_models_and_ranks(torch, dev, data)
     del data
     launches.update(training)
     for k, n in serving.items():
@@ -5112,6 +5716,8 @@ def main():
     for k, n in operations.items():
         launches[k] += n
     for k, n in elastic.items():
+        launches[k] += n
+    for k, n in ranks.items():
         launches[k] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]

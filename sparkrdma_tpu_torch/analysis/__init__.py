@@ -26,7 +26,7 @@ docs/ANALYSIS.md for the catalogue of passes.
 
 A copy of the JAX package's ``analysis/`` (``__init__``, ``__main__``,
 ``knobs``, ``metrics_pass``, ``tenancy_pass``, ``wire``, ``lockorder``,
-``pytest_plugin``), its imports rewritten to this package and its
+``pytest_plugin``, ``modelcheck/``), its imports rewritten to this package and its
 passes pointed at the port's tree: ``load_tree`` reads
 ``sparkrdma_tpu_torch/`` and the port's tests (``tests/test_torch_*.py``),
 skipping ``build``/``dist``/cache directories inside the checkout only
@@ -35,7 +35,9 @@ the knob pass this package's ``utils/config.py`` tables, the metric pass
 its ``obs/metrics.py`` families (the anchors of docs/OBSERVABILITY.md
 serve both packages: the tables are equal), and the path-scoped passes
 take ``sparkrdma_tpu_torch/`` prefixes. The model checker
-(``analysis/modelcheck``) is ROADMAP M8c-b.
+(``analysis/modelcheck``) runs the port's protocol code, and its
+scheduler is the one every ``OrderedLock`` and ``schedule_point`` of
+the port reaches.
 """
 
 from __future__ import annotations

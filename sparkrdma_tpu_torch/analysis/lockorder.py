@@ -29,11 +29,10 @@ falls back to the wrapper's plain ``acquire``/``release``, so waits
 correctly pop/push the held stack.
 
 A copy of the JAX package's ``analysis/lockorder.py``, its imports
-rewritten to this package, with two changes:
-
-- the model-checker hook reads ``utils/seams.py``'s ``active`` (``None``
-  until ROADMAP M8c-b brings ``analysis/modelcheck``);
-- the blocking-call probes chain. Both packages' detectors may be armed
+rewritten to this package (the model-checker hook reads the port's
+``analysis/modelcheck/sched.py`` ``active`` at every acquire and
+release, as the JAX module reads its package's), with one change: the
+blocking-call probes chain. Both packages' detectors may be armed
   in one process (a test session loads both pytest plugins), and each
   patches ``time.sleep`` and ``socket.create_connection``. The port's
   probe calls whatever it replaced (the JAX probe, or the real
@@ -58,7 +57,7 @@ import time
 import traceback
 from typing import Dict, List, Optional, Set, Tuple
 
-from sparkrdma_tpu_torch.utils import seams as _sched
+from sparkrdma_tpu_torch.analysis.modelcheck import sched as _sched
 
 __all__ = ["LockOrderDetector", "OrderedLock", "named_lock", "default"]
 

@@ -26,7 +26,7 @@ calling thread, attempts ride the cluster's task pool.
 
 A copy of the JAX package's ``elastic/speculation.py``, its imports
 rewritten to this package (the model checker's schedule points go to
-the inert seam of ``utils/seams.py``; journal events to
+the port's ``analysis/modelcheck``; journal events to
 ``obs/journal.py``). The suspects are the health registry's, which the
 driver's telemetry hub feeds with its straggler report.
 """
@@ -37,7 +37,7 @@ import logging
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
-from sparkrdma_tpu_torch.utils.seams import schedule_point
+from sparkrdma_tpu_torch.analysis.modelcheck import schedule_point
 from sparkrdma_tpu_torch.obs import get_registry
 from sparkrdma_tpu_torch.obs.journal import emit as journal_emit
 

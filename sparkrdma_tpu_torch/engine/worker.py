@@ -21,8 +21,8 @@ request (one socket round trip instead of one per map) and runs them
 concurrently up to the pool bound.
 
 A copy of the JAX package's ``engine/worker.py``, its imports rewritten
-to this package (the model checker's schedule points go to the inert
-seam of ``utils/seams.py``). Run as ``python -m
+to this package (the model checker's schedule points go to the port's
+``analysis/modelcheck``). Run as ``python -m
 sparkrdma_tpu_torch.engine.worker``; ``engine/cluster.py`` spawns it, so
 the child must find this package on its ``sys.path`` (the driver's
 working directory, or ``PYTHONPATH``). The worker does no tensor work:
@@ -46,7 +46,7 @@ import traceback
 import cloudpickle
 
 from sparkrdma_tpu_torch import tenancy
-from sparkrdma_tpu_torch.utils.seams import schedule_point
+from sparkrdma_tpu_torch.analysis.modelcheck import schedule_point
 from sparkrdma_tpu_torch.obs.metrics import get_registry
 from sparkrdma_tpu_torch.obs.profiler import acquire_profiler, release_profiler
 from sparkrdma_tpu_torch.obs.telemetry import Heartbeater

@@ -14,7 +14,7 @@ TPU-native analogue of RdmaBufferManager.java (reference: RdmaBufferManager.java
 
 A copy of the JAX package's ``memory/buffer_manager.py``, its imports
 rewritten to this package (the lock-order and model-checker calls go to the
-inert seams of ``utils/seams.py``).
+port's ``analysis/lockorder.py`` and ``analysis/modelcheck``).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import logging
 from collections import deque
 from typing import Deque, Dict
 
-from sparkrdma_tpu_torch.utils.seams import named_lock
+from sparkrdma_tpu_torch.analysis.lockorder import named_lock
 from sparkrdma_tpu_torch.memory.buffer import TpuBuffer
 from sparkrdma_tpu_torch.memory.registry import ProtectionDomain
 from sparkrdma_tpu_torch.obs import get_registry

@@ -35,7 +35,7 @@ the leaf lock only).
 
 A copy of the JAX package's ``metastore/store.py``, its imports
 rewritten to this package (the lock-order and model-checker calls go to the
-inert seams of ``utils/seams.py``; journal events to ``obs/journal.py``).
+port's ``analysis/lockorder.py`` and ``analysis/modelcheck``; journal events to ``obs/journal.py``).
 """
 
 from __future__ import annotations
@@ -43,8 +43,8 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
-from sparkrdma_tpu_torch.utils.seams import named_lock
-from sparkrdma_tpu_torch.utils.seams import schedule_point
+from sparkrdma_tpu_torch.analysis.lockorder import named_lock
+from sparkrdma_tpu_torch.analysis.modelcheck import schedule_point
 from sparkrdma_tpu_torch.locations import PartitionLocation
 from sparkrdma_tpu_torch.metastore.lease import LeaseTable, StaleEpochError
 from sparkrdma_tpu_torch.metastore.shardmap import ShardMap

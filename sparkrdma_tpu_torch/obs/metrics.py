@@ -457,7 +457,7 @@ class MetricsRegistry:
     def __init__(self):
         # hot: held for dict lookups only, every layer's instrument
         # resolution goes through it (lock-order detector, docs/ANALYSIS.md)
-        from sparkrdma_tpu_torch.utils.seams import named_lock
+        from sparkrdma_tpu_torch.analysis.lockorder import named_lock
 
         self._lock = named_lock("metrics.registry", hot=True)
         self._metrics: Dict[str, object] = {}

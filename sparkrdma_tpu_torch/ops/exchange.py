@@ -18,6 +18,35 @@ power-of-two class, so one program shape serves many stages.
 
 Both account bytes in each direction, wall time and the ``exchange.*``
 metric families as the JAX program does.
+
+On a mesh that spans the ranks of a process group
+(``parallel/multihost.global_mesh``), ``send`` and ``counts`` are this
+rank's rows only, in global shard order, and each call returns this
+rank's received rows in the same layout: the counterpart of the JAX
+program fed by ``jax.make_array_from_process_local_data``. Shapes stay
+exact (no row bucketing), as the JAX multi-host path keeps them.
+
+- ``exchange``: the in-rank part of the transpose is a tensor op; the
+  cross-rank part is one ``all_to_all_single`` of raw bytes (each
+  peer's blocks and counts in one segment, this rank's own segment
+  empty) with explicit split sizes.
+- ``ring_exchange``: E-1 hops. Each hop is one ``batch_isend_irecv``
+  that sends this rank's first shard's slab (and counts) to rank r-1
+  and receives rank r+1's, then one ``srt_neighbor_pull`` each for the
+  slabs and the counts whose last row reads the receive buffer
+  (``remote_copy.neighbor_pull(..., last=...)``).
+
+The cross-rank leg moves bytes (gloo refuses some dtypes, uint32 among
+them). CPU shards, and CUDA shards on ``nccl``, go direct. On a
+``gloo`` group, CUDA shards go direct through ``all_to_all_single``
+(gloo stages CUDA tensors itself there), but gloo's ``isend`` /
+``irecv`` write from the raw pointer (on an H100 with torch 2.11 a CUDA
+tensor aborts the process: ``writev ... Bad address``), so the ring's
+hops stage through pinned host buffers in explicit copies. The rule
+reads the backend and the device only, never a failure.
+``cross_rank_path`` names each schedule's leg, and
+``cross_rank_bytes`` counts the bytes this rank sent to others, per
+schedule. All byte counters are per process, as in the JAX program.
 """
 
 from __future__ import annotations
@@ -27,6 +56,7 @@ from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sparkrdma_tpu_torch.obs import get_registry
 from sparkrdma_tpu_torch.ops import remote_copy
@@ -94,6 +124,11 @@ class ExchangeProgram:
         self.num_shards = mesh.num_shards
         self._all_to_all_cache = {}
         self._ring_cache = {}
+        #: per schedule, "in-process", "direct" or "host-staged" (see the
+        #: module's doc)
+        self.cross_rank_path = {label: _cross_rank_path(mesh, label)
+                                for label in ("a2a", "ring")}
+        self.cross_rank_bytes = {"a2a": 0, "ring": 0}
         self.exchanges = 0
         self.bytes_moved = 0
         self.stats = {
@@ -142,7 +177,7 @@ class ExchangeProgram:
                 a = torch.from_numpy(np.ascontiguousarray(a))
             out.append(a.to(dev).contiguous())
         send, counts = out
-        e = self.num_shards
+        e = self.mesh.num_local_shards
         if send.dim() < 2 or send.shape[0] % e:
             raise ValueError(
                 f"send {tuple(send.shape)} is not [E*rows, block] rows that "
@@ -175,7 +210,13 @@ class ExchangeProgram:
 
     def program_for(self, rows: int, block: int, dtype) -> Callable:
         """The cached program ``fn(send, counts) -> (recv, rcounts)`` for
-        a shape class, ``rows`` per shard (no accounting, no sync)."""
+        a shape class, ``rows`` per shard (no accounting, no sync), over
+        co-resident shards."""
+        if self.mesh.spans_ranks:
+            raise NotImplementedError(
+                "a mesh over ranks runs exchange() and ring_exchange(), not a "
+                "program over co-resident shards"
+            )
         key = ("a2a", rows, (block,), _dtype_name(torch_dtype(dtype)))
         fn = self._all_to_all_cache.get(key)
         if fn is None:
@@ -188,8 +229,13 @@ class ExchangeProgram:
         shapes. Rows-per-peer are bucketed to power-of-two classes
         (:func:`round_rows`) as in the JAX program: pad rows ride with a
         zero length prefix and are stripped before returning, so the
-        result is byte-identical to the exact-shape program."""
+        result is byte-identical to the exact-shape program. On a mesh
+        over ranks, this rank's rows in and out, exact shapes."""
         send, counts = self._placed(send, counts)
+        if self.mesh.spans_ranks:
+            t0 = time.perf_counter()
+            recv, rcounts = self._exchange_ranks(send, counts)
+            return self._account("a2a", send, recv, rcounts, t0)
         e = self.num_shards
         rows = send.shape[0] // e
         rpp = rows // e if (rows % e == 0 and rows > 0) else 0
@@ -258,16 +304,22 @@ class ExchangeProgram:
     def ring_exchange(self, send, counts):
         """Staged exchange: E-1 hops, each one ``srt_neighbor_pull`` of the
         slabs and one of the counts (2(E-1) launches on CUDA). Same result
-        as :meth:`exchange`; the ring takes one row per peer."""
+        as :meth:`exchange`; the ring takes one row per peer. On a mesh
+        over ranks, this rank's rows in and out; each hop also sends and
+        receives one slab across ranks."""
         send, counts = self._placed(send, counts)
-        e = self.num_shards
+        e, n = self.num_shards, self.mesh.num_local_shards
         if len(self.axes) != 1:
             raise NotImplementedError("ring schedule requires a 1-D mesh")
-        if send.shape[0] != e * e:
+        if send.shape[0] != n * e:
             raise ValueError(
                 f"the ring takes one row per peer ({e} a shard), not "
-                f"{send.shape[0] // e}"
+                f"{send.shape[0] // n}"
             )
+        if self.mesh.spans_ranks:
+            t0 = time.perf_counter()
+            recv, rcounts = self._ring_ranks(send, counts)
+            return self._account("ring", send, recv, rcounts, t0)
         key = ("ring", tuple(send.shape[1:]), _dtype_name(send.dtype))
         fn = self._ring_cache.get(key)
         if fn is None:
@@ -276,3 +328,109 @@ class ExchangeProgram:
         t0 = time.perf_counter()
         recv, rcounts = fn(send, counts)
         return self._account("ring", send, recv, rcounts, t0)
+
+    # -- both schedules over ranks -------------------------------------------
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the ring's cross-rank leg carries it: itself, or a copy
+        in pinned host memory on the host-staged path."""
+        if self.cross_rank_path["ring"] != "host-staged":
+            return t
+        return self._landing(t).copy_(t)
+
+    def _landing(self, like: torch.Tensor) -> torch.Tensor:
+        """A receive buffer for the ring's cross-rank leg, shaped as
+        ``like``."""
+        if self.cross_rank_path["ring"] != "host-staged":
+            return torch.empty_like(like)
+        return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+
+    def _exchange_ranks(self, send: torch.Tensor, counts: torch.Tensor):
+        mesh = self.mesh
+        e, n, ranks, me = self.num_shards, mesh.num_local_shards, mesh.num_ranks, mesh.rank
+        rows = send.shape[0] // n
+        if rows % e:
+            raise ValueError(f"{rows} rows a shard do not split over {e} peers")
+        # [src local, dst rank, dst local, bytes]: every (shard, peer) chunk
+        data = send.view(torch.uint8).reshape(n, ranks, n, -1)
+        cnt = counts.view(torch.uint8).reshape(n, ranks, n, -1)
+        recv = torch.empty((n, ranks, n, data.shape[-1]), dtype=torch.uint8,
+                           device=send.device)  # [dst local, src rank, src local, bytes]
+        rcnt = torch.empty((n, ranks, n, cnt.shape[-1]), dtype=torch.uint8,
+                           device=send.device)
+        # this rank's own chunks never leave it: the in-rank transpose
+        recv[:, me] = data[:, me].transpose(0, 1)
+        rcnt[:, me] = cnt[:, me].transpose(0, 1)
+        if ranks > 1:
+            db = n * n * data.shape[-1]
+            seg = db + n * n * cnt.shape[-1]
+            peers = [q for q in range(ranks) if q != me]
+            out = torch.empty((len(peers), seg), dtype=torch.uint8, device=send.device)
+            for i, q in enumerate(peers):
+                out[i, :db].view(n, n, -1).copy_(data[:, q])
+                out[i, db:].view(n, n, -1).copy_(cnt[:, q])
+            got = torch.empty_like(out)
+            splits = [0 if q == me else seg for q in range(ranks)]
+            dist.all_to_all_single(got.view(-1), out.view(-1), output_split_sizes=splits,
+                                   input_split_sizes=splits, group=mesh.group)
+            for i, p in enumerate(peers):
+                recv[:, p] = got[i, :db].view(n, n, -1).transpose(0, 1)
+                rcnt[:, p] = got[i, db:].view(n, n, -1).transpose(0, 1)
+            self.cross_rank_bytes["a2a"] += out.numel()
+        return (recv.view(send.dtype).view(send.shape),
+                rcnt.view(counts.dtype).view(counts.shape))
+
+    def _ring_ranks(self, send: torch.Tensor, counts: torch.Tensor):
+        mesh = self.mesh
+        e, n, lo = self.num_shards, mesh.num_local_shards, mesh.local.start
+        group = mesh.group
+        prev = dist.get_global_rank(group, (mesh.rank - 1) % mesh.num_ranks)
+        nxt = dist.get_global_rank(group, (mesh.rank + 1) % mesh.num_ranks)
+        raw = send.view(torch.uint8)
+        slab = raw.reshape(n, e, raw.numel() // (n * e))  # slab[i]: shard lo+i's [E, row]
+        ccnt = counts.view(n, e)
+        mine = torch.arange(n, device=send.device)
+        recv = torch.empty_like(slab)
+        rcounts = torch.empty_like(ccnt)
+
+        def peel(k: int) -> None:
+            # after k hops local row i holds the slab of shard lo+i+k,
+            # whose row lo+i was staged for this shard
+            for i in range(n):
+                recv[i, (lo + i + k) % e].copy_(slab[i, lo + i])
+            rcounts[mine, (lo + mine + k) % e] = ccnt[mine, lo + mine]
+
+        peel(0)
+        bufs = [torch.empty_like(slab), torch.empty_like(slab)]
+        cbufs = [torch.empty_like(ccnt), torch.empty_like(ccnt)]
+        rslab, rcnt = self._landing(slab[0]), self._landing(ccnt[0].view(torch.uint8))
+        for k in range(1, e):
+            # the boundary row: shard lo's slab goes to rank r-1, rank
+            # r+1's first shard's arrives for row n-1
+            ops = [dist.P2POp(dist.isend, self._staged(slab[0]), prev, group, 0),
+                   dist.P2POp(dist.irecv, rslab, nxt, group, 0),
+                   dist.P2POp(dist.isend, self._staged(ccnt[0].view(torch.uint8)), prev,
+                              group, 1),
+                   dist.P2POp(dist.irecv, rcnt, nxt, group, 1)]
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+            last, lastc = rslab, rcnt
+            if rslab.device != send.device:
+                last, lastc = rslab.to(send.device), rcnt.to(send.device)
+            self.cross_rank_bytes["ring"] += slab[0].numel() + rcnt.numel()
+            slab = remote_copy.neighbor_pull(slab, out=bufs[k % 2], last=last)
+            ccnt = remote_copy.neighbor_pull(ccnt, out=cbufs[k % 2],
+                                             last=lastc.view(torch.int32))
+            peel(k)
+        return (recv.view(raw.shape).view(send.dtype), rcounts.view(counts.shape))
+
+
+def _cross_rank_path(mesh: ShardMesh, label: str) -> str:
+    """How schedule ``label``'s cross-rank leg moves bytes: ``in-process``
+    without ranks; ``host-staged`` for the ring's hops of CUDA shards on
+    a gloo group; else ``direct``."""
+    if not mesh.spans_ranks:
+        return "in-process"
+    if (label == "ring" and mesh.device.type == "cuda"
+            and dist.get_backend(mesh.group) == "gloo"):
+        return "host-staged"
+    return "direct"

@@ -15,7 +15,9 @@ The PyTorch counterpart of the JAX package's ``ops/remote_copy.py``.
   axis of a multi-axis mesh: :func:`axis_shift_perm`); ``PPermute`` is
   its autograd Function, whose backward is the inverse permutation.
   ``neighbor_pull`` is the rotation left by one shard (row ``i`` holds
-  row ``(i + 1) mod n``), one hop of the ring exchange. On CUDA each
+  row ``(i + 1) mod n``), one hop of the ring exchange; its ``last``
+  puts a separate tensor (the receive buffer of a hop from another
+  rank) in the place of row 0 as the last row's source. On CUDA each
   launches ``srt_neighbor_pull`` (``csrc/neighbor_pull.cu``) over a
   per-shard (src, dst) pointer table, which carries the permutation;
   on the CPU they run :func:`ppermute_reference` /
@@ -216,10 +218,14 @@ def _kernel_path(blocks: torch.Tensor) -> bool:
     return blocks.device.type == "cuda"
 
 
-def neighbor_pull_reference(blocks: torch.Tensor) -> torch.Tensor:
+def neighbor_pull_reference(blocks: torch.Tensor,
+                            last: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version of the rotation: a fresh stack in which row
-    ``i`` holds row ``(i + 1) mod n`` of ``blocks``."""
-    return torch.roll(blocks, -1, 0)
+    ``i`` holds row ``(i + 1) mod n`` of ``blocks``; with ``last``, row
+    ``n - 1`` holds ``last`` instead of row 0."""
+    if last is None:
+        return torch.roll(blocks, -1, 0)
+    return torch.cat([blocks[1:], last.reshape(1, *blocks.shape[1:])])
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -297,23 +303,49 @@ def _check_stack(blocks: torch.Tensor, out: Optional[torch.Tensor],
     return out
 
 
+def _check_last(blocks: torch.Tensor, out: torch.Tensor,
+                last: torch.Tensor) -> torch.Tensor:
+    """Validate the boundary row's source: one contiguous shard of the
+    stack's dtype and device that shares no byte with ``out``."""
+    n = blocks.shape[0]
+    if (not isinstance(last, torch.Tensor) or last.dtype != blocks.dtype
+            or last.device != blocks.device or not last.is_contiguous()
+            or n == 0 or _nbytes(last) != _nbytes(blocks) // n):
+        raise ValueError(
+            "last must be one contiguous shard of the stack's dtype and device"
+        )
+    a, b = last.data_ptr(), out.data_ptr()
+    if a < b + _nbytes(out) and b < a + _nbytes(last):
+        raise ValueError("last overlaps out")
+    return last
+
+
 def neighbor_pull(blocks: torch.Tensor,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  out: Optional[torch.Tensor] = None,
+                  last: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rotate a contiguous ``[n, *shard]`` stack of any dtype left by one
     shard: row ``i`` of the result holds row ``(i + 1) mod n``. ``out``,
     if given, receives the result: a contiguous tensor of the same shape,
     dtype and device that shares no byte with ``blocks``. The special
     case of :func:`ppermute` with ``perm = [(i, (i - 1) mod n)]``.
+    ``last``, if given, is row ``n - 1``'s source in place of row 0: one
+    contiguous shard outside the stack, such as the receive buffer of
+    the ring's hop from the next rank (``ops/exchange.py``).
 
     CUDA stack: one ``srt_neighbor_pull`` launch on the current stream,
     not waited on. CPU stack: the plain version."""
     out = _check_stack(blocks, out, "neighbor_pull")
+    if last is not None:
+        last = _check_last(blocks, out, last)
     if _kernel_path(blocks):
         n = blocks.shape[0]
-        return _launch_neighbor_pull(blocks, out, [(i + 1) % n for i in range(n)])
+        sources: List = [(i + 1) % n for i in range(n)]
+        if last is not None:
+            sources[-1] = last
+        return _launch_neighbor_pull(blocks, out, sources)
     if blocks.device.type != "cpu":
         raise ValueError(f"neighbor_pull runs on cuda or cpu, not {blocks.device}")
-    return out.copy_(neighbor_pull_reference(blocks))
+    return out.copy_(neighbor_pull_reference(blocks, last))
 
 
 def ppermute(blocks: torch.Tensor, perm: Sequence[Tuple[int, int]],
@@ -351,11 +383,12 @@ class PPermute(torch.autograd.Function):
 
 
 def _launch_neighbor_pull(blocks: torch.Tensor, out: torch.Tensor,
-                          sources: Sequence[int]) -> torch.Tensor:
+                          sources: Sequence) -> torch.Tensor:
     """One ``srt_neighbor_pull`` launch in which row ``i`` of ``out``
-    receives row ``sources[i]`` of ``blocks``. The kernel writes
-    ``table[i].dst`` from ``table[(i + 1) mod n].src``, so the source of
-    row ``i`` sits one entry on."""
+    receives row ``sources[i]`` of ``blocks``, or, where ``sources[i]``
+    is a tensor, that shard-sized tensor (checked by the caller). The
+    kernel writes ``table[i].dst`` from ``table[(i + 1) mod n].src``, so
+    the source of row ``i`` sits one entry on."""
     from sparkrdma_tpu_torch.ops import _build
 
     global neighbor_pull_launches
@@ -364,13 +397,16 @@ def _launch_neighbor_pull(blocks: torch.Tensor, out: torch.Tensor,
     if shard_bytes == 0:
         return out
     lib = _build.load()
-    # one (src, dst) pair per shard: rows of the two stacks here, another
-    # card's peer-mapped rows in the multi-GPU slice
+    # one (src, dst) pair per shard: rows of the two stacks, or a receive
+    # buffer from another rank (the ring over ranks); another card's
+    # peer-mapped rows in the multi-GPU slice (ROADMAP M7)
     sb = np.uint64(shard_bytes)
     rows = np.arange(n, dtype=np.uint64) * sb
-    srcs = np.roll(np.asarray(sources, dtype=np.uint64) * sb, 1)
-    table = np.stack([np.uint64(blocks.data_ptr()) + srcs,
-                      np.uint64(out.data_ptr()) + rows], axis=1)
+    base = blocks.data_ptr()
+    srcs = np.roll(np.array(
+        [s.data_ptr() if isinstance(s, torch.Tensor) else base + int(s) * shard_bytes
+         for s in sources], dtype=np.uint64), 1)
+    table = np.stack([srcs, np.uint64(out.data_ptr()) + rows], axis=1)
     with torch.cuda.device(blocks.device):
         dev_table = _upload(table, blocks.device)
         stream = torch.cuda.current_stream(blocks.device).cuda_stream

@@ -1,5 +1,6 @@
 """The port's mesh: E shards of one device, laid out as the JAX mesh,
-and the shard stacks over it."""
+and the shard stacks over it; ``multihost`` spans a mesh over the ranks
+of a ``torch.distributed`` group."""
 
 from sparkrdma_tpu_torch.parallel.mesh import (
     DCN_AXIS,

@@ -21,7 +21,16 @@ shape ``shape`` (or leading size E) on that device: :func:`shard` lays a
 global tensor out over the mesh by a ``PartitionSpec``-like tuple,
 replicating it over the axes the spec does not name, and :func:`unshard`
 is its inverse. Shards spread over several CUDA devices need peer memory and
-wait for the multi-GPU slice.
+wait for the multi-GPU slice (ROADMAP M7).
+
+A mesh may span the ranks of a ``torch.distributed`` process group
+(``parallel/multihost.global_mesh``): its ``shape``, ``axis_names`` and
+``num_shards`` stay global, and each rank holds the contiguous run
+``local`` of shards (rank ``r`` of R holds ``[r * E / R, (r + 1) * E /
+R)``, in global shard order) on its one device. Such a mesh carries
+each rank's rows through ``ops/exchange.py``'s ``exchange`` and
+``ring_exchange``; :func:`shard` and :func:`unshard`, which lay a
+global tensor out in one process, refuse it.
 """
 
 from __future__ import annotations
@@ -50,10 +59,16 @@ def dcn_axis() -> str:
 class ShardMesh:
     """E shards on one device, with named axes ordered row-major over
     ``shape`` (``{"exec": E}``, ``{"dcn": s, "exec": E // s}``, ``{"dp":
-    ., "sp": ., "tp": .}``, ...)."""
+    ., "sp": ., "tp": .}``, ...).
+
+    ``group``, when given, is the process group the mesh spans, and
+    ``local`` the run of global shard indices this rank holds; every
+    entry of ``devices`` then names this rank's device (the other ranks'
+    are not addressable here)."""
 
     def __init__(self, devices: Sequence[torch.device],
-                 axis_names: Sequence[str], shape: Sequence[int]):
+                 axis_names: Sequence[str], shape: Sequence[int],
+                 group=None, local: Optional[range] = None):
         self.devices: List[torch.device] = list(devices)
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
         sizes = tuple(int(n) for n in shape)
@@ -64,6 +79,27 @@ class ShardMesh:
                 f"{len(self.devices)} devices do not fill a {sizes} mesh"
             )
         self.shape: Dict[str, int] = dict(zip(self.axis_names, sizes))
+        e = len(self.devices)
+        self.group = group
+        self.local: range = range(e) if local is None else local
+        n = len(self.local)
+        if (n == 0 or self.local.step != 1 or e % n or self.local.start % n
+                or self.local.stop > e):
+            raise ValueError(f"local shards {self.local} are not one rank's run of {e}")
+        if group is None and n != e:
+            raise ValueError("a mesh without a process group holds every shard")
+        #: this rank and the number of ranks (0 and 1 without a group)
+        self.rank = self.local.start // n
+        self.num_ranks = e // n
+
+    @property
+    def spans_ranks(self) -> bool:
+        """True when the shards lie on more than one rank."""
+        return self.num_ranks > 1
+
+    @property
+    def num_local_shards(self) -> int:
+        return len(self.local)
 
     @property
     def num_shards(self) -> int:
@@ -82,7 +118,7 @@ class ShardMesh:
 
     @property
     def device(self) -> torch.device:
-        """The one device every shard lives on."""
+        """The one device every shard of this rank lives on."""
         return self.devices[0]
 
     def coords(self, shard: int) -> Dict[str, int]:
@@ -170,6 +206,14 @@ def _full_spec(spec: Sequence[Optional[str]], ndim: int) -> Tuple[Optional[str],
     return spec + (None,) * (ndim - len(spec))
 
 
+def _one_process(mesh: ShardMesh, what: str) -> None:
+    if mesh.spans_ranks:
+        raise NotImplementedError(
+            f"{what} lays a global tensor out in one process; a mesh over "
+            f"{mesh.num_ranks} ranks takes each rank's rows"
+        )
+
+
 def shard(mesh: ShardMesh, x: torch.Tensor,
           spec: Sequence[Optional[str]]) -> torch.Tensor:
     """Lay the global tensor ``x`` out as a shard stack: a contiguous
@@ -178,6 +222,7 @@ def shard(mesh: ShardMesh, x: torch.Tensor,
     of ``x``, the mesh axis that splits it or None (a JAX
     ``PartitionSpec``; trailing dims may be left out); the axes it does
     not name hold copies. Differentiable (its adjoint sums the copies)."""
+    _one_process(mesh, "shard")
     spec = _full_spec(spec, x.dim())
     names, k = mesh.axis_names, len(mesh.axis_names)
     split, at = [], {}
@@ -205,6 +250,7 @@ def unshard(mesh: ShardMesh, stack: torch.Tensor,
     """The inverse of :func:`shard`: the global tensor from a shard stack,
     reading the copy at coordinate 0 of every axis ``spec`` does not
     name."""
+    _one_process(mesh, "unshard")
     names, k = mesh.axis_names, len(mesh.axis_names)
     if tuple(stack.shape[:k]) != mesh.axis_sizes:
         raise ValueError(f"a {tuple(stack.shape)} stack is not over a {mesh.axis_sizes} mesh")

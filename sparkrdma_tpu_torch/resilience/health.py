@@ -18,7 +18,7 @@ State transitions are counted in the process-wide obs registry under
 
 A copy of the JAX package's ``resilience/health.py``, its imports
 rewritten to this package (the lock-order and model-checker calls go to the
-inert seams of ``utils/seams.py``; journal events to ``obs/journal.py``).
+port's ``analysis/lockorder.py`` and ``analysis/modelcheck``; journal events to ``obs/journal.py``).
 """
 
 from __future__ import annotations

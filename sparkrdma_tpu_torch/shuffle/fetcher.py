@@ -31,7 +31,7 @@ Analogue of RdmaShuffleFetcherIterator.scala (reference: RdmaShuffleFetcherItera
 
 A copy of the JAX package's ``shuffle/fetcher.py``, its imports
 rewritten to this package (the lock-order and model-checker calls go to the
-inert seams of ``utils/seams.py``). The native plane's
+port's ``analysis/lockorder.py`` and ``analysis/modelcheck``). The native plane's
 branches run on ``NativeTpuNode``: the read-completion ring drain
 (``drain_read_ring``) and mapped delivery (``mapped_delivery_enabled``
 is True on a ``NativeTpuChannel`` with ``mappedFetch`` on).
@@ -47,7 +47,7 @@ from dataclasses import dataclass, field
 from typing import BinaryIO, Dict, List, Optional, Tuple
 
 from sparkrdma_tpu_torch import tenancy
-from sparkrdma_tpu_torch.utils.seams import named_lock
+from sparkrdma_tpu_torch.analysis.lockorder import named_lock
 from sparkrdma_tpu_torch.tenancy import quota as _tquota
 from sparkrdma_tpu_torch.locations import BlockLocation, PartitionLocation, ShuffleManagerId
 from sparkrdma_tpu_torch.memory.registered_buffer import RegisteredBuffer

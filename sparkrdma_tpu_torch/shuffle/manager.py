@@ -22,10 +22,11 @@ another plane is missing from the port:
 
 - ``transport=native`` (and ``auto`` where g++ is present) never falls
   back to the python plane: a failed build raises
-  (``transport/__init__.py``);
-- the lock-order detector's locks come through ``utils/seams.py``
-  (``analysis/lockorder.py``), and the model checker's schedule points
-  are its inert seam (ROADMAP M8c-b).
+  (``transport/__init__.py``).
+
+The lock-order detector's locks come from ``analysis/lockorder.py`` and
+the schedule points from ``analysis/modelcheck``, the port's own, as
+the JAX module imports its package's.
 
 Executors with ``elastic.replicas`` > 0 build the replica client and
 store (``elastic/replication.py``), as in JAX; ``stop()`` unregisters
@@ -53,8 +54,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import replace
 from typing import Dict, List, Optional, Set, Tuple
 
-from sparkrdma_tpu_torch.utils.seams import OrderedLock, named_lock
-from sparkrdma_tpu_torch.utils.seams import schedule_point
+from sparkrdma_tpu_torch.analysis.lockorder import OrderedLock, named_lock
+from sparkrdma_tpu_torch.analysis.modelcheck import schedule_point
 from sparkrdma_tpu_torch.locations import PartitionLocation, ShuffleManagerId
 from sparkrdma_tpu_torch.metastore import ShardedMetaStore, StaleEpochError
 from sparkrdma_tpu_torch.obs import SpanHandle, Tracer, get_registry, mint_trace_id

@@ -36,7 +36,7 @@ resolver/locations API (DESIGN.md §18):
 
 A copy of the JAX package's ``shuffle/merge.py``, its imports
 rewritten to this package (the lock-order and model-checker calls go to the
-inert seams of ``utils/seams.py``).
+port's ``analysis/lockorder.py`` and ``analysis/modelcheck``).
 """
 
 from __future__ import annotations
@@ -49,8 +49,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
-from sparkrdma_tpu_torch.utils.seams import named_lock
-from sparkrdma_tpu_torch.utils.seams import schedule_point
+from sparkrdma_tpu_torch.analysis.lockorder import named_lock
+from sparkrdma_tpu_torch.analysis.modelcheck import schedule_point
 from sparkrdma_tpu_torch.locations import BlockLocation, PartitionLocation
 from sparkrdma_tpu_torch.obs import SpanHandle, get_registry
 from sparkrdma_tpu_torch.shuffle.writer.blocks import MemoryWriterBlock

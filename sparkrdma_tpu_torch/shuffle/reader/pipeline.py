@@ -48,7 +48,7 @@ Observability (docs/OBSERVABILITY.md): per-item latency histograms
 
 A copy of the JAX package's ``shuffle/reader/pipeline.py``, its imports
 rewritten to this package (the lock-order and model-checker calls go to the
-inert seams of ``utils/seams.py``).
+port's ``analysis/lockorder.py`` and ``analysis/modelcheck``).
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ import time
 from typing import Any, Callable, Iterable, Iterator, List, Optional
 
 from sparkrdma_tpu_torch import tenancy
-from sparkrdma_tpu_torch.utils.seams import schedule_point
+from sparkrdma_tpu_torch.analysis.modelcheck import schedule_point
 from sparkrdma_tpu_torch.obs import get_registry, get_tracer
 from sparkrdma_tpu_torch.shuffle.writer.pipeline import PipelineReport, _STAGE_BOUNDS
 

@@ -36,7 +36,7 @@ SAVED (zero means the pipeline degenerated to sequential).
 
 A copy of the JAX package's ``shuffle/writer/pipeline.py``, its imports
 rewritten to this package (the lock-order and model-checker calls go to the
-inert seams of ``utils/seams.py``).
+port's ``analysis/lockorder.py`` and ``analysis/modelcheck``).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from sparkrdma_tpu_torch import tenancy
-from sparkrdma_tpu_torch.utils.seams import schedule_point
+from sparkrdma_tpu_torch.analysis.modelcheck import schedule_point
 from sparkrdma_tpu_torch.obs import get_registry, get_tracer
 
 STAGES = ("sort", "stage", "publish")

@@ -11,7 +11,7 @@ on the queue forever.
 
 A copy of the JAX package's ``tenancy/admission.py``, its imports
 rewritten to this package (the lock-order and model-checker calls go to the
-inert seams of ``utils/seams.py``; journal events to ``obs/journal.py``).
+port's ``analysis/lockorder.py`` and ``analysis/modelcheck``; journal events to ``obs/journal.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import time
 from collections import deque
 from typing import Deque, Iterator, Optional
 
-from sparkrdma_tpu_torch.utils.seams import named_lock
+from sparkrdma_tpu_torch.analysis.lockorder import named_lock
 from sparkrdma_tpu_torch.obs import get_registry
 from sparkrdma_tpu_torch.obs.journal import emit as journal_emit
 

@@ -22,7 +22,7 @@ With a single tenant the whole mechanism degenerates to plain FIFO.
 
 A copy of the JAX package's ``tenancy/fairshare.py``, its imports
 rewritten to this package (the lock-order and model-checker calls go to the
-inert seams of ``utils/seams.py``).
+port's ``analysis/lockorder.py`` and ``analysis/modelcheck``).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from collections import deque
 from concurrent.futures import Future
 from typing import Any, Callable, Deque, Dict, Optional, Tuple
 
-from sparkrdma_tpu_torch.utils.seams import named_lock
+from sparkrdma_tpu_torch.analysis.lockorder import named_lock
 from sparkrdma_tpu_torch.obs import get_registry, get_tracer
 from sparkrdma_tpu_torch.tenancy import current_tenant, tenant_scope
 

@@ -22,8 +22,8 @@ singletons per node) from the first tenancy-enabled manager init;
 paths pay nothing when quotas are off.
 
 A copy of the JAX package's ``tenancy/quota.py``, its imports rewritten
-to this package (the lock-order and model-checker calls go to the inert seams
-of ``utils/seams.py``; journal events to ``obs/journal.py``).
+to this package (the lock-order and model-checker calls go to the port's ``analysis/lockorder.py``
+and ``analysis/modelcheck``; journal events to ``obs/journal.py``).
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ import threading
 import time
 from typing import Dict, Optional
 
-from sparkrdma_tpu_torch.utils.seams import named_lock
-from sparkrdma_tpu_torch.utils.seams import schedule_point
+from sparkrdma_tpu_torch.analysis.lockorder import named_lock
+from sparkrdma_tpu_torch.analysis.modelcheck import schedule_point
 from sparkrdma_tpu_torch.obs import get_registry
 from sparkrdma_tpu_torch.obs.journal import emit as journal_emit
 

@@ -22,7 +22,7 @@ semantics:
 
 A copy of the JAX package's ``transport/channel.py``, its imports
 rewritten to this package (the lock-order and model-checker calls go to the
-inert seams of ``utils/seams.py``).
+port's ``analysis/lockorder.py`` and ``analysis/modelcheck``).
 """
 
 from __future__ import annotations

@@ -20,8 +20,8 @@ The reference pins one CQ thread per channel to a CPU vector from
 deliberate no-op, but the per-channel completion-thread model is kept.
 
 A copy of the JAX package's ``transport/node.py``, its imports rewritten
-to this package (the lock-order and model-checker calls go to the inert seams
-of ``utils/seams.py``).
+to this package (the lock-order and model-checker calls go to the port's ``analysis/lockorder.py``
+and ``analysis/modelcheck``).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
 
-from sparkrdma_tpu_torch.utils.seams import schedule_point
+from sparkrdma_tpu_torch.analysis.modelcheck import schedule_point
 from sparkrdma_tpu_torch.memory.buffer_manager import TpuBufferManager
 from sparkrdma_tpu_torch.memory.registry import ProtectionDomain
 from sparkrdma_tpu_torch.obs import get_registry

@@ -411,13 +411,18 @@ def test_disabled_detector_records_nothing():
 
 
 def test_seams_are_the_detectors_locks():
-    """The host-plane copies' ``utils/seams.py`` imports are the
-    detector's: a lock a port module makes is recorded."""
-    from sparkrdma_tpu_torch.utils import seams
+    """The host-plane copies' seams are the port's analysis planes: their
+    ``named_lock`` / ``OrderedLock`` are the detector's (a lock a port
+    module makes is recorded), and their ``schedule_point`` is the model
+    checker's, which does nothing while no scheduler runs."""
+    from sparkrdma_tpu_torch.analysis.modelcheck import sched
+    from sparkrdma_tpu_torch.metastore import store as store_module
+    from sparkrdma_tpu_torch.shuffle import manager
 
-    assert seams.named_lock is named_lock and seams.OrderedLock is lockorder.OrderedLock
-    assert seams.active is None
-    seams.schedule_point("lock", "inert")
+    assert manager.named_lock is named_lock and manager.OrderedLock is lockorder.OrderedLock
+    assert store_module.schedule_point is sched.schedule_point
+    assert lockorder._sched is sched and sched.active is None
+    sched.schedule_point("lock", "idle")
     from sparkrdma_tpu_torch.metastore.store import ShardedMetaStore
     from sparkrdma_tpu_torch.utils.config import TpuShuffleConf
 
@@ -431,7 +436,7 @@ def test_seams_are_the_detectors_locks():
         det.reset()
     det.enable()
     try:
-        outer, inner = seams.named_lock("t.seam.outer"), seams.named_lock("t.seam.inner")
+        outer, inner = named_lock("t.seam.outer"), named_lock("t.seam.inner")
         with outer:
             with store._topology:
                 with inner:

@@ -48,11 +48,14 @@ def test_importing_every_port_module_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     # every module of the port: a subpackage that fails to import
     # would drop its modules from the walk
-    assert len(res["imported"]) >= 117
+    # (117 before the model checker's 6 modules and multihost came and
+    # utils/seams went)
+    assert len(res["imported"]) >= 123
     assert set(ENGINE_MODULES) <= set(res["imported"])
     assert set(NATIVE_MODULES) <= set(res["imported"])
     assert set(OBS_MODULES) <= set(res["imported"])
     assert set(ELASTIC_CLI_ANALYSIS_MODULES) <= set(res["imported"])
+    assert set(MODELCHECK_MULTIHOST_MODULES) <= set(res["imported"])
     assert res["bad"] == []
 
 
@@ -204,14 +207,59 @@ def test_elastic_cli_and_analysis_module_alone_loads_no_jax(name):
     assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False, True, 1]
 
 
+MODELCHECK_MULTIHOST_MODULES = [
+    "sparkrdma_tpu_torch.analysis.modelcheck",
+    "sparkrdma_tpu_torch.analysis.modelcheck.__main__",
+    "sparkrdma_tpu_torch.analysis.modelcheck.explore",
+    "sparkrdma_tpu_torch.analysis.modelcheck.models",
+    "sparkrdma_tpu_torch.analysis.modelcheck.mutants",
+    "sparkrdma_tpu_torch.analysis.modelcheck.sched",
+    "sparkrdma_tpu_torch.parallel.multihost",
+]
+
+
+@pytest.mark.parametrize("name", MODELCHECK_MULTIHOST_MODULES)
+def test_modelcheck_and_multihost_module_alone_loads_no_jax(name):
+    """Each module of the model checker and the multi-process bootstrap,
+    imported first in a fresh interpreter, loads neither jax nor the JAX
+    package, initialises no CUDA, patches neither the blocking calls nor
+    ``threading``'s waits, starts no thread and joins no process group."""
+    script = (
+        "import importlib, json, socket, sys, threading, time\n"
+        "before = (time.sleep, time.monotonic, socket.create_connection,"
+        " threading.Condition.wait, threading.Event.wait, threading.Event.set)\n"
+        f"importlib.import_module({name!r})\n"
+        "t = sys.modules.get('torch')\n"
+        "d = sys.modules.get('torch.distributed')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'sparkrdma_tpu' or m.startswith('sparkrdma_tpu.'))\n"
+        "after = (time.sleep, time.monotonic, socket.create_connection,"
+        " threading.Condition.wait, threading.Event.wait, threading.Event.set)\n"
+        "print(json.dumps([bad, bool(t is not None and t.cuda.is_initialized()),"
+        " before == after, threading.active_count(),"
+        " bool(d is not None and d.is_available() and d.is_initialized())]))\n"
+    )
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "SPARKRDMA_LOCK_ORDER")}
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False, True, 1, False]
+
+
 @pytest.mark.parametrize("module, args, says", [
     ("sparkrdma_tpu_torch.obs", ["--prefix", "no.such.prefix."], '"counters": {}'),
     ("sparkrdma_tpu_torch.elastic.service", ["--help"], "--service-id"),
     ("sparkrdma_tpu_torch.analysis", ["--list"], "knob-registry"),
+    ("sparkrdma_tpu_torch.analysis.modelcheck",
+     ["--model", "speculation", "--model", "quota_stall", "--walks", "3"],
+     "model speculation          clean: 4 schedules"),
 ])
 def test_port_entry_points_run_as_modules_without_jax(module, args, says):
-    """``python -m`` of the obs CLI, the shuffle-service daemon and the
-    analysis runner: each exits 0 and, when it exits, has loaded neither
+    """``python -m`` of the obs CLI, the shuffle-service daemon, the
+    analysis runner and the model checker: each exits 0 and, when it exits, has loaded neither
     jax nor the JAX package and never initialised CUDA."""
     import chip_smoke
 
@@ -247,12 +295,14 @@ def _entry_points():
     )
     from sparkrdma_tpu_torch.ops.hbm_arena import DeviceBufferManager
     from sparkrdma_tpu_torch.ops.sort import device_put_columns
+    from sparkrdma_tpu_torch.parallel.multihost import global_mesh
     from sparkrdma_tpu_torch.shuffle.columnar import encode_columns
     from sparkrdma_tpu_torch.utils.torch_compat import resolve_device
 
     frame = encode_columns([__import__("numpy").zeros(4, "uint32")])
     return {
         "make_mesh": lambda: make_mesh().device,
+        "global_mesh": lambda: global_mesh().device,
         "ExchangeProgram": lambda: ExchangeProgram(make_mesh()).mesh.device,
         "resolve_device": lambda: resolve_device(),
         "DeviceBufferManager": lambda: DeviceBufferManager().device,
@@ -299,6 +349,7 @@ def test_cpu_only_when_asked():
     assert RingAttention(device="cpu").device.type == "cpu"
     assert TransformerStep(device="cpu").device.type == "cpu"
     from sparkrdma_tpu_torch.ops.sort import device_put_columns
+    from sparkrdma_tpu_torch.parallel.multihost import global_mesh
     from sparkrdma_tpu_torch.shuffle.columnar import encode_columns
 
     frame = encode_columns([__import__("numpy").zeros(4, "uint32")])
