@@ -1,0 +1,13 @@
+"""Entry point: ``python3 -m shufflebench --workload <cell> --seed <n>
+--seconds <s> --trace <0|1>``."""
+
+import time
+
+_T_START = time.perf_counter()
+
+import sys  # noqa: E402
+
+from shufflebench.run import main  # noqa: E402
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:], t_start=_T_START))
