@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from sparkrdma_tpu_torch.models.terasort import KEY_BITS, SENTINEL
+from sparkrdma_tpu_torch.obs.trace import span
 from sparkrdma_tpu_torch.ops.exchange import ExchangeProgram
 from sparkrdma_tpu_torch.ops.sort import (
     device_argsort,
@@ -71,11 +72,12 @@ class HashJoin:
             counts = torch.empty((e, e), dtype=torch.int32, device=dev)
             flags = torch.empty((e,), dtype=torch.bool, device=dev)
             for i in range(e):
-                dest = radix_partition(keys[i], e, KEY_BITS)
-                ks, counts[i], flags[i] = pack_by_partition(
-                    keys[i], dest, e, cap, fill=SENTINEL)
-                vslab[i], _, _ = pack_by_partition(vals[i], dest, e, cap, fill=miss)
-                kslab[i] = ks.view(torch.int32)
+                with span("hashjoin.pack"):
+                    dest = radix_partition(keys[i], e, KEY_BITS)
+                    ks, counts[i], flags[i] = pack_by_partition(
+                        keys[i], dest, e, cap, fill=SENTINEL)
+                    vslab[i], _, _ = pack_by_partition(vals[i], dest, e, cap, fill=miss)
+                    kslab[i] = ks.view(torch.int32)
                 del dest, ks
             a2a = self._exchange.program_for(e, cap, torch.int32)
             k2, c2 = a2a(kslab.view(e * e, cap), counts.view(-1))
@@ -89,30 +91,36 @@ class HashJoin:
 
         def fn(bk, bv, pk, pv):
             # bk/pk: [E * n_local] uint32 stacks; bv/pv: int32
-            for x, n in ((bk, nb_local), (bv, nb_local), (pk, np_local), (pv, np_local)):
-                if x.shape != (e * n,):
-                    raise ValueError(f"step built for [{e * n}], got {list(x.shape)}")
-            bk2, bv2, bcnt, ovf_b = scatter(bk.view(e, -1), bv.view(e, -1), cap_b)
-            pk2, pv2, pcnt, ovf_p = scatter(pk.view(e, -1), pv.view(e, -1), cap_p)
-            # any shard overflowing aborts the round everywhere (the pmax)
-            overflow = (ovf_b | ovf_p).to(torch.int32)
+            with span("hashjoin.step"):
+                for x, n in ((bk, nb_local), (bv, nb_local), (pk, np_local),
+                             (pv, np_local)):
+                    if x.shape != (e * n,):
+                        raise ValueError(f"step built for [{e * n}], got {list(x.shape)}")
+                bk2, bv2, bcnt, ovf_b = scatter(bk.view(e, -1), bv.view(e, -1), cap_b)
+                pk2, pv2, pcnt, ovf_p = scatter(pk.view(e, -1), pv.view(e, -1), cap_p)
+                # any shard overflowing aborts the round everywhere (the pmax)
+                overflow = (ovf_b | ovf_p).to(torch.int32)
 
-            # local join, every shard at once: sort the build side (the
-            # padding masked to SENTINEL), binary-search the probes
-            bkeys = torch.where(valid(bcnt, cap_b), bk2.view(e, -1),
-                                _SENTINEL_BITS).view(torch.uint32)
-            order = device_argsort(bkeys)
-            bkeys_s = torch.gather(bkeys.view(torch.int32), 1, order)
-            bvals_s = torch.gather(bv2.view(e, -1), 1, order)
-            del bkeys, order
-            pkeys = pk2.view(e, -1)
-            pos = searchsorted(bkeys_s.view(torch.uint32), pkeys.view(torch.uint32))
-            pos = pos.clamp_(max=bkeys_s.shape[1] - 1).to(torch.int64)
-            hit = (torch.gather(bkeys_s, 1, pos) == pkeys) & valid(pcnt, cap_p)
-            joined = torch.where(hit, torch.gather(bvals_s, 1, pos), miss)
-            # [E, E, cap_p] rows aligned with pk2/pv2: shard d's row s is
-            # what shard s sent it, its first pcnt[d, s] slots valid
-            return pk2.view(torch.uint32), pv2, joined.view(e, e, cap_p), pcnt, overflow
+                # local join, every shard at once: sort the build side (the
+                # padding masked to SENTINEL), binary-search the probes
+                with span("hashjoin.build_sort"):
+                    bkeys = torch.where(valid(bcnt, cap_b), bk2.view(e, -1),
+                                        _SENTINEL_BITS).view(torch.uint32)
+                    order = device_argsort(bkeys)
+                    bkeys_s = torch.gather(bkeys.view(torch.int32), 1, order)
+                    bvals_s = torch.gather(bv2.view(e, -1), 1, order)
+                    del bkeys, order
+                with span("hashjoin.probe"):
+                    pkeys = pk2.view(e, -1)
+                    pos = searchsorted(bkeys_s.view(torch.uint32),
+                                       pkeys.view(torch.uint32))
+                    pos = pos.clamp_(max=bkeys_s.shape[1] - 1).to(torch.int64)
+                    hit = (torch.gather(bkeys_s, 1, pos) == pkeys) & valid(pcnt, cap_p)
+                    joined = torch.where(hit, torch.gather(bvals_s, 1, pos), miss)
+                # [E, E, cap_p] rows aligned with pk2/pv2: shard d's row s is
+                # what shard s sent it, its first pcnt[d, s] slots valid
+                return (pk2.view(torch.uint32), pv2, joined.view(e, e, cap_p), pcnt,
+                        overflow)
 
         return fn
 

@@ -25,6 +25,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.obs.trace import span
 from sparkrdma_tpu_torch.ops.exchange import ExchangeProgram
 from sparkrdma_tpu_torch.ops.sort import (
     device_sort,
@@ -166,53 +167,59 @@ class TeraSorter:
         if e == 1:
             def short(keys: torch.Tensor, edges=None):
                 # one shard: no split, no exchange
-                check(keys)
-                merged = device_sort(keys)
-                total = torch.tensor([n_local], dtype=torch.int32,
-                                     device=keys.device)
-                return merged, total, torch.zeros((), dtype=torch.int32,
-                                                  device=keys.device)
+                with span("terasort.step"):
+                    check(keys)
+                    with span("terasort.local_sort"):
+                        merged = device_sort(keys)
+                    total = torch.tensor([n_local], dtype=torch.int32,
+                                         device=keys.device)
+                    return merged, total, torch.zeros((), dtype=torch.int32,
+                                                      device=keys.device)
 
             return short
 
         all_to_all = self._exchange.program_for(e, capacity, torch.uint32)
 
         def fn(keys: torch.Tensor, edges: Optional[torch.Tensor] = None):
-            check(keys)
-            if adaptive and edges is None:
-                raise ValueError("the adaptive step takes the range edges")
-            dev = keys.device
-            shards = keys.view(e, n_local)
-            # uint32 data moves as its int32 bit pattern (ops/sort.py)
-            send = torch.empty((e, e, capacity), dtype=torch.int32, device=dev)
-            counts = torch.empty((e, e), dtype=torch.int32, device=dev)
-            flags = torch.empty((e,), dtype=torch.bool, device=dev)
-            for i in range(e):
-                # local sort first: destinations are key ranges, so the
-                # send slab falls out of range-edge slices
-                local = device_sort(shards[i])
-                if adaptive:
-                    slab, cnt, flags[i] = split_sorted_edges(
-                        local, edges, capacity, fill=SENTINEL)
-                else:
-                    slab, cnt, flags[i] = split_sorted(
-                        local, e, capacity, KEY_BITS, fill=SENTINEL)
-                send[i] = slab.view(torch.int32)
-                counts[i] = cnt
-                del local, slab
-            recv, rcounts = all_to_all(send.view(e * e, capacity),
-                                       counts.view(-1))
-            del send
-            recv = recv.view(e, e, capacity).view(torch.uint32)
-            rcounts = rcounts.view(e, e)
-            merged = torch.empty((e, e * capacity), dtype=torch.int32, device=dev)
-            totals = torch.empty((e,), dtype=torch.int32, device=dev)
-            for i in range(e):
-                m, totals[i] = merge_received(recv[i], rcounts[i], SENTINEL)
-                merged[i] = m.view(torch.int32)
-            # any shard overflowing aborts the round everywhere
-            overflowed = flags.any().to(torch.int32)
-            return merged.view(-1).view(torch.uint32), totals, overflowed
+            with span("terasort.step"):
+                check(keys)
+                if adaptive and edges is None:
+                    raise ValueError("the adaptive step takes the range edges")
+                dev = keys.device
+                shards = keys.view(e, n_local)
+                # uint32 data moves as its int32 bit pattern (ops/sort.py)
+                send = torch.empty((e, e, capacity), dtype=torch.int32, device=dev)
+                counts = torch.empty((e, e), dtype=torch.int32, device=dev)
+                flags = torch.empty((e,), dtype=torch.bool, device=dev)
+                for i in range(e):
+                    # local sort first: destinations are key ranges, so the
+                    # send slab falls out of range-edge slices
+                    with span("terasort.local_sort"):
+                        local = device_sort(shards[i])
+                    with span("terasort.split"):
+                        if adaptive:
+                            slab, cnt, flags[i] = split_sorted_edges(
+                                local, edges, capacity, fill=SENTINEL)
+                        else:
+                            slab, cnt, flags[i] = split_sorted(
+                                local, e, capacity, KEY_BITS, fill=SENTINEL)
+                        send[i] = slab.view(torch.int32)
+                        counts[i] = cnt
+                    del local, slab
+                recv, rcounts = all_to_all(send.view(e * e, capacity),
+                                           counts.view(-1))
+                del send
+                recv = recv.view(e, e, capacity).view(torch.uint32)
+                rcounts = rcounts.view(e, e)
+                merged = torch.empty((e, e * capacity), dtype=torch.int32, device=dev)
+                totals = torch.empty((e,), dtype=torch.int32, device=dev)
+                for i in range(e):
+                    with span("terasort.merge"):
+                        m, totals[i] = merge_received(recv[i], rcounts[i], SENTINEL)
+                        merged[i] = m.view(torch.int32)
+                # any shard overflowing aborts the round everywhere
+                overflowed = flags.any().to(torch.int32)
+                return merged.view(-1).view(torch.uint32), totals, overflowed
 
         return fn
 

@@ -5,7 +5,8 @@ Folds a :class:`~sparkrdma_tpu_torch.obs.critpath.CriticalPath` into a
 go" answer, in a fixed category vocabulary (docs/OBSERVABILITY.md
 "Critical path & attribution"):
 
-- ``device-compute`` — device sort / merge / exchange kernels,
+- ``device-compute`` — device sort / merge / exchange kernels, the
+                       device steps' phases,
 - ``dma-wave``       — collective DMA waves and the device fetch plane,
 - ``host-read``      — one-sided READ service, fetch groups, native
                        submit→complete intervals,
@@ -20,7 +21,8 @@ Categories are assigned by longest-matching span-name prefix, so new
 span families degrade to ``other`` rather than silently vanishing.
 
 A copy of the JAX package's ``obs/attr.py``, its imports rewritten to
-this package.
+this package, with the port's device-step span prefixes (``terasort.``,
+``hashjoin.``) added to ``device-compute``.
 
 Stdlib-only and jax-free, like the rest of ``obs/``.
 """
@@ -53,6 +55,8 @@ PREFIX_CATEGORIES: Dict[str, str] = {
     "reader.pipeline.stage": DEVICE_COMPUTE,
     "writer.pipeline.stage": DEVICE_COMPUTE,
     "exchange.": DEVICE_COMPUTE,
+    "terasort.": DEVICE_COMPUTE,  # the device steps' spans (models/)
+    "hashjoin.": DEVICE_COMPUTE,
     "shuffle.collective.wave": DMA_WAVE,
     "shuffle.collective": DMA_WAVE,
     "device_fetch.": DMA_WAVE,

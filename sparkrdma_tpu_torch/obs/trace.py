@@ -27,9 +27,58 @@ each edge as a Perfetto flow event pair (``ph:"s"`` at the origin's
 end, ``ph:"f"`` at the follower's start), and ``obs/critpath.py``
 walks the same edges to extract the per-job critical path.
 
-A copy of the JAX package's ``obs/trace.py``, its imports rewritten to
-this package; merged journal events (``obs/journal.py``) draw as
-instant markers on a ``journal`` track, as in JAX.
+The profiler bridge (this package only): while ``torch.profiler``
+records, every span also opens a profiler range of the same name
+(``torch._C._profiler._RecordFunctionFast``, a function-scope range),
+so it lands on the device trace's clock beside the kernels and CUDA
+runtime calls it encloses. A span is in one of three states:
+
+- off (no profiler recording, no enabled tracer's span open on the
+  thread): :func:`span` and a disabled :meth:`Tracer.span` return one
+  shared ``contextlib.nullcontext``: a check of the current span and
+  of the profiler's module flag, no generator, no ``Span``, no range;
+- profiler recording: a profiler range of the span's name. Every
+  ``Tracer.span`` (``engine.task``, ``shuffle.fetch``, ...) opens it
+  while a profiler records, enabled or not;
+- tracer: :func:`span` inside an open span of an enabled ``Tracer``
+  records into that tracer, nested under it, as ``Tracer.span`` does
+  (Chrome export, critical path).
+
+:func:`span` is the form for the device steps' hot paths. The spans
+they open, per stage of E shards:
+
+==========================  ==========================================  =====
+span                        around                                      count
+==========================  ==========================================  =====
+``terasort.step``           ``TeraSorter._build_step`` ``fn`` (and      1
+                            ``short`` on one shard): the whole step
+``terasort.local_sort``     one shard's ``device_sort``                 E
+``terasort.split``          one shard's ``split_sorted`` /              E
+                            ``split_sorted_edges`` and its send copy
+``terasort.merge``          one shard's ``merge_received`` and its      E
+                            copy into ``merged``
+``hashjoin.step``           ``HashJoin._build`` ``fn``: the whole step  1
+``hashjoin.pack``           one shard's ``radix_partition``, both       2E
+                            ``pack_by_partition`` calls, slab copies
+``hashjoin.build_sort``     the build keys' mask, ``device_argsort``,   1
+                            the two gathers
+``hashjoin.probe``          ``searchsorted``, the clamp, the gathers,   1
+                            ``hit``, ``joined``
+``exchange.a2a``            the transpose copies of the program that    1 sort,
+                            ``ExchangeProgram.program_for`` returns     4 join
+==========================  ==========================================  =====
+
+Every phase and ``exchange.a2a`` nests directly in its step span. A
+span adds no sync, no ``.item()`` and no host read. To see them,
+profile any step (``torch.profiler.profile`` with the CPU and CUDA
+activities) and export a Chrome trace. Span names never start with
+``cu`` and never look like a Python frame (``file.py(N): name``): the
+benchmark harness (``shufflebench/trace.py``) sorts trace events by
+those patterns.
+
+Otherwise a copy of the JAX package's ``obs/trace.py``, its imports
+rewritten to this package; merged journal events (``obs/journal.py``)
+draw as instant markers on a ``journal`` track, as in JAX.
 """
 
 from __future__ import annotations
@@ -39,6 +88,7 @@ import contextvars
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -75,6 +125,44 @@ def active_span_of_ident(ident: int) -> "Optional[Span]":
     thread, None when the thread has no open span (or the watch is
     off). Spans opened before the watch was enabled are not visible."""
     return _active_by_ident.get(ident)
+
+
+# The profiler bridge. ``torch.autograd.profiler._is_profiler_enabled``
+# is a plain module flag that the profiler sets while it records. It is
+# looked up through sys.modules, so importing obs/ never imports torch:
+# no profiler can record before torch is imported.
+_PROFILER_MODULE = "torch.autograd.profiler"
+_NULL = contextlib.nullcontext()
+
+
+def _recording() -> bool:
+    prof = sys.modules.get(_PROFILER_MODULE)
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _profiler_range(name: str):
+    """A profiler range named ``name``: a function-scope range, which
+    puts no GPU-side annotation events on the device trace. Only called
+    while a profiler records, so torch is imported."""
+    return sys.modules["torch"]._C._profiler._RecordFunctionFast(name)
+
+
+def span(name: str):
+    """The hot path's span, in three states:
+
+    - inside an open span of an enabled tracer on this thread: a span of
+      that tracer, bridged to the profiler as :meth:`Tracer.span` is;
+    - else, while a profiler records: a profiler range named ``name``;
+    - else: one shared null context, built once.
+
+    ``with span(...) as sp`` gives the ``Span`` in the first state and
+    None in the others."""
+    parent = _current_span.get()  # only Tracer._span sets it, with its tracer
+    if parent is not None and parent.tracer.enabled:
+        return parent.tracer._span(name, None, 0, None, {})
+    if _recording():
+        return _profiler_range(name)
+    return _NULL
 
 
 _span_ids = itertools.count(1)
@@ -129,7 +217,7 @@ class SpanHandle:
 
 class Span:
     __slots__ = ("name", "role", "trace_id", "span_id", "parent_id",
-                 "start", "end", "tid", "args", "follows")
+                 "start", "end", "tid", "args", "follows", "tracer")
 
     def __init__(self, name: str, role: str, trace_id: int, parent_id: int,
                  start: float, args: Dict[str, object]):
@@ -144,6 +232,9 @@ class Span:
         self.args = args
         # causal predecessors: list of (trace_id, span_id), lazily built
         self.follows: Optional[List[tuple]] = None
+        # the tracer that opened it as the current span (:func:`span`
+        # records the hot path's spans there); None for retroactive ones
+        self.tracer: "Optional[Tracer]" = None
 
     def handle(self) -> SpanHandle:
         return SpanHandle(self.trace_id, self.span_id)
@@ -220,7 +311,6 @@ class Tracer:
             return bound
         return parent.trace_id if parent is not None else 0
 
-    @contextlib.contextmanager
     def span(self, name: str, shuffle_id: Optional[int] = None,
              trace_id: int = 0, follows=None, **args):
         """Context-managed span; nests under the current contextvar span.
@@ -229,35 +319,45 @@ class Tracer:
         shuffle binding, else the parent's id) so nested spans inherit
         it, and re-resolved at close if still unknown — the binding may
         arrive over the wire while the span is open. ``follows`` adds
-        causal edges (Span / SpanHandle / iterable thereof)."""
+        causal edges (Span / SpanHandle / iterable thereof).
+
+        While a profiler records, the span is also a profiler range of
+        the same name. Disabled, it yields None: a profiler range while
+        a profiler records, else the shared null context."""
         if not self.enabled:
-            yield None
-            return
-        parent = _current_span.get()
-        if shuffle_id is not None:
-            args.setdefault("shuffle_id", shuffle_id)
-        sp = Span(name, self.role,
-                  self._resolve_trace(trace_id, shuffle_id, parent),
-                  parent.span_id if parent is not None else 0,
-                  now(), args)
-        _link(sp, follows)
-        token = _current_span.set(sp)
-        if _span_watch:
-            _active_by_ident[sp.tid] = sp
-        try:
-            yield sp
-        finally:
-            _current_span.reset(token)
+            return _profiler_range(name) if _recording() else _NULL
+        return self._span(name, shuffle_id, trace_id, follows, args)
+
+    @contextlib.contextmanager
+    def _span(self, name: str, shuffle_id: Optional[int], trace_id: int,
+              follows, args: Dict[str, object]):
+        with _profiler_range(name) if _recording() else _NULL:
+            parent = _current_span.get()
+            if shuffle_id is not None:
+                args.setdefault("shuffle_id", shuffle_id)
+            sp = Span(name, self.role,
+                      self._resolve_trace(trace_id, shuffle_id, parent),
+                      parent.span_id if parent is not None else 0,
+                      now(), args)
+            sp.tracer = self
+            _link(sp, follows)
+            token = _current_span.set(sp)
             if _span_watch:
-                if parent is not None:
-                    _active_by_ident[sp.tid] = parent
-                else:
-                    _active_by_ident.pop(sp.tid, None)
-            sp.end = now()
-            if not sp.trace_id:
-                sp.trace_id = self._resolve_trace(trace_id, shuffle_id, parent)
-            with self._lock:
-                self._spans.append(sp)
+                _active_by_ident[sp.tid] = sp
+            try:
+                yield sp
+            finally:
+                _current_span.reset(token)
+                if _span_watch:
+                    if parent is not None:
+                        _active_by_ident[sp.tid] = parent
+                    else:
+                        _active_by_ident.pop(sp.tid, None)
+                sp.end = now()
+                if not sp.trace_id:
+                    sp.trace_id = self._resolve_trace(trace_id, shuffle_id, parent)
+                with self._lock:
+                    self._spans.append(sp)
 
     def record(self, name: str, start: float, end: float,
                shuffle_id: Optional[int] = None, trace_id: int = 0,

@@ -17,7 +17,12 @@ power-of-two class, so one program shape serves many stages.
   each hop. Byte-identical to ``exchange``.
 
 Both account bytes in each direction, wall time and the ``exchange.*``
-metric families as the JAX program does.
+metric families as the JAX program does. The program that
+``program_for`` returns (the path of the device steps, which call it
+directly) counts ``exchange.exchanges``, ``exchange.bytes_sent`` and
+``exchange.bytes_received`` itself, from the shapes, with no device
+sync, and runs inside an ``exchange.a2a`` span (``obs/trace.py``
+``span``).
 
 On a mesh that spans the ranks of a process group
 (``parallel/multihost.global_mesh``), ``send`` and ``counts`` are this
@@ -59,6 +64,7 @@ import torch
 import torch.distributed as dist
 
 from sparkrdma_tpu_torch.obs import get_registry
+from sparkrdma_tpu_torch.obs.trace import span
 from sparkrdma_tpu_torch.ops import remote_copy
 from sparkrdma_tpu_torch.parallel.mesh import ShardMesh
 from sparkrdma_tpu_torch.utils.torch_compat import torch_dtype
@@ -143,11 +149,13 @@ class ExchangeProgram:
         }
 
     def _account(self, label: str, send: torch.Tensor, recv: torch.Tensor,
-                 rcounts: torch.Tensor, t0: float):
+                 rcounts: torch.Tensor, t0: float, counted: bool = False):
         """Wait for the step's outputs and record both directions. The
         valid-byte readback is the call's one device sync: it waits for
         the stream, on which the exchange's own work ran before it, so
-        the wall time is a step time."""
+        the wall time is a step time. ``counted``: the program has
+        already counted the call and its capacity bytes in the
+        registry."""
         valid = int(rcounts.sum(dtype=torch.int64))
         dt = time.perf_counter() - t0
         cap = send.numel() * send.element_size()
@@ -161,9 +169,10 @@ class ExchangeProgram:
         self.exchanges += 1
         self.bytes_moved += cap
         reg = get_registry()
-        reg.counter("exchange.exchanges", schedule=label).inc()
-        reg.counter("exchange.bytes_sent", schedule=label).inc(cap)
-        reg.counter("exchange.bytes_received", schedule=label).inc(recv_cap)
+        if not counted:
+            reg.counter("exchange.exchanges", schedule=label).inc()
+            reg.counter("exchange.bytes_sent", schedule=label).inc(cap)
+            reg.counter("exchange.bytes_received", schedule=label).inc(recv_cap)
         reg.counter("exchange.bytes_received_valid", schedule=label).inc(valid)
         reg.histogram("exchange.time_ms", schedule=label).observe(dt * 1e3)
         return recv, rcounts
@@ -198,20 +207,32 @@ class ExchangeProgram:
         if rows % e:
             raise ValueError(f"{rows} rows a shard do not split over {e} peers")
         rpp = rows // e
+        # resolved once: the call counts from the shapes, with no sync
+        reg = get_registry()
+        exchanges = reg.counter("exchange.exchanges", schedule="a2a")
+        sent = reg.counter("exchange.bytes_sent", schedule="a2a")
+        received = reg.counter("exchange.bytes_received", schedule="a2a")
 
         def fn(send: torch.Tensor, counts: torch.Tensor):
-            # shard i's chunk j goes to shard j, landing as its chunk i
-            tail = send.shape[1:]
-            recv = send.view(e, e, rpp, *tail).transpose(0, 1).contiguous()
-            rcounts = counts.view(e, e, rpp).transpose(0, 1).contiguous()
+            with span("exchange.a2a"):
+                # shard i's chunk j goes to shard j, landing as its chunk i
+                tail = send.shape[1:]
+                recv = send.view(e, e, rpp, *tail).transpose(0, 1).contiguous()
+                rcounts = counts.view(e, e, rpp).transpose(0, 1).contiguous()
+            nbytes = send.numel() * send.element_size()  # recv has send's shape
+            exchanges.inc()
+            sent.inc(nbytes)
+            received.inc(nbytes)
             return recv.view(send.shape), rcounts.view(counts.shape)
 
         return fn
 
     def program_for(self, rows: int, block: int, dtype) -> Callable:
         """The cached program ``fn(send, counts) -> (recv, rcounts)`` for
-        a shape class, ``rows`` per shard (no accounting, no sync), over
-        co-resident shards."""
+        a shape class, ``rows`` per shard, over co-resident shards. It
+        counts each call in the registry (``exchange.exchanges``,
+        ``exchange.bytes_sent``, ``exchange.bytes_received``; no
+        ``stats``, no sync)."""
         if self.mesh.spans_ranks:
             raise NotImplementedError(
                 "a mesh over ranks runs exchange() and ring_exchange(), not a "
@@ -254,7 +275,7 @@ class ExchangeProgram:
         fn = self.program_for(rows, send.shape[1], send.dtype)
         t0 = time.perf_counter()
         recv, rcounts = fn(send, counts)
-        recv, rcounts = self._account("a2a", send, recv, rcounts, t0)
+        recv, rcounts = self._account("a2a", send, recv, rcounts, t0, counted=True)
         if pad:
             # receivers see each peer's chunk padded at its tail
             rb = rpp + pad
