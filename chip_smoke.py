@@ -159,8 +159,9 @@ exits nonzero and prints no result. Phases, each one JSON line:
    after 10 within 5e-3 of the plain version's. Walls (data, upload,
    prepare, steps cold and warm, readback), peak device bytes and a
    profiled step each; ``HashJoin`` launches ``srt_radix_pack`` once a
-   side a step and nothing else, PageRank and ALS no kernel (their
-   exchanges are the dense all-to-all); ``MapShardSorter.warm`` once;
+   side a step, ``PageRank.blocks`` once a call (its bucketing), and
+   nothing else, ALS no kernel (the exchanges are the dense
+   all-to-all); ``MapShardSorter.warm`` once;
 13. ``data_planes``: the host plane's record writers and readers over the
    python transport at HiBench TeraSort's small profile (3,200,000
    records of a uint32 key and 12 uint64 payload words, word j = key *
@@ -3035,8 +3036,10 @@ def phase_spmd_models(torch, dev):
     """Phase 12: HashJoin, PageRank and ALS on ``make_mesh([dev] * 8)`` at
     their users' sizes, each checked against an independent version on
     the card. The join's packs launch ``srt_radix_pack``, one a side a
-    step; nothing else launches a hand-written kernel (the exchanges are
-    the dense all-to-all's transpose). Returns the pack's launches."""
+    step, and PageRank's bucketing one a ``blocks`` call (two: ``run``'s
+    and the warm step's); nothing else launches a hand-written kernel
+    (the exchanges are the dense all-to-all's transpose). Returns the
+    pack's launches."""
     from sparkrdma_tpu_torch.models import MapShardSorter
     from sparkrdma_tpu_torch.ops import pallas_attention as pa
     from sparkrdma_tpu_torch.ops import remote_copy as rc
@@ -3058,6 +3061,12 @@ def phase_spmd_models(torch, dev):
         raise AssertionError(
             f"the join launched srt_radix_pack {so.radix_pack_launches} times, not {want}")
     report["b_pagerank"] = _models_pagerank(torch, dev, mesh)
+    by_model = {"a_hashjoin": want, "b_pagerank": so.radix_pack_launches - want}
+    if by_model["b_pagerank"] != 2:  # its two ``blocks`` calls, one pack each
+        raise AssertionError(
+            f"PageRank launched srt_radix_pack {by_model['b_pagerank']} times, not 2")
+    want = so.radix_pack_launches
+    report["srt_radix_pack_launches"] = by_model
     report["c_als"] = _models_als(torch, dev, mesh)
     launched = {k: n for k, n in _all_counts(rc, pa).items() if n}
     if launched or so.radix_pack_launches != want:

@@ -10,6 +10,20 @@ receives:
 
   contrib[d] = sum over the edges (s -> t) into shard d of rank[s] / outdeg[s]
   rank' = (1 - alpha) / N + alpha * (received contrib + dangling share)
+
+The bucketing (``blocks``) packs one int32 key an edge, its block above
+its source's local index, with its destination's local index as the
+payload, in one ``radix_pack_pairs`` call (on CUDA the ``srt_radix_pack``
+kernel): beside the edges it holds about four int32 columns of one
+value an edge at its peak, so a graph of 2^30 edges buckets on one 80 GB
+card (24.8-25.5 GiB of set-up peak on an H100, edges included). The
+step works over rows of the block capacity rounded up to ``SLOT_ALIGN``
+slots.
+
+The step opens spans (``obs/trace.py``): ``pagerank.step`` around the
+call, and directly in it ``pagerank.index`` once, then each iteration
+``pagerank.gather``, ``pagerank.scatter``, the exchange's
+``exchange.a2a`` and ``pagerank.apply``.
 """
 
 from __future__ import annotations
@@ -21,9 +35,15 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.obs.trace import span
+from sparkrdma_tpu_torch.ops import sort as sort_ops
 from sparkrdma_tpu_torch.ops.exchange import ExchangeProgram
-from sparkrdma_tpu_torch.ops.sort import pack_by_partition
+from sparkrdma_tpu_torch.ops.sort import (RADIX_PACK_MAX_PARTITIONS, pack_by_partition,
+                                          radix_pack_pairs)
 from sparkrdma_tpu_torch.parallel.mesh import ShardMesh, mesh_or_one_shard
+
+
+SLOT_ALIGN = 1024  # rows of an odd length measured 3-4% slower a stage on an H100
 
 
 class PageRank:
@@ -43,25 +63,35 @@ class PageRank:
         self.last_walls: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
-    def blocks(self, edges: torch.Tensor, num_vertices: int
+    def blocks(self, edges: torch.Tensor, num_vertices: int, capacity: int = 1
                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """:meth:`prepare` on the mesh's device: ``edges`` is an ``[m, 2]``
         integer tensor there. Returns the tensors ``(packed [E, E, cap,
-        2] int32, deg [E * n_local] float32, n_local)``."""
+        2] int32, deg [E * n_local] float32, n_local)``, ``cap`` the
+        largest block or ``capacity``, whichever is more (a caller that
+        sizes its buffers once for graphs of one size passes it).
+
+        Each (src shard, dst shard) block keeps its edges in input order,
+        as the JAX package's E^2 masks do. Where the packed key fits 31
+        bits, one ``radix_pack_pairs`` call packs every edge; otherwise,
+        and on CUDA where the pack's partitions (E^2, rounded up to a
+        power of two) or rows exceed its kernel's, one
+        ``pack_by_partition`` of int64 block ids does."""
         e = self.num_shards
         n_local = int(math.ceil(num_vertices / e))
-        src, dst = edges[:, 0].to(torch.int64), edges[:, 1].to(torch.int64)
+        src, dst = edges[:, 0].to(torch.int32), edges[:, 1].to(torch.int32)
         outdeg = torch.bincount(src, minlength=num_vertices).to(torch.float32)
-        # bucket (src shard, dst shard); one stable sort keeps each
-        # block's edges in input order, as the JAX package's E^2 masks do
-        block = torch.div(src, n_local, rounding_mode="floor") * e + torch.div(
-            dst, n_local, rounding_mode="floor")
-        cap = max(1, int(torch.bincount(block, minlength=e * e).max()))
-        local = torch.stack([(v % n_local).to(torch.int32) for v in (src, dst)], 1)
-        packed, _, _ = pack_by_partition(local, block, e * e, cap, fill=-1)
         deg = torch.zeros((e * n_local,), dtype=torch.float32, device=edges.device)
         deg[:num_vertices] = outdeg
-        return packed.view(e, e, cap, 2), deg, n_local
+        del outdeg
+        lg, b = (e * e - 1).bit_length(), max(1, (n_local - 1).bit_length())
+        kernel = sort_ops._pack_kernel_path(src)
+        if lg + b <= 31 and not (kernel and (1 << lg > RADIX_PACK_MAX_PARTITIONS
+                                             or len(src) >= 1 << 31)):
+            packed = _pack_radix(src, dst, e, n_local, lg, b, capacity)
+        else:
+            packed = _pack_plain(src, dst, e, n_local, capacity)
+        return packed.view(e, e, -1, 2), deg, n_local
 
     def prepare(self, edges: np.ndarray, num_vertices: int):
         """Host-side contract of the JAX package: pad per-(src, dst)-shard
@@ -81,49 +111,66 @@ class PageRank:
         e = self.num_shards
         alpha = self.damping
         all_to_all = self._exchange.program_for(e, n_local, torch.float32)
+        slots = -(-cap // SLOT_ALIGN) * SLOT_ALIGN
+        zero_at = e * n_local  # outc's zero, which padding slots gather
+        idx = torch.int32 if e * e * n_local < 2**31 else torch.int64
 
         def fn(rank, deg, valid, blocks):
             # rank/deg/valid: [E * n_local] stacks; blocks: [E_src, E_dst,
             # cap, 2] local indices, -1 padding. ``valid`` masks the slots
             # that exist only because E does not divide the vertex count:
             # they hold zero rank and shed no dangling mass.
-            if blocks.shape != (e, e, cap, 2) or rank.shape != (e * n_local,):
-                raise ValueError(
-                    f"step built for [{e}, {e}, {cap}, 2] blocks and "
-                    f"[{e * n_local}] ranks, got {list(blocks.shape)}, "
-                    f"{list(rank.shape)}")
-            dev = rank.device
-            safe_deg = deg.clamp(min=1.0)
-            s_idx = blocks[..., 0].to(torch.int64)
-            live = (s_idx >= 0).view(-1)
-            # flat indices into the rank stack (source shard i's slots) and
-            # into the [E_src, E_dst, n_local] contribution stack; padding
-            # slots point at slot 0 and add 0
-            shard = torch.arange(e, dtype=torch.int64, device=dev)
-            src_at = (shard[:, None, None] * n_local + s_idx.clamp(min=0)).view(-1)
-            row = (shard[:, None] * e + shard[None, :])[:, :, None]
-            dst_at = (row * n_local
-                      + blocks[..., 1].to(torch.int64).clamp(min=0)).view(-1)
-            del s_idx, row
-            dangles = (deg == 0) & (valid > 0)
-            counts = torch.full((e * e,), n_local, dtype=torch.int32, device=dev)
-            r = rank
-            for _ in range(iters):
-                outc = torch.where(deg > 0, r / safe_deg, 0.0)
-                # dangling mass is redistributed uniformly; its psum over
-                # every shard is the sum over the whole stack
-                dangling = torch.where(dangles, r, 0.0).sum()
-                vals = torch.where(live, outc[src_at], 0.0)
-                contribs = torch.zeros((e * e * n_local,), dtype=torch.float32,
-                                       device=dev).index_add_(0, dst_at, vals)
-                del vals
-                # one all-to-all per iteration: shard i's row d -> shard d
-                recv, _ = all_to_all(contribs.view(e * e, n_local), counts)
-                inflow = recv.view(e, e, n_local).sum(dim=1).view(-1)
-                r_new = (1.0 - alpha) / num_vertices + alpha * (
-                    inflow + dangling / num_vertices)
-                r = torch.where(valid > 0, r_new, 0.0)
-            return r
+            with span("pagerank.step"):
+                if blocks.shape != (e, e, cap, 2) or rank.shape != (e * n_local,):
+                    raise ValueError(
+                        f"step built for [{e}, {e}, {cap}, 2] blocks and "
+                        f"[{e * n_local}] ranks, got {list(blocks.shape)}, "
+                        f"{list(rank.shape)}")
+                dev = rank.device
+                with span("pagerank.index"):
+                    # flat indices into ``outc`` (the rank stack's
+                    # out-contributions and one zero after them) and into
+                    # the [E_src, E_dst, n_local] contribution stack, over
+                    # rows of ``slots``. A padding
+                    # slot gathers the zero and adds it into the slot of
+                    # its own position: padding aimed at one address
+                    # would serialise its atomics
+                    shard = torch.arange(e, dtype=idx, device=dev)
+                    s_loc, d_loc = blocks[..., 0], blocks[..., 1]
+                    src_at = torch.empty((e, e, slots), dtype=idx, device=dev)
+                    src_at[:, :, :cap] = torch.where(
+                        s_loc >= 0, s_loc + (shard * n_local)[:, None, None], zero_at)
+                    src_at[:, :, cap:] = zero_at
+                    spread = torch.arange(slots, dtype=idx, device=dev) % n_local
+                    dst_at = torch.empty((e, e, slots), dtype=idx, device=dev)
+                    dst_at[:, :, :cap] = torch.where(d_loc >= 0, d_loc, spread[:cap])
+                    dst_at[:, :, cap:] = spread[cap:]
+                    dst_at += ((shard[:, None] * e + shard[None, :]) * n_local)[:, :, None]
+                    src_at, dst_at = src_at.view(-1), dst_at.view(-1)
+                    safe_deg, has_out = deg.clamp(min=1.0), deg > 0
+                    dangles = (deg == 0) & (valid > 0)
+                    counts = torch.full((e * e,), n_local, dtype=torch.int32, device=dev)
+                    outc = torch.zeros((zero_at + 1,), dtype=torch.float32, device=dev)
+                r = rank
+                for _ in range(iters):
+                    with span("pagerank.gather"):
+                        torch.where(has_out, r / safe_deg, outc[zero_at], out=outc[:zero_at])
+                        # dangling mass is redistributed uniformly; its psum
+                        # over every shard is the sum over the whole stack
+                        dangling = torch.where(dangles, r, 0.0).sum()
+                        vals = torch.index_select(outc, 0, src_at)
+                    with span("pagerank.scatter"):
+                        contribs = torch.zeros((e * e * n_local,), dtype=torch.float32,
+                                               device=dev).index_add_(0, dst_at, vals)
+                        del vals
+                    # one all-to-all per iteration: shard i's row d -> shard d
+                    recv, _ = all_to_all(contribs.view(e * e, n_local), counts)
+                    with span("pagerank.apply"):
+                        inflow = recv.view(e, e, n_local).sum(dim=1).view(-1)
+                        r_new = (1.0 - alpha) / num_vertices + alpha * (
+                            inflow + dangling / num_vertices)
+                        r = torch.where(valid > 0, r_new, 0.0)
+                return r
 
         return fn
 
@@ -161,6 +208,43 @@ class PageRank:
         self.last_walls = {"upload_s": t1 - t0, "prepare_s": t2 - t1,
                            "run_s": time.perf_counter() - t2}
         return out
+
+
+def _pack_radix(src: torch.Tensor, dst: torch.Tensor, e: int, n_local: int, lg: int,
+                b: int, capacity: int = 1) -> torch.Tensor:
+    """``[E * E, cap, 2]`` int32 blocks by one ``radix_pack_pairs`` over
+    the ``[1, m]`` stack of keys ``block << b | src % n_local`` (``block
+    = (src // n_local) * E + dst // n_local``, below ``2^lg``) with
+    payloads ``dst % n_local``."""
+    keys = torch.div(src, n_local, rounding_mode="floor")
+    keys.mul_(e).add_(torch.div(dst, n_local, rounding_mode="floor"))
+    cap = max(capacity, int(torch.bincount(keys, minlength=e * e).max()))
+    keys.bitwise_left_shift_(b).add_(torch.remainder(src, n_local))
+    vals = torch.remainder(dst, n_local)
+    kslab, vslab, _, _ = radix_pack_pairs(
+        keys.view(torch.uint32).view(1, -1), vals.view(1, -1), 1 << lg, cap, lg + b,
+        key_fill=0xFFFFFFFF, val_fill=-1)
+    del keys, vals
+    # a valid key lies below 2^31; the padding's is all ones, so its
+    # arithmetic shift by 31 is -1 (the fill) and a valid key's 0
+    k = kslab.view(torch.int32)
+    sign = k >> 31
+    k.bitwise_and_((1 << b) - 1).bitwise_or_(sign)
+    del sign
+    return torch.stack((k[0, :e * e], vslab[0, :e * e]), dim=-1)
+
+
+def _pack_plain(src: torch.Tensor, dst: torch.Tensor, e: int, n_local: int,
+                capacity: int = 1) -> torch.Tensor:
+    """The same blocks by one ``pack_by_partition`` of int64 block ids,
+    for keys over 31 bits and CUDA meshes beyond the radix pack's kernel."""
+    src, dst = src.to(torch.int64), dst.to(torch.int64)
+    block = torch.div(src, n_local, rounding_mode="floor") * e + torch.div(
+        dst, n_local, rounding_mode="floor")
+    cap = max(capacity, int(torch.bincount(block, minlength=e * e).max()))
+    local = torch.stack([(v % n_local).to(torch.int32) for v in (src, dst)], 1)
+    packed, _, _ = pack_by_partition(local, block, e * e, cap, fill=-1)
+    return packed
 
 
 def reference_pagerank(

@@ -22,7 +22,7 @@ span families degrade to ``other`` rather than silently vanishing.
 
 A copy of the JAX package's ``obs/attr.py``, its imports rewritten to
 this package, with the port's device-step span prefixes (``terasort.``,
-``hashjoin.``) added to ``device-compute``.
+``hashjoin.``, ``pagerank.``) added to ``device-compute``.
 
 Stdlib-only and jax-free, like the rest of ``obs/``.
 """
@@ -57,6 +57,7 @@ PREFIX_CATEGORIES: Dict[str, str] = {
     "exchange.": DEVICE_COMPUTE,
     "terasort.": DEVICE_COMPUTE,  # the device steps' spans (models/)
     "hashjoin.": DEVICE_COMPUTE,
+    "pagerank.": DEVICE_COMPUTE,
     "shuffle.collective.wave": DMA_WAVE,
     "shuffle.collective": DMA_WAVE,
     "device_fetch.": DMA_WAVE,

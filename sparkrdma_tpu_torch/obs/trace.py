@@ -45,7 +45,8 @@ runtime calls it encloses. A span is in one of three states:
   (Chrome export, critical path).
 
 :func:`span` is the form for the device steps' hot paths. The spans
-they open, per stage of E shards:
+they open, per stage of E shards (a PageRank stage is one call of
+``iters`` iterations):
 
 ==========================  ==========================================  =====
 span                        around                                      count
@@ -64,8 +65,18 @@ span                        around                                      count
                             the two gathers
 ``hashjoin.probe``          ``searchsorted``, the clamp, the gathers,   1
                             ``hit``, ``joined``
+``pagerank.step``           ``PageRank._build`` ``fn``: the whole call  1
+``pagerank.index``          ``src_at`` and ``dst_at`` from the packed   1
+                            blocks, the degrees' masks, ``outc``
+``pagerank.gather``         one iteration's out-contributions, the      iters
+                            dangling sum, the edge gather
+``pagerank.scatter``        one iteration's zeroed ``contribs`` and     iters
+                            its ``index_add_``
+``pagerank.apply``          one iteration's received sum and update     iters
 ``exchange.a2a``            the transpose copies of the program that    1 sort,
-                            ``ExchangeProgram.program_for`` returns     4 join
+                            ``ExchangeProgram.program_for`` returns     4 join,
+                                                                        iters
+                                                                        PageRank
 ==========================  ==========================================  =====
 
 Every phase and ``exchange.a2a`` nests directly in its step span. A

@@ -19,8 +19,9 @@ same arguments, results and overflow contract:
   ``srt_radix_pack`` (``csrc/radix_pack.cu``, a library of its own);
   on the CPU it runs :func:`radix_pack_pairs_reference`, the plain
   version; nothing falls back. Each launch adds one to
-  ``radix_pack_launches``. ``pack_by_partition`` stays the plain op of
-  any ``dest`` (PageRank, ALS),
+  ``radix_pack_launches``. PageRank's bucketing packs by it too;
+  ``pack_by_partition`` stays the plain op of any ``dest`` (ALS, and
+  PageRank's meshes beyond the kernel),
 - ``merge_received``: mask + sort of a received slab,
 - ``device_put_columns``: the columns of one columnar block (DESIGN.md
   §25), each staged to the device by one host-to-device copy.

@@ -1,12 +1,13 @@
 """The device steps' spans and the exchange program's counts.
 
-``TeraSorter.step`` and ``HashJoin.step`` open a span at the step and
-one at each phase, and the program of ``ExchangeProgram.program_for``
-one around its transpose (``obs/trace.py`` ``span``). Checked here on
-CPU shards: the names, their number a stage and what nests in what
-under ``torch.profiler``; the three states (off, profiler, tracer); the
-``exchange.*`` counts the program records. One test runs the program
-under CUDA's sync debug mode and skips without a CUDA device."""
+``TeraSorter.step``, ``HashJoin.step`` and ``PageRank.step`` open a
+span at the step and one at each phase, and the program of
+``ExchangeProgram.program_for`` one around its transpose
+(``obs/trace.py`` ``span``). Checked here on CPU shards: the names,
+their number a stage and what nests in what under ``torch.profiler``;
+the three states (off, profiler, tracer); the ``exchange.*`` counts the
+program records. Two tests run a program under CUDA's sync debug mode
+and skip without a CUDA device."""
 
 import contextlib
 from collections import Counter
@@ -17,6 +18,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from sparkrdma_tpu_torch.models.hashjoin import HashJoin
+from sparkrdma_tpu_torch.models.pagerank import PageRank
 from sparkrdma_tpu_torch.models.terasort import TeraSorter
 from sparkrdma_tpu_torch.obs import attr, get_registry
 from sparkrdma_tpu_torch.obs import trace
@@ -25,7 +27,8 @@ from sparkrdma_tpu_torch.parallel.mesh import make_mesh
 
 E = 4
 N_LOCAL = 256
-PREFIXES = ("terasort.", "hashjoin.", "exchange.")
+PREFIXES = ("terasort.", "hashjoin.", "pagerank.", "exchange.")
+ITERS = 10
 
 
 def _keys(n, seed=0):
@@ -56,11 +59,22 @@ def _join_step():
     return lambda: fn(*args)
 
 
+def _pagerank_step(device="cpu"):
+    pr = PageRank(make_mesh([device] * E))
+    n = E * N_LOCAL
+    edges = np.random.default_rng(2).integers(0, n, size=(8 * n, 2))
+    packed, deg, n_local = pr.blocks(torch.from_numpy(edges).to(device), n)
+    rank0, valid = pr.initial(n_local, n)
+    fn = pr.step(n_local, packed.shape[2], ITERS, n)
+    return lambda: fn(rank0, deg, valid, packed)
+
+
 STEPS = {
     "sort": _sort_step,
     "sort-adaptive": lambda: _sort_step(adaptive=True),
     "sort-one-shard": lambda: _sort_step(shards=1),
     "join": _join_step,
+    "pagerank": _pagerank_step,
 }
 # per step: each span's number a stage, and the span it nests in
 SPANS = {
@@ -78,6 +92,12 @@ SPANS = {
               "hashjoin.probe": "hashjoin.step", "hashjoin.step": None}),
 }
 SPANS["sort-adaptive"] = SPANS["sort"]
+SPANS["pagerank"] = (
+    {"pagerank.step": 1, "pagerank.index": 1, "pagerank.gather": ITERS,
+     "pagerank.scatter": ITERS, "exchange.a2a": ITERS, "pagerank.apply": ITERS},
+    {"pagerank.index": "pagerank.step", "pagerank.gather": "pagerank.step",
+     "pagerank.scatter": "pagerank.step", "exchange.a2a": "pagerank.step",
+     "pagerank.apply": "pagerank.step", "pagerank.step": None})
 
 
 def _profiled_ranges(run):
@@ -125,7 +145,7 @@ class _CountingRange:
 
 
 @pytest.mark.parametrize("state", ["off", "disabled-tracer", "profiler", "tracer"])
-@pytest.mark.parametrize("step", ["sort", "join"])
+@pytest.mark.parametrize("step", ["sort", "join", "pagerank"])
 def test_three_states(step, state, monkeypatch):
     run = STEPS[step]()
     run()
@@ -235,3 +255,27 @@ def test_exchange_program_never_syncs(state):
     want = send.view(E, E, 2, 1024).transpose(0, 1).reshape(send.shape)
     assert torch.equal(recv, want)
     assert torch.equal(rcounts, counts.view(E, E, 2).transpose(0, 1).reshape(-1))
+
+
+@pytest.mark.parametrize("state", ["off", "profiler"])
+def test_pagerank_step_never_syncs(state):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    run = STEPS["pagerank"]("cuda")
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            if state == "profiler" else contextlib.nullcontext() as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    if state == "profiler":
+        events = list(prof.profiler.kineto_results.events())
+        steps = [(e.start_ns(), e.end_ns()) for e in events if e.name() == "pagerank.step"]
+        assert len(steps) == 1
+        syncs = [e for e in events if "Synchronize" in e.name()
+                 and steps[0][0] <= e.start_ns() <= steps[0][1]]
+        assert syncs == []
