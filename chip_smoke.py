@@ -159,9 +159,14 @@ exits nonzero and prints no result. Phases, each one JSON line:
    after 10 within 5e-3 of the plain version's. Walls (data, upload,
    prepare, steps cold and warm, readback), peak device bytes and a
    profiled step each; ``HashJoin`` launches ``srt_radix_pack`` once a
-   side a step, ``PageRank.blocks`` once a call (its bucketing), and
-   nothing else, ALS no kernel (the exchanges are the dense
-   all-to-all); ``MapShardSorter.warm`` once;
+   side a step, ``PageRank.blocks`` once a call (its bucketing),
+   ``PageRank``'s step one CSR build a call and one ``srt_csr_pull`` an
+   iteration (three calls of 20: 3 and 60), and nothing else, ALS no
+   kernel (the exchanges are the dense all-to-all);
+   ``MapShardSorter.warm`` once; ``timing_csr_pull`` then checks the
+   CSR build block by block against its plain version at the PageRank
+   cell's shapes and times the pull beside its byte bound and cuSPARSE's
+   SpMV over the same CSR;
 13. ``data_planes``: the host plane's record writers and readers over the
    python transport at HiBench TeraSort's small profile (3,200,000
    records of a uint32 key and 12 uint64 payload words, word j = key *
@@ -331,6 +336,7 @@ script exits nonzero.
 import contextlib
 import hashlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -3037,10 +3043,12 @@ def phase_spmd_models(torch, dev):
     their users' sizes, each checked against an independent version on
     the card. The join's packs launch ``srt_radix_pack``, one a side a
     step, and PageRank's bucketing one a ``blocks`` call (two: ``run``'s
-    and the warm step's); nothing else launches a hand-written kernel
-    (the exchanges are the dense all-to-all's transpose). Returns the
-    pack's launches."""
+    and the warm step's); PageRank's step builds its CSR once a call and
+    launches ``srt_csr_pull`` once an iteration; nothing else launches a
+    hand-written kernel (the exchanges are the dense all-to-all's
+    transpose). Returns the pack's and the CSR kernels' launches."""
     from sparkrdma_tpu_torch.models import MapShardSorter
+    from sparkrdma_tpu_torch.ops import csr
     from sparkrdma_tpu_torch.ops import pallas_attention as pa
     from sparkrdma_tpu_torch.ops import remote_copy as rc
     from sparkrdma_tpu_torch.ops import sort as so
@@ -3051,6 +3059,7 @@ def phase_spmd_models(torch, dev):
     rc.reset_launch_counts()
     pa.reset_launch_counts()
     so.reset_launch_counts()
+    csr.reset_launch_counts()
     report = {"shards": SPMD_MODEL_SHARDS}
     _, report["map_sorter_warm_s"] = _synced_s(
         torch, lambda: MapShardSorter(dev).warm(KEYS // EXECUTORS, REDUCERS - 1))
@@ -3067,13 +3076,23 @@ def phase_spmd_models(torch, dev):
             f"PageRank launched srt_radix_pack {by_model['b_pagerank']} times, not 2")
     want = so.radix_pack_launches
     report["srt_radix_pack_launches"] = by_model
+    # run(), the warm and the profiled job: a CSR build a call, a pull an
+    # iteration, and the join launched neither
+    pulls = (csr.csr_build_launches, csr.csr_pull_launches)
+    if pulls != (3, 3 * PR_ITERS):
+        raise AssertionError(f"PageRank made {pulls[0]} CSR builds and {pulls[1]} pulls, "
+                             f"not 3 and {3 * PR_ITERS}")
     report["c_als"] = _models_als(torch, dev, mesh)
     launched = {k: n for k, n in _all_counts(rc, pa).items() if n}
-    if launched or so.radix_pack_launches != want:
+    if (launched or so.radix_pack_launches != want
+            or (csr.csr_build_launches, csr.csr_pull_launches) != pulls):
         raise AssertionError(
             f"the SPMD models launched kernels: {launched}, "
-            f"srt_radix_pack {so.radix_pack_launches}")
-    launches = {"srt_radix_pack": so.radix_pack_launches}
+            f"srt_radix_pack {so.radix_pack_launches}, CSR builds and pulls "
+            f"{csr.csr_build_launches} and {csr.csr_pull_launches}")
+    launches = {"srt_radix_pack": so.radix_pack_launches,
+                "srt_csr_build": csr.csr_build_launches,
+                "srt_csr_pull": csr.csr_pull_launches}
     emit(12, name="spmd_models", launches=launches, seconds=time.perf_counter() - t0,
          **report)
     return launches
@@ -3185,6 +3204,206 @@ def time_radix_pack(torch, dev):
                   "overflowed": bool(flags.any())},
     }
     emit("timing_radix_pack", kernels=[entry])
+    return entry
+
+
+# the PageRank cell's pull (shufflebench pagerank.g500-s26): the Graph500
+# toy graph, SCALE 26 (2^30 Kronecker edges), on 8 shards of 2^23
+# vertices, blocks of the mean block plus 6%
+CP_SCALE = 26
+CP_EDGEFACTOR = 16
+CP_SHARDS = 8
+CP_HEADROOM = 0.06
+CP_INITIATOR = (0.57, 0.19, 0.19, 0.05)
+CP_SEED = 4_250_000_123
+
+
+def kronecker_edges(torch, scale, edgefactor, initiator, seed, dev):
+    """The Graph500 Kronecker edge list (graph500.org specification,
+    section 3): ``edgefactor * 2^scale`` edges, ``[m, 2]`` int32 rows
+    ``(start, end)`` on ``dev``, drawn from ``seed``. At each of
+    ``scale`` levels every edge sets one bit of its start, 1 with
+    probability C + D of the initiator (A, B, C, D), and one of its end,
+    then 1 with probability D / (C + D), else B / (A + B). The vertex
+    labels are then permuted. Self-loops and duplicates are kept; the
+    spec's shuffle of the edges is left out, as each edge is drawn on
+    its own. The smoke and the card tests draw their graphs here, so
+    that what they time and check does not follow the benchmark's
+    generator."""
+    n, m = 1 << scale, edgefactor << scale
+    a, b, c, d = initiator
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    ends = [torch.zeros((m,), dtype=torch.int32, device=dev) for _ in range(2)]
+    u = torch.empty((m,), dtype=torch.float32, device=dev)
+    for level in range(scale):
+        u.uniform_(generator=g)
+        start_bit = u > a + b
+        u.uniform_(generator=g)
+        end_bit = torch.where(start_bit, u > c / (c + d), u > a / (a + b))
+        for col, bit in zip(ends, (start_bit, end_bit)):
+            col.bitwise_or_(bit.to(torch.int32).bitwise_left_shift_(level))
+        del start_bit, end_bit
+    del u
+    label = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+    return torch.stack([torch.index_select(label, 0, col) for col in ends], 1)
+
+
+def check_csr_build(torch, csr, packed, n_local, graph, whole):
+    """Holds ``srt_csr_build``'s ``graph`` of ``packed`` against
+    ``csr_build_reference``, built on its own a block at a time (the
+    plain CSR of one ``[1, 1, cap, 2]`` block; its sources are the
+    block's local ones): every row's offsets equal, every row's sources
+    the same multiset (the kernel places a row's edges in the order its
+    atomics run). Then ``csr_pull(whole, graph)`` against the plain pull
+    over the plain blocks; ``whole`` holds integers, so every sum is
+    exact in any order. Raises on any difference; returns the edges."""
+    e, dev = packed.shape[0], packed.device
+    y = csr.csr_pull(whole, graph)
+    done = 0
+    for b in range(e * e):
+        s, d = divmod(b, e)
+        ref = csr.csr_build_reference(packed[s, d][None, None], n_local)
+        edges = int(ref.offsets[-1])
+        lo = b * n_local
+        if not torch.equal(graph.offsets[lo:lo + n_local + 1].to(torch.int64) - done,
+                           ref.offsets.to(torch.int64)):
+            raise AssertionError(f"srt_csr_build's offsets of block {b} differ "
+                                 "from the plain version's")
+        row = torch.repeat_interleave(torch.arange(n_local, device=dev),
+                                      ref.offsets.diff().to(torch.int64)) * n_local
+        got = graph.src[done:done + edges].to(torch.int64) - s * n_local
+        if not torch.equal(torch.sort(row + got).values,
+                           torch.sort(row + ref.src.to(torch.int64)).values):
+            raise AssertionError(f"srt_csr_build's sources of block {b} differ "
+                                 "from the plain version's")
+        want = csr.csr_pull_reference(whole[s * n_local:(s + 1) * n_local],
+                                      ref.offsets, ref.src)
+        if not torch.equal(y[lo:lo + n_local], want):
+            raise AssertionError(f"srt_csr_pull differs from the plain version in block {b}")
+        done += edges
+    if int(graph.offsets[-1]) != done:
+        raise AssertionError("srt_csr_build's edge count differs from the plain version's")
+    return done
+
+
+def time_csr_pull(torch, dev):
+    """srt_csr_pull at the PageRank cell's shapes: the build once, held
+    block by block against its plain version (``check_csr_build``), and
+    the pull, checked there bit for bit on integer out-contributions
+    (exact in any order), timed by CUDA events beside its byte bound, the
+    plain version (``csr_pull_reference``), the library's CSR SpMV over
+    the same CSR (cuSPARSE through ``torch.sparse``) and the pair it
+    replaced (``index_select`` of every padded slot's out-contribution,
+    ``index_add_`` into the zeroed contributions)."""
+    from sparkrdma_tpu_torch.models import PageRank
+    from sparkrdma_tpu_torch.ops import _build
+    from sparkrdma_tpu_torch.ops import csr
+    from sparkrdma_tpu_torch.parallel import make_mesh
+
+    e, n = CP_SHARDS, 1 << CP_SCALE
+    edges = kronecker_edges(torch, CP_SCALE, CP_EDGEFACTOR, CP_INITIATOR, CP_SEED, dev)
+    m = edges.shape[0]
+    pr = PageRank(make_mesh([dev] * e))
+    capacity = math.ceil(m / e ** 2 * (1 + CP_HEADROOM))
+    packed, _, n_local = pr.blocks(edges, n, capacity)
+    del edges
+    t = time.perf_counter()
+    lib = _build.load_csr_pull()
+    load_s = time.perf_counter() - t
+    built = _build.builds.get("libsrt_csr_pull.so")
+    rows, sources = e * e * n_local, e * n_local
+    build_ms = event_ms_per_call(torch, lambda: csr.csr_build(packed, n_local), 3)
+    g = csr.csr_build(packed, n_local)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(CP_SEED + 1)
+    whole = torch.randint(0, 4, (sources,), device=dev, generator=gen).float()
+    edges_n = check_csr_build(torch, csr, packed, n_local, g, whole)
+    # the library's CSR SpMV over the same rows, its values (ones) set up untimed
+    spmv = torch.sparse_csr_tensor(
+        g.offsets, g.src[:edges_n], torch.ones((edges_n,), device=dev),
+        size=(rows, sources), check_invariants=False)
+    library_exact = torch.equal(torch.mv(spmv, whole), csr.csr_pull(whole, g))
+    del whole
+    outc = torch.rand((sources,), device=dev, generator=gen)
+    y = torch.empty((rows,), dtype=torch.float32, device=dev)
+    tiles = g.coords.shape[0] - 1
+    carry = torch.empty((tiles,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        code = lib.srt_csr_pull(outc.data_ptr(), g.offsets.data_ptr(), g.src.data_ptr(),
+                                g.coords.data_ptr(), carry.data_ptr(), y.data_ptr(), rows,
+                                tiles, 0, stream)
+        if code:
+            raise RuntimeError(f"srt_csr_pull launch failed ({code})")
+
+    kernel_ms = event_ms_per_call(torch, raw, 20)
+    profiler_ms = device_ms_per_call(torch, raw, 10)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            raw()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    by_kernel = {k: ev.self_device_time_total / 1e3 / 10
+                 for ev in prof.key_averages()
+                 if getattr(ev, "device_type", None) == cuda
+                 for k in ("csr_pull", "csr_carry") if k in ev.key}
+    plain_ms = event_ms_per_call(
+        torch, lambda: csr.csr_pull_reference(outc, g.offsets, g.src), 3)
+    library_ms = event_ms_per_call(torch, lambda: torch.mv(spmv, outc), 10)
+    library_profiler_ms = device_ms_per_call(torch, lambda: torch.mv(spmv, outc), 5)
+    del spmv
+    # the replaced pair, over every padded slot as the step had it
+    shard = torch.arange(e, dtype=torch.int32, device=dev)
+    s_loc, d_loc = packed[..., 0], packed[..., 1]
+    src_at = torch.where(s_loc >= 0, s_loc + (shard * n_local)[:, None, None],
+                         sources).view(-1)
+    spread = torch.arange(packed.shape[2], dtype=torch.int32, device=dev) % n_local
+    dst_at = (torch.where(d_loc >= 0, d_loc, spread)
+              + ((shard[:, None] * e + shard[None, :]) * n_local)[:, :, None]).view(-1)
+    padded = torch.cat([outc, outc.new_zeros(1)])
+
+    def replaced():
+        vals = torch.index_select(padded, 0, src_at)
+        return torch.zeros((rows,), dtype=torch.float32, device=dev).index_add_(
+            0, dst_at, vals)
+
+    replaced_ms = event_ms_per_call(torch, replaced, 3)
+    del src_at, dst_at, padded
+    longest = int((g.offsets[1:] - g.offsets[:-1]).max())
+    # what a pull needs: each edge's source and each row's offset read
+    # once, each row written once, each out-contribution read once
+    need = 4 * edges_n + g.offsets.element_size() * (rows + 1) + 4 * rows + 4 * sources
+    entry = {
+        "name": "srt_csr_pull", "route": "cuda",
+        "source": "sparkrdma_tpu_torch/ops/csrc/csr_pull.cu",
+        "replaces": "none (the JAX scatter is plain jnp: sparkrdma_tpu/models/pagerank.py:100 "
+                    "jnp.zeros(...).at[d_idx].add(...))",
+        "max_abs_err": 0,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "replaced_path_ms": replaced_ms,
+        "library_ms": library_ms, "library_profiler_ms": library_profiler_ms,
+        "library": "torch.mv on a sparse CSR tensor (cuSPARSE SpMV), int32 indices",
+        "library_exact": library_exact, "build_checked": True,
+        "bound_ms": need / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_share": need / HBM_BYTES_PER_S * 1e3 / kernel_ms,
+        "kernel_profiler_ms": profiler_ms,
+        "by_kernel_profiler_ms": by_kernel,
+        "build_ms": build_ms,
+        "l2_sectors_gathered": edges_n, "l2_gather_bytes": 32 * edges_n,
+        "build_s": built[0] if built else None, "load_s": load_s,
+        "ptxas": [ln.strip() for ln in (built[1] if built else "").splitlines()
+                  if "registers" in ln or "spill" in ln or "smem" in ln],
+        "timer": "cuda_events",
+        "shape": {"shards": e, "n_local": n_local, "rows": rows, "edges": edges_n,
+                  "longest_row": longest,
+                  "capacity": packed.shape[2], "tiles": tiles, "need_bytes": need},
+    }
+    emit("timing_csr_pull", kernels=[entry])
     return entry
 
 
@@ -5830,6 +6049,7 @@ def _main(torch, dev):
     sp_training = phase_sp_training_path(torch, dev, step7_s)
     join_launches = phase_spmd_models(torch, dev)
     kernels.append(time_radix_pack(torch, dev))
+    kernels.append(time_csr_pull(torch, dev))
     phase_data_planes(torch, dev)
     phase_engine(torch, dev)
     native_plane = phase_native_plane(torch, dev, data)

@@ -3,8 +3,8 @@
 The PyTorch counterpart of the JAX package's ``models/pagerank.py``
 (GraphX PageRank on twitter-2010). Vertices are block-sharded over the
 mesh (``[E, n_local]`` ranks). Edges are bucketed into per-(src shard,
-dst shard) padded blocks, so each shard scatter-adds its contributions
-into E destination-shard vectors, the vectors ride one all-to-all
+dst shard) padded blocks, so each shard sums its contributions into E
+destination-shard vectors, the vectors ride one all-to-all
 (``ExchangeProgram`` over the shard stack), and each shard sums what it
 receives:
 
@@ -16,14 +16,18 @@ its source's local index, with its destination's local index as the
 payload, in one ``radix_pack_pairs`` call (on CUDA the ``srt_radix_pack``
 kernel): beside the edges it holds about four int32 columns of one
 value an edge at its peak, so a graph of 2^30 edges buckets on one 80 GB
-card (24.8-25.5 GiB of set-up peak on an H100, edges included). The
-step works over rows of the block capacity rounded up to ``SLOT_ALIGN``
-slots.
+card (24.8-25.5 GiB of set-up peak on an H100, edges included).
 
-The step opens spans (``obs/trace.py``): ``pagerank.step`` around the
-call, and directly in it ``pagerank.index`` once, then each iteration
-``pagerank.gather``, ``pagerank.scatter``, the exchange's
-``exchange.a2a`` and ``pagerank.apply``.
+The step groups the blocks' edges by destination once a call
+(``ops/csr.py`` ``csr_build``: one CSR row a destination of a block,
+padding dropped), and each iteration pulls every row's sum of its
+sources' out-contributions (``csr_pull``), written once a row: on CUDA
+the ``srt_csr_*`` kernels, with no float atomic an edge. It opens spans
+(``obs/trace.py``): ``pagerank.step`` around the call, and directly in
+it ``pagerank.index`` once (the CSR), then each iteration
+``pagerank.gather`` (out-contributions, dangling sum),
+``pagerank.scatter`` (the pull, with the edge gather inside it), the
+exchange's ``exchange.a2a`` and ``pagerank.apply``.
 """
 
 from __future__ import annotations
@@ -37,13 +41,11 @@ import torch
 
 from sparkrdma_tpu_torch.obs.trace import span
 from sparkrdma_tpu_torch.ops import sort as sort_ops
+from sparkrdma_tpu_torch.ops.csr import csr_build, csr_pull
 from sparkrdma_tpu_torch.ops.exchange import ExchangeProgram
 from sparkrdma_tpu_torch.ops.sort import (RADIX_PACK_MAX_PARTITIONS, pack_by_partition,
                                           radix_pack_pairs)
 from sparkrdma_tpu_torch.parallel.mesh import ShardMesh, mesh_or_one_shard
-
-
-SLOT_ALIGN = 1024  # rows of an odd length measured 3-4% slower a stage on an H100
 
 
 class PageRank:
@@ -111,9 +113,6 @@ class PageRank:
         e = self.num_shards
         alpha = self.damping
         all_to_all = self._exchange.program_for(e, n_local, torch.float32)
-        slots = -(-cap // SLOT_ALIGN) * SLOT_ALIGN
-        zero_at = e * n_local  # outc's zero, which padding slots gather
-        idx = torch.int32 if e * e * n_local < 2**31 else torch.int64
 
         def fn(rank, deg, valid, blocks):
             # rank/deg/valid: [E * n_local] stacks; blocks: [E_src, E_dst,
@@ -128,45 +127,30 @@ class PageRank:
                         f"{list(rank.shape)}")
                 dev = rank.device
                 with span("pagerank.index"):
-                    # flat indices into ``outc`` (the rank stack's
-                    # out-contributions and one zero after them) and into
-                    # the [E_src, E_dst, n_local] contribution stack, over
-                    # rows of ``slots``. A padding
-                    # slot gathers the zero and adds it into the slot of
-                    # its own position: padding aimed at one address
-                    # would serialise its atomics
-                    shard = torch.arange(e, dtype=idx, device=dev)
-                    s_loc, d_loc = blocks[..., 0], blocks[..., 1]
-                    src_at = torch.empty((e, e, slots), dtype=idx, device=dev)
-                    src_at[:, :, :cap] = torch.where(
-                        s_loc >= 0, s_loc + (shard * n_local)[:, None, None], zero_at)
-                    src_at[:, :, cap:] = zero_at
-                    spread = torch.arange(slots, dtype=idx, device=dev) % n_local
-                    dst_at = torch.empty((e, e, slots), dtype=idx, device=dev)
-                    dst_at[:, :, :cap] = torch.where(d_loc >= 0, d_loc, spread[:cap])
-                    dst_at[:, :, cap:] = spread[cap:]
-                    dst_at += ((shard[:, None] * e + shard[None, :]) * n_local)[:, :, None]
-                    src_at, dst_at = src_at.view(-1), dst_at.view(-1)
+                    # the edges grouped by destination: CSR row (s * E +
+                    # d) * n_local + v holds block (s, d)'s edges into v,
+                    # and its sum is that slot of the contribution stack
+                    graph = csr_build(blocks, n_local)
                     safe_deg, has_out = deg.clamp(min=1.0), deg > 0
                     dangles = (deg == 0) & (valid > 0)
                     counts = torch.full((e * e,), n_local, dtype=torch.int32, device=dev)
-                    outc = torch.zeros((zero_at + 1,), dtype=torch.float32, device=dev)
+                    zero = torch.zeros((), dtype=torch.float32, device=dev)
+                    outc = torch.empty((e * n_local,), dtype=torch.float32, device=dev)
                 r = rank
                 for _ in range(iters):
                     with span("pagerank.gather"):
-                        torch.where(has_out, r / safe_deg, outc[zero_at], out=outc[:zero_at])
+                        torch.where(has_out, r / safe_deg, zero, out=outc)
                         # dangling mass is redistributed uniformly; its psum
                         # over every shard is the sum over the whole stack
                         dangling = torch.where(dangles, r, 0.0).sum()
-                        vals = torch.index_select(outc, 0, src_at)
                     with span("pagerank.scatter"):
-                        contribs = torch.zeros((e * e * n_local,), dtype=torch.float32,
-                                               device=dev).index_add_(0, dst_at, vals)
-                        del vals
+                        contribs = csr_pull(outc, graph)
                     # one all-to-all per iteration: shard i's row d -> shard d
                     recv, _ = all_to_all(contribs.view(e * e, n_local), counts)
+                    del contribs  # before the next pull allocates its own
                     with span("pagerank.apply"):
                         inflow = recv.view(e, e, n_local).sum(dim=1).view(-1)
+                        del recv
                         r_new = (1.0 - alpha) / num_vertices + alpha * (
                             inflow + dangling / num_vertices)
                         r = torch.where(valid > 0, r_new, 0.0)

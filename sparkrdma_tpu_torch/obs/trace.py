@@ -66,12 +66,12 @@ span                        around                                      count
 ``hashjoin.probe``          ``searchsorted``, the clamp, the gathers,   1
                             ``hit``, ``joined``
 ``pagerank.step``           ``PageRank._build`` ``fn``: the whole call  1
-``pagerank.index``          ``src_at`` and ``dst_at`` from the packed   1
-                            blocks, the degrees' masks, ``outc``
-``pagerank.gather``         one iteration's out-contributions, the      iters
-                            dangling sum, the edge gather
-``pagerank.scatter``        one iteration's zeroed ``contribs`` and     iters
-                            its ``index_add_``
+``pagerank.index``          the blocks' CSR (``csr_build``), the        1
+                            degrees' masks
+``pagerank.gather``         one iteration's out-contributions and the   iters
+                            dangling sum
+``pagerank.scatter``        one iteration's ``csr_pull``: the edge      iters
+                            gather and every row's sum
 ``pagerank.apply``          one iteration's received sum and update     iters
 ``exchange.a2a``            the transpose copies of the program that    1 sort,
                             ``ExchangeProgram.program_for`` returns     4 join,

@@ -7,12 +7,14 @@ library with a plain C interface, loaded with ``ctypes``. A library of
 :data:`OWN_LIBRARIES` is built from its own sources alone, beside the
 main one with a stamp of its own, so that a path that needs only it
 (the hash join's pack: :func:`load_radix_pack`) builds one file, in
-seconds, and not every attention kernel. Nothing links ``-lcuda``: the one
+seconds, and not every attention kernel; PageRank's CSR pull,
+:func:`load_csr_pull`, likewise. Nothing links ``-lcuda``: the one
 driver function a kernel needs (``cuTensorMapEncodeTiled``, for the
 tensor-core kernels' TMA maps, ``flash_attn_sm90_common.cuh``) is
 reached through the runtime's ``cudaGetDriverEntryPoint``. Each library
 goes to ``build/torch_kernels/`` under the checkout root
-(``libsrt_torch_kernels.so``, ``libsrt_radix_pack.so``), beside a stamp
+(``libsrt_torch_kernels.so``, ``libsrt_radix_pack.so``,
+``libsrt_csr_pull.so``), beside a stamp
 holding the hash of the sources and headers it was built from; it is
 rebuilt at first use whenever they change. Nothing is built at import
 time.
@@ -36,7 +38,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libsrt_torch_kernels.so"
 # library name -> its sources under csrc/, which the main library leaves out
-OWN_LIBRARIES = {"libsrt_radix_pack.so": ("radix_pack.cu",)}
+OWN_LIBRARIES = {"libsrt_radix_pack.so": ("radix_pack.cu",),
+                 "libsrt_csr_pull.so": ("csr_pull.cu",)}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -153,6 +156,21 @@ def _bind_radix_pack(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind_csr_pull(lib: ctypes.CDLL) -> ctypes.CDLL:
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.srt_csr_tile_steps.argtypes = []
+    lib.srt_csr_tile_steps.restype = ll
+    lib.srt_csr_scratch_bytes.argtypes = [ll] * 4
+    lib.srt_csr_scratch_bytes.restype = ll
+    lib.srt_csr_build.argtypes = [vp] * 5 + [ll] * 5 + [vp]
+    lib.srt_csr_build.restype = ctypes.c_int
+    lib.srt_csr_pull.argtypes = [vp] * 6 + [ll] * 3 + [vp]
+    lib.srt_csr_pull.restype = ctypes.c_int
+    lib.srt_error_string.argtypes = [ctypes.c_int]
+    lib.srt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _load(name: str, bind: Callable[[ctypes.CDLL], ctypes.CDLL]) -> ctypes.CDLL:
     """Library ``name``, built from the checkout's sources if the library
     on disk is missing or was built from other sources."""
@@ -177,3 +195,9 @@ def load_radix_pack() -> ctypes.CDLL:
     """The hash join's pack, ``srt_radix_pack`` (``csrc/radix_pack.cu``),
     a library of its own."""
     return _load("libsrt_radix_pack.so", _bind_radix_pack)
+
+
+def load_csr_pull() -> ctypes.CDLL:
+    """PageRank's CSR build and pull, ``srt_csr_build`` and
+    ``srt_csr_pull`` (``csrc/csr_pull.cu``), a library of its own."""
+    return _load("libsrt_csr_pull.so", _bind_csr_pull)

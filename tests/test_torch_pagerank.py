@@ -7,7 +7,10 @@ Kronecker graph at SCALE 11 (the benchmark generator's rule: hubs,
 duplicates, self-loops, dangling vertices). Each JAX result is computed
 once for the module. Besides: the bucketing's radix pack against the
 plain pack (and through the CUDA branch on a fake library), meshes the
-radix pack's kernel cannot take, and the capacity a caller asks for."""
+radix pack's kernel cannot take, the capacity a caller asks for, and the
+step's CSR build and pull: bit for bit against the push they replaced,
+and through the CUDA branch on a fake library that emulates the
+kernels' split."""
 
 import contextlib
 import ctypes
@@ -25,6 +28,7 @@ from shufflebench import generator
 from shufflebench.generators import graph as kronecker
 from sparkrdma_tpu_torch.models import pagerank as tpagerank
 from sparkrdma_tpu_torch.models.pagerank import PageRank, reference_pagerank
+from sparkrdma_tpu_torch.ops import csr
 from sparkrdma_tpu_torch.ops import sort as tsort
 from sparkrdma_tpu_torch.parallel import make_mesh
 
@@ -153,6 +157,16 @@ def test_meshes_beyond_the_kernel_take_the_plain_pack(kernel, monkeypatch):
                                rtol=1e-4, atol=1e-6)
 
 
+def _at(ptr, shape, dtype):
+    """A CPU tensor over the memory at ``ptr``, as a fake library sees it."""
+    count = int(np.prod(shape))
+    if count == 0:
+        return torch.empty(shape, dtype=dtype)
+    raw = (ctypes.c_uint8 * (count * torch.empty((), dtype=dtype).element_size())
+           ).from_address(ptr)
+    return torch.frombuffer(raw, dtype=dtype, count=count).view(shape)
+
+
 class _FakePackLib:
     """``srt_radix_pack`` computing the plain version through the
     pointers it is given (the argument order checked end to end)."""
@@ -167,20 +181,11 @@ class _FakePackLib:
         self.calls.append(args)
         (kp, vp, ksp, vsp, cp, fp, _scratch, e, n, p, key_bits, cap, key_fill,
          val_fill, _stream) = args
-
-        def at(ptr, shape, dtype):
-            count = int(np.prod(shape))
-            if count == 0:
-                return torch.empty(shape, dtype=dtype)
-            raw = (ctypes.c_uint8 * (count * torch.empty((), dtype=dtype).element_size())
-                   ).from_address(ptr)
-            return torch.frombuffer(raw, dtype=dtype, count=count).view(shape)
-
         want = tsort.radix_pack_pairs_reference(
-            at(kp, (e, n), torch.int32).view(torch.uint32), at(vp, (e, n), torch.int32),
+            _at(kp, (e, n), torch.int32).view(torch.uint32), _at(vp, (e, n), torch.int32),
             p, cap, key_bits, key_fill & 0xFFFFFFFF, val_fill)
         for ptr, w in zip((ksp, vsp, cp, fp), want):
-            at(ptr, w.shape, w.dtype).copy_(w)
+            _at(ptr, w.shape, w.dtype).copy_(w)
         return 0
 
 
@@ -215,8 +220,8 @@ def test_blocks_through_the_kernel_branch(monkeypatch):
 def test_blocks_pad_to_the_capacity_asked_for(pack, monkeypatch):
     """``capacity`` above the largest block pads every block to it
     (each block's edges, then -1); below it, the largest block rules.
-    The ranks are the same at any capacity, rows of a multiple of
-    ``SLOT_ALIGN`` slots or not."""
+    The ranks are the same at any capacity: the step's CSR drops the
+    padding."""
     if pack == "plain":
         monkeypatch.setattr(tpagerank, "_pack_radix", lambda src, dst, e, n_local, lg, b,
                             capacity: tpagerank._pack_plain(src, dst, e, n_local, capacity))
@@ -226,7 +231,7 @@ def test_blocks_pad_to_the_capacity_asked_for(pack, monkeypatch):
     exact, deg, n_local = pr.blocks(edges, n)
     cap = exact.shape[2]
     assert pr.blocks(edges, n, capacity=cap - 5)[0].shape[2] == cap
-    wide = cap + tpagerank.SLOT_ALIGN + 3
+    wide = cap + 1027
     padded, deg2, _ = pr.blocks(edges, n, capacity=wide)
     assert padded.shape == (8, 8, wide, 2) and torch.equal(deg, deg2)
     assert torch.equal(padded[:, :, :cap], exact)
@@ -235,3 +240,259 @@ def test_blocks_pad_to_the_capacity_asked_for(pack, monkeypatch):
     a = pr.step(n_local, cap, 10, n)(rank0, deg, valid, exact)
     b = pr.step(n_local, wide, 10, n)(rank0, deg, valid, padded)
     assert torch.equal(a, b)
+
+
+# ---- the step's CSR build and pull (ops/csr.py)
+
+def _push(packed, n_local, outc):
+    """The step's scatter before its CSR, kept as the oracle: every slot
+    of the padded blocks gathers its source's out-contribution by
+    ``index_select`` (padding an appended zero) and adds it into its
+    destination's row of the contribution stack by ``index_add_``."""
+    e = packed.shape[0]
+    shard = torch.arange(e)
+    s_loc, d_loc = packed[..., 0].long(), packed[..., 1].long()
+    src_at = torch.where(s_loc >= 0, s_loc + (shard * n_local)[:, None, None], e * n_local)
+    dst_at = (torch.where(d_loc >= 0, d_loc, 0)
+              + ((shard[:, None] * e + shard[None, :]) * n_local)[:, :, None])
+    vals = torch.index_select(torch.cat([outc, torch.zeros(1)]), 0, src_at.reshape(-1))
+    return torch.zeros(e * e * n_local).index_add_(0, dst_at.reshape(-1), vals)
+
+
+def _hub_graph(n, m, hub, hub_edges, seed):
+    """``m`` random edges and ``hub_edges`` more into vertex ``hub``."""
+    rng = np.random.default_rng(seed)
+    into = np.stack([rng.integers(0, n, hub_edges), np.full(hub_edges, hub)], 1)
+    return np.concatenate([_random_graph(n, m, seed), into])
+
+
+CSR_CASES = {
+    # name: (edges, num_vertices, shards, slots of padding past the largest block)
+    "padding_ignored": (lambda: _random_graph(96, 700, 20), 96, 4, 333),
+    "empty_rows": (lambda: np.stack([np.arange(300) % 300, np.arange(300) % 7 * 40], 1),
+                   300, 4, 0),
+    # one row of ~4,500 edges in a block: past a kernel tile's 3,072 steps
+    "hub_row_past_a_tile": (lambda: _hub_graph(200, 900, 5, 9000, 21), 200, 2, 0),
+    "vertices_not_divisible_by_e": (lambda: _random_graph(203, 1200, 1), 203, 8, 0),
+    "one_shard": (lambda: _kronecker(9, 22), 1 << 9, 1, 5),
+    "eight_shards": (lambda: _kronecker(10, 23), 1 << 10, 8, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CSR_CASES))
+def test_csr_pull_matches_the_push(name):
+    """The plain CSR build and pull against the push they replace, bit for
+    bit: both add each row's edges in block slot order from 0 (padding
+    adds an exact 0), so every float32 sum is the same. The CSR holds
+    the edges and no padding slot; empty rows read 0."""
+    edges, n, shards, extra = CSR_CASES[name]
+    pr = PageRank(make_mesh(["cpu"] * shards))
+    exact, _, n_local = pr.blocks(torch.from_numpy(edges()), n)
+    packed, _, _ = pr.blocks(torch.from_numpy(edges()), n,
+                             capacity=exact.shape[2] + extra)
+    graph = csr.csr_build(packed, n_local)
+    m = len(edges())
+    assert graph.offsets.shape == (shards * shards * n_local + 1,)
+    assert int(graph.offsets[-1]) == m and graph.src.shape == (m,)
+    assert bool((graph.offsets[1:] >= graph.offsets[:-1]).all())
+    outc = torch.from_numpy(np.random.default_rng(len(name)).random(
+        shards * n_local, dtype=np.float32))
+    got = csr.csr_pull(outc, graph)
+    want = _push(packed, n_local, outc)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    empty = graph.offsets[1:] == graph.offsets[:-1]
+    assert bool(empty.any()) and bool((got[empty] == 0).all())
+
+
+class _FakeCsrLib:
+    """``srt_csr_*`` emulated on the CPU through the pointers they are
+    given, with the kernels' own split: merge-path tiles of THREADS *
+    ITEMS steps, a float32 sum a thread, the threads' segmented scan
+    within a tile, a carry a tile added after; placement by decrementing
+    cursors, so that rows hold their edges in reverse slot order, not the
+    plain version's order. Rows the pull leaves unwritten read NaN."""
+
+    THREADS, ITEMS = 4, 3
+
+    def __init__(self):
+        self.calls = []
+
+    def srt_csr_tile_steps(self):
+        return self.THREADS * self.ITEMS
+
+    def srt_csr_scratch_bytes(self, e, cap, n_local, wide):
+        return 16
+
+    def srt_csr_build(self, packed, ends, src, coords, scratch, e, cap, n_local, tiles,
+                      wide, stream):
+        self.calls.append(("build", wide, stream))
+        idx = torch.int64 if wide else torch.int32
+        rows = e * e * n_local
+        p = _at(packed, (e * e, cap, 2), torch.int32).numpy()
+        a = _at(ends, (rows + 2,), idx).numpy()
+        s = _at(src, (e * e * cap,), torch.int32).numpy()
+        c = _at(coords, (tiles + 1, 2), idx).numpy()
+        a[:] = 0
+        b, j = np.nonzero(p[..., 0] >= 0)
+        np.add.at(a, 1 + b * n_local + p[b, j, 1], 1)
+        a[1:rows + 1] = np.cumsum(a[1:rows + 1])
+        a[rows + 1] = a[rows]
+        for b, j in zip(b, j):
+            r = 1 + b * n_local + p[b, j, 1]
+            a[r] -= 1
+            s[a[r]] = b // e * n_local + p[b, j, 0]
+        offsets, steps = a[1:], self.srt_csr_tile_steps()
+        edges = int(offsets[rows])
+        for t in range(tiles + 1):
+            diag = min(t * steps, rows + edges)
+            lo, hi = max(diag - edges, 0), min(diag, rows)
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if offsets[mid + 1] <= diag - mid - 1:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            c[t] = lo, diag - lo
+        self.sources = e * n_local
+        return 0
+
+    def srt_csr_pull(self, outc, offsets, src, coords, carry, y, rows, tiles, wide,
+                     stream):
+        self.calls.append(("pull", wide, stream))
+        f32, idx = np.float32, torch.int64 if wide else torch.int32
+        o = _at(offsets, (rows + 1,), idx).numpy()
+        c = _at(coords, (tiles + 1, 2), idx).numpy()
+        s = _at(src, (int(o[rows]),), torch.int32).numpy()
+        x = _at(outc, (self.sources,), torch.float32).numpy()
+        out, cv = _at(y, (rows,), torch.float32).numpy(), _at(
+            carry, (tiles,), torch.float32).numpy()
+        out[:] = np.nan
+        for t in range(tiles):
+            (r0, n0), (r1, n1) = (int(v) for v in c[t]), (int(v) for v in c[t + 1])
+            nrows, nnz = r1 - r0, n1 - n0
+            steps = nrows + nnz
+            if steps == 0:
+                continue
+            vals = x[s[n0:n1]]
+            ends = [min(int(o[r0 + i + 1]) - n0, nnz) if r0 + i < rows else nnz
+                    for i in range(nrows + 1)]
+            scan = f32(0)
+            for tid in range(self.THREADS):
+                diag = min(tid * self.ITEMS, steps)
+                stop = min(diag + self.ITEMS, steps)
+                lo, hi = max(diag - nnz, 0), min(diag, nrows)
+                while lo < hi:
+                    mid = (lo + hi) // 2
+                    if ends[mid] <= diag - mid - 1:
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                row, nz, acc, first = lo, diag - lo, f32(0), None
+                for _ in range(diag, stop):
+                    if nz < ends[row]:
+                        acc = f32(acc + vals[nz])
+                        nz += 1
+                    else:
+                        if first is None:
+                            first = (row, acc)
+                        else:
+                            out[r0 + row] = acc
+                        acc = f32(0)
+                        row += 1
+                if first is not None:
+                    out[r0 + first[0]] = f32(first[1] + scan)
+                scan = acc if first is not None else f32(scan + acc)
+            if r1 < rows:
+                cv[t] = scan
+        for t in range(tiles):
+            r = int(c[t + 1][0])
+            if r < rows and cv[t] != 0:
+                out[r] = f32(out[r] + cv[t])
+        return 0
+
+
+@pytest.fixture
+def fake_csr(monkeypatch):
+    from sparkrdma_tpu_torch.ops import _build
+
+    lib = _FakeCsrLib()
+    monkeypatch.setattr(csr, "_kernel_path", lambda t: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
+    monkeypatch.setattr(_build, "load_csr_pull", lambda: lib)
+    csr.reset_launch_counts()
+    return lib
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_csr_kernel_branch_split_and_launches(wide, fake_csr, monkeypatch):
+    """The CUDA branch on the kernels' emulated split (tiles of 12 steps:
+    the hub's row crosses hundreds of them; int32 and int64 indices).
+    Integer-valued out-contributions sum exactly in any order, so the
+    pull equals the plain version's bit for bit; a 10-iteration job makes
+    one build and 10 pulls, and its ranks match the plain
+    path's."""
+    if wide:
+        monkeypatch.setattr(csr, "index_dtype", lambda rows, slots: torch.int64)
+    edges, n = _hub_graph(160, 1500, 7, 3000, 24), 160
+    pr = PageRank(make_mesh(["cpu"] * 4))
+    packed, deg, n_local = pr.blocks(torch.from_numpy(edges), n, capacity=900)
+    graph = csr.csr_build(packed, n_local)
+    assert graph.offsets.dtype == (torch.int64 if wide else torch.int32)
+    plain = csr.csr_build_reference(packed, n_local)
+    assert torch.equal(graph.offsets, plain.offsets)
+    outc = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 4, 4 * n_local).astype(np.float32))
+    assert torch.equal(csr.csr_pull(outc, graph),
+                       csr.csr_pull_reference(outc, plain.offsets, plain.src))
+    assert [k for k, _, _ in fake_csr.calls] == ["build", "pull"]
+    assert all(w == int(wide) and s == 77 for _, w, s in fake_csr.calls)
+
+    csr.reset_launch_counts()
+    rank0, valid = pr.initial(n_local, n)
+    got = pr.step(n_local, packed.shape[2], 10, n)(rank0, deg, valid, packed)
+    assert (csr.csr_build_launches, csr.csr_pull_launches) == (1, 10)
+    monkeypatch.setattr(csr, "_kernel_path", lambda t: False)
+    want = pr.step(n_local, packed.shape[2], 10, n)(rank0, deg, valid, packed)
+    # the hub's ~3,400-term float32 sum in two orders, over ten iterations
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got[:n].numpy(), reference_pagerank(edges, n, iters=10),
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_csr_checks_its_arguments():
+    pr = PageRank(make_mesh(["cpu"] * 2))
+    packed, _, n_local = pr.blocks(torch.from_numpy(_random_graph(20, 50, 6)), 20)
+    graph = csr.csr_build(packed, n_local)
+    with pytest.raises(ValueError, match="float32 out-contributions"):
+        csr.csr_pull(torch.zeros(2 * n_local + 1), graph)
+    with pytest.raises(ValueError, match="float32 out-contributions"):
+        csr.csr_pull(torch.zeros(2 * n_local, dtype=torch.float64), graph)
+    with pytest.raises(ValueError, match="int32 blocks"):
+        csr.csr_build(packed.to(torch.int64), n_local)
+    with pytest.raises(ValueError, match="contiguous"):
+        csr.csr_build(packed.transpose(0, 1), n_local)
+    with pytest.raises(ValueError, match="n_local"):
+        csr.csr_build(packed, 2**30 + 1)
+    assert csr.index_dtype(2**30, 2**31 - 2**30 - 1) == torch.int32
+    assert csr.index_dtype(2**30, 2**31 - 2**30) == torch.int64
+
+
+def test_csr_binding_takes_pointers_and_the_stream():
+    from sparkrdma_tpu_torch.ops import _build
+
+    fns = ("srt_csr_tile_steps", "srt_csr_scratch_bytes", "srt_csr_build", "srt_csr_pull",
+           "srt_error_string")
+    lib = _build._bind_csr_pull(types.SimpleNamespace(
+        **{f: types.SimpleNamespace() for f in fns}))
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    assert lib.srt_csr_build.argtypes == [vp] * 5 + [ll] * 5 + [vp]
+    assert lib.srt_csr_pull.argtypes == [vp] * 6 + [ll] * 3 + [vp]
+    assert lib.srt_csr_scratch_bytes.argtypes == [ll] * 4
+    assert lib.srt_csr_tile_steps.restype is ll and lib.srt_csr_scratch_bytes.restype is ll
+    assert all(getattr(lib, f).restype is ctypes.c_int
+               for f in ("srt_csr_build", "srt_csr_pull"))
+    # a library of its own, left out of the main one
+    assert [p.name for p in _build._sources("libsrt_csr_pull.so")] == ["csr_pull.cu"]
+    assert "csr_pull.cu" not in [p.name for p in _build._sources()]
