@@ -363,6 +363,24 @@ def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
+def _launched(*symbols):
+    """Launches of the C entry points ``symbols`` since the last reset,
+    summed."""
+    from sparkrdma_tpu_torch.ops import _build
+
+    return sum(_build.launches[s] for s in symbols)
+
+
+def _wave_launches():
+    return _launched("srt_wave_pull"), _launched("srt_pipelined_wave_pull")
+
+
+def _reset_launches():
+    from sparkrdma_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+
+
 def device_busy_us(torch, prof):
     """Device time of the activities a profile recorded on the GPU
     (kernels, copies, fills), in microseconds. Host-side operators are
@@ -432,7 +450,7 @@ def phase_environment(torch):
     from sparkrdma_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load()
+    _build._load(_build.LIB_NAME)
     build_s, build_log = _build.builds.get(_build.LIB_NAME, (None, ""))
     emit(0, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
@@ -504,8 +522,8 @@ def phase_kernels(torch, dev):
                 )
         checked += 1
     emit(1, cases=checked, launches={
-        "srt_wave_pull": rc.wave_pull_launches,
-        "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches,
+        "srt_wave_pull": _launched("srt_wave_pull"),
+        "srt_pipelined_wave_pull": _launched("srt_pipelined_wave_pull"),
     }, equal=True)
 
 
@@ -559,7 +577,6 @@ def phase_main_path(torch, dev):
     )
     from sparkrdma_tpu_torch.models.terasort import MapShardSorter, merge_blocks
     from sparkrdma_tpu_torch.obs import get_registry
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
     from sparkrdma_tpu_torch.ops.hbm_arena import DeviceBufferManager
     from sparkrdma_tpu_torch.shuffle import device_fetch
     from sparkrdma_tpu_torch.shuffle.collective import ShuffleScheduleCompiler
@@ -636,12 +653,12 @@ def phase_main_path(torch, dev):
         "b": (TpuShuffleConf({"tpu.shuffle.collective.waveBytes": "512m"}), True),
     }
     # ---- the main path: counts from 0 just before, read just after
-    rc.reset_launch_counts()
+    _reset_launches()
     report = {}
     for name, (conf, fused) in runs.items():
         before = {k: counter_sum(f"collective.{k}")
                   for k in ("blocks", "degrades", "fused_merges")}
-        w0, p0 = rc.wave_pull_launches, rc.pipelined_wave_pull_launches
+        w0, p0 = _launched("srt_wave_pull"), _launched("srt_pipelined_wave_pull")
         reduce_s, kernel_ms = reduce_stage(conf, fused, check=True)
         deltas = {k: counter_sum(f"collective.{k}") - v for k, v in before.items()}
         report[name] = {
@@ -650,13 +667,13 @@ def phase_main_path(torch, dev):
             "e2e_gbps": KEYS * 4 / (map_s + reduce_s) / 1e9,
             "reduce_gbps": KEYS * 4 / reduce_s / 1e9,
             "kernel_ms": kernel_ms, "kernel_ms_sum": sum(kernel_ms),
-            "srt_wave_pull_launches": rc.wave_pull_launches - w0,
+            "srt_wave_pull_launches": _launched("srt_wave_pull") - w0,
             "srt_pipelined_wave_pull_launches":
-                rc.pipelined_wave_pull_launches - p0,
+                _launched("srt_pipelined_wave_pull") - p0,
             **{f"collective.{k}": v for k, v in deltas.items()},
         }
-    launches = {"srt_wave_pull": rc.wave_pull_launches,
-                "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches}
+    launches = {"srt_wave_pull": _launched("srt_wave_pull"),
+                "srt_pipelined_wave_pull": _launched("srt_pipelined_wave_pull")}
     peak = torch.cuda.max_memory_allocated()
     for name, r in report.items():
         if r["collective.blocks"] != EXECUTORS * REDUCERS:
@@ -773,7 +790,7 @@ def phase_timing(torch, dev, arenas, ids, locs):
 
         # the kernel alone: back-to-back launches of the C entry point
         # on a prebuilt row table (the wrapper's Python work excluded)
-        lib = _build.load()
+        lib = _build._load(_build.LIB_NAME)
         table = torch.from_numpy(rc._check_rows(
             srcs, offs, nbs, depth * rows_b, be * 4, dev).view(np.int64)).to(dev)
         dst = torch.empty((depth * rows_b, be * 4), dtype=torch.uint8, device=dev)
@@ -881,6 +898,10 @@ ATTN_PATH_SHAPES = {
     "workload_f32": (4, 2048, 8, 64, "float32", False),
 }
 FWD_KERNELS = ("srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90", "srt_flash_attn_fwd_tf32x3")
+FLASH_ENTRIES = FWD_KERNELS + (
+    "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv", "srt_flash_attn_bwd_dq_sm90",
+    "srt_flash_attn_bwd_dkv_sm90", "srt_flash_attn_bwd_dq_tf32x3",
+    "srt_flash_attn_bwd_dkv_tf32x3")
 
 
 def _qkv(torch, dev, shape, seed):
@@ -935,11 +956,11 @@ def phase_attention_kernel(torch, dev):
         q, k, v = _qkv(torch, dev, shape, 100 + i)
         want, want_lse = pa.flash_attention_reference(q, k, v, causal,
                                                       want_lse=True)
-        before = _flash_launches(pa)
+        before = _flash_launches()
         got = pa.flash_attention_fwd(q, k, v, causal)[0]
         got2, lse = pa.flash_attention_fwd(q, k, v, causal, want_lse=True)
         torch.cuda.synchronize()
-        took = _took(pa, before)
+        took = _took(before)
         what = f"{entry} {shape}"
         if took != {entry: 2}:
             raise AssertionError(f"{what}: launched {took}, expected 2 of {entry}")
@@ -968,9 +989,9 @@ def phase_attention_kernel(torch, dev):
         q, k, v = _qkv(torch, dev, shape, 99)
         qm = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view_as(q)
         qm.copy_(q)
-        before = _flash_launches(pa)
+        before = _flash_launches()
         got = pa.flash_attention(qm, k, v, causal=True)
-        took = _took(pa, before)
+        took = _took(before)
         if took != {"srt_flash_attn_fwd": 1}:
             raise AssertionError(f"misaligned q {shape}: launched {took}, not the SIMT kernel")
         err = _max_err(torch, got, pa.flash_attention_reference(q, k, v, True)[0],
@@ -979,7 +1000,7 @@ def phase_attention_kernel(torch, dev):
                       "entry": "srt_flash_attn_fwd", "misaligned_q": True,
                       "max_abs_err": err})
     emit(4, name="attention_kernel", cases=cases,
-         launches={k: n for k, n in _flash_launches(pa).items() if k in FWD_KERNELS})
+         launches={k: n for k, n in _flash_launches().items() if k in FWD_KERNELS})
 
 
 def phase_attention_path(torch, dev):
@@ -998,7 +1019,7 @@ def phase_attention_path(torch, dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()  # inputs and earlier phases' arenas
-        pa.reset_launch_counts()
+        _reset_launches()
         ul = UlyssesAttention()
         walls, outs = [], []
         for _ in range(3):
@@ -1010,8 +1031,8 @@ def phase_attention_path(torch, dev):
         ring_out = RingAttention()(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ring_s = time.perf_counter() - t
-        n = pa.flash_fwd_launches
-        took = {k: c for k, c in _flash_launches(pa).items() if c}
+        n = _launched(*FWD_KERNELS)
+        took = {k: c for k, c in _flash_launches().items() if c}
         peak = torch.cuda.max_memory_allocated()
         if n <= 0:
             raise AssertionError(f"{name}: the flash forward never launched")
@@ -1056,7 +1077,7 @@ def time_flash_attention(torch, dev):
     from sparkrdma_tpu_torch.ops import pallas_attention as pa
 
     F = torch.nn.functional
-    lib = _build.load()
+    lib = _build._load(_build.LIB_NAME)
     stream = torch.cuda.current_stream().cuda_stream
     rec = {}
     for name, shape in ATTN_PATH_SHAPES.items():
@@ -1224,28 +1245,15 @@ def _bwd_route(shape):
     return "simt"
 
 
-def _flash_launches(pa):
-    """Launches per C entry point since the last reset: the SIMT kernels'
-    counts are the wrappers' totals less the tensor-core kernels'."""
-    return {"srt_flash_attn_fwd": (pa.flash_fwd_launches - pa.flash_fwd_sm90_launches
-                                   - pa.flash_fwd_tf32x3_launches),
-            "srt_flash_attn_fwd_sm90": pa.flash_fwd_sm90_launches,
-            "srt_flash_attn_fwd_tf32x3": pa.flash_fwd_tf32x3_launches,
-            "srt_flash_attn_bwd_dq": (pa.flash_bwd_dq_launches - pa.flash_bwd_dq_sm90_launches
-                                      - pa.flash_bwd_dq_tf32x3_launches),
-            "srt_flash_attn_bwd_dkv": (pa.flash_bwd_dkv_launches
-                                       - pa.flash_bwd_dkv_sm90_launches
-                                       - pa.flash_bwd_dkv_tf32x3_launches),
-            "srt_flash_attn_bwd_dq_sm90": pa.flash_bwd_dq_sm90_launches,
-            "srt_flash_attn_bwd_dkv_sm90": pa.flash_bwd_dkv_sm90_launches,
-            "srt_flash_attn_bwd_dq_tf32x3": pa.flash_bwd_dq_tf32x3_launches,
-            "srt_flash_attn_bwd_dkv_tf32x3": pa.flash_bwd_dkv_tf32x3_launches}
+def _flash_launches():
+    """Launches per flash C entry point since the last reset."""
+    return {k: _launched(k) for k in FLASH_ENTRIES}
 
 
-def _took(pa, before):
+def _took(before):
     """The entry points launched since ``before`` (a :func:`_flash_launches`),
     with their counts."""
-    return {k: n - before[k] for k, n in _flash_launches(pa).items() if n != before[k]}
+    return {k: n - before[k] for k, n in _flash_launches().items() if n != before[k]}
 
 
 def _bwd_errs(torch, got, want, dtype, what, tol=None):
@@ -1279,10 +1287,10 @@ def phase_attention_bwd_kernel(torch, dev):
         route = _bwd_route(shape)
         q, k, v, do, out, lse = _bwd_inputs(torch, dev, shape, 200 + i)
         want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
-        before = _flash_launches(pa)
+        before = _flash_launches()
         got = pa.flash_attention_bwd(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
-        took = _took(pa, before)
+        took = _took(before)
         entry = BWD_PAIRS[route]
         if took != dict.fromkeys(entry, 1):
             raise AssertionError(f"{shape}: launched {took}, expected {entry}")
@@ -1303,9 +1311,9 @@ def phase_attention_bwd_kernel(torch, dev):
         dom = torch.empty(do.numel() + 1, dtype=do.dtype, device=dev)[1:].view_as(do)
         dom.copy_(do)
         want = pa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
-        before = _flash_launches(pa)
+        before = _flash_launches()
         got = pa.flash_attention_bwd(q, k, v, out, lse, dom, True)
-        took = _took(pa, before)
+        took = _took(before)
         if took != dict.fromkeys(BWD_PAIRS["simt"], 1):
             raise AssertionError(f"misaligned do {shape}: launched {took}, not the SIMT pair")
         cases.append({"shape": list(shape[:4]), "dtype": dtype, "causal": True,
@@ -1313,7 +1321,7 @@ def phase_attention_bwd_kernel(torch, dev):
                       "max_abs_err": _bwd_errs(torch, got, want, dtype,
                                                f"misaligned do {shape}")})
     emit(6, name="attention_bwd_kernel", cases=cases,
-         launches={k: n for k, n in _flash_launches(pa).items() if "_bwd_" in k})
+         launches={k: n for k, n in _flash_launches().items() if "_bwd_" in k})
 
 
 def _train_data(torch, dev):
@@ -1381,17 +1389,17 @@ def phase_training_path(torch, dev):
     step = TransformerStep(n_heads=t["heads"], lr=t["lr"], attn="ulysses")
 
     # ---- the main path: step 1, then run_steps of 9 more
-    pa.reset_launch_counts()
+    _reset_launches()
     t0 = time.perf_counter()
     loss1, new1 = step.step(params, x, y)
     torch.cuda.synchronize()
     step1_s = time.perf_counter() - t0
-    after_step1 = _flash_launches(pa)
+    after_step1 = _flash_launches()
     t0 = time.perf_counter()
     loss_k, _ = step.run_steps(new1, x, y, t["steps_after_first"])
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = _flash_launches(pa)
+    launches = _flash_launches()
     peak = torch.cuda.max_memory_allocated()
     n_steps = 1 + t["steps_after_first"]
     # f32 D 64: the 3xTF32 forward and backward pair, one launch each a step
@@ -1467,12 +1475,12 @@ def phase_training_path(torch, dev):
     shape = ATTN_PATH_SHAPES["bench_bf16_causal"]
     q, k, v = (x_.requires_grad_(True) for x_ in _qkv(torch, dev, shape, 31))
     torch.cuda.synchronize()
-    pa.reset_launch_counts()
+    _reset_launches()
     t0 = time.perf_counter()
     pa.flash_attention(q, k, v, causal=True).float().sum().backward()
     torch.cuda.synchronize()
     flash_s = time.perf_counter() - t0
-    flash_launches = _flash_launches(pa)
+    flash_launches = _flash_launches()
     # bf16 D 128: the tensor-core kernels only, one launch each
     want_launches = {k: int(k.endswith("_sm90")) for k in flash_launches}
     if flash_launches != want_launches:
@@ -1547,7 +1555,7 @@ def time_flash_attention_bwd(torch, dev):
     from sparkrdma_tpu_torch.ops import pallas_attention as pa
 
     F = torch.nn.functional
-    lib = _build.load()
+    lib = _build._load(_build.LIB_NAME)
     stream = torch.cuda.current_stream().cuda_stream
     rec = {k: {} for pair in BWD_PAIRS.values() for k in pair}
     own = {"sm90": (pa.flash_attention_bwd_sm90_reference, SM90_BWD_TOL),
@@ -1690,7 +1698,7 @@ def phase_second_device(torch):
         with torch.cuda.device(dev):
             q, k, v = _qkv(torch, dev, shape, 51)
             do = _qkv(torch, dev, shape, 52)[0]
-            pa.reset_launch_counts()
+            _reset_launches()
             got = {}
             for precision in ("default", "highest"):  # tensor-core, then SIMT
                 out, lse = pa.flash_attention_fwd(q, k, v, True, want_lse=True,
@@ -1705,7 +1713,7 @@ def phase_second_device(torch):
                 _bwd_errs(torch, grads, pa.flash_attention_bwd_reference(
                     q, k, v, out, lse, do, True), "bfloat16", f"cuda:{i} {precision}")
                 got[precision] = [x.cpu() for x in (out, out0, *grads)]
-            launches = _flash_launches(pa)
+            launches = _flash_launches()
             # bf16: no 3xTF32 launch; each forward twice, each backward once
             if any(count != (0 if entry.endswith("_tf32x3")
                              else 2 if entry.startswith("srt_flash_attn_fwd") else 1)
@@ -1767,7 +1775,7 @@ def phase_neighbor_pull_kernel(torch, dev):
     from sparkrdma_tpu_torch.ops.exchange import ExchangeProgram
     from sparkrdma_tpu_torch.parallel import make_mesh
 
-    n0 = rc.neighbor_pull_launches
+    n0 = _launched("srt_neighbor_pull")
     cases = []
     for n, shape, dtype, soff, doff in _np_cases(torch):
         src = _offset_stack(torch, dev, n, shape, dtype, soff)
@@ -1801,7 +1809,7 @@ def phase_neighbor_pull_kernel(torch, dev):
         raise AssertionError("the 3-shard exchange schedules disagree")
     emit(8, name="neighbor_pull_kernel", cases=cases, equal=True,
          odd_mesh_schedules_equal=True,
-         launches={"srt_neighbor_pull": rc.neighbor_pull_launches - n0})
+         launches={"srt_neighbor_pull": _launched("srt_neighbor_pull") - n0})
 
 
 def _study_payload_len(src, dst, block):
@@ -1883,7 +1891,6 @@ def phase_spmd_path(torch, dev):
     """The SPMD shuffle step on ``make_mesh([dev] * 8)``: counts from 0
     just before, read just after."""
     from sparkrdma_tpu_torch.models.terasort import TeraSorter
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
     from sparkrdma_tpu_torch.ops.exchange import (
         ExchangeProgram, pack_blocks, unpack_blocks,
     )
@@ -1891,7 +1898,7 @@ def phase_spmd_path(torch, dev):
 
     e = MESH
     mesh = make_mesh([dev] * e)
-    rc.reset_launch_counts()
+    _reset_launches()
     report = {}
 
     # ---- (a) the dryrun's exchange: 64-byte buckets of 1+src+dst bytes
@@ -1919,13 +1926,13 @@ def phase_spmd_path(torch, dev):
     for label, fn in (("a2a", prog.exchange), ("ring", prog.ring_exchange)):
         walls[label] = []
         for i in range(3):
-            n0 = rc.neighbor_pull_launches
+            n0 = _launched("srt_neighbor_pull")
             t = time.perf_counter()
             recv, rcounts = fn(send, counts)
             torch.cuda.synchronize()
             walls[label].append(time.perf_counter() - t)
             if label == "ring" and i == 0:
-                ring_launches = rc.neighbor_pull_launches - n0
+                ring_launches = _launched("srt_neighbor_pull") - n0
             if i == 0:
                 if not (torch.equal(recv, want) and torch.equal(rcounts, want_counts)):
                     raise AssertionError(f"{label}: received blocks differ from the sent")
@@ -2016,7 +2023,7 @@ def phase_spmd_path(torch, dev):
     report["small"] = {"keys": SPMD_SMALL_KEYS, "all_zero": skew,
                        "mesh_2d": {"shape": mesh2.shape, "sort_s": wall2,
                                    "equal": True}}
-    launches = rc.neighbor_pull_launches
+    launches = _launched("srt_neighbor_pull")
     if launches <= 0:
         raise AssertionError("srt_neighbor_pull never launched on the SPMD path")
     emit(9, name="spmd_path", launches={"srt_neighbor_pull": launches}, **report)
@@ -2039,7 +2046,7 @@ def time_neighbor_pull(torch, dev):
     table = torch.from_numpy(np.stack(
         [np.uint64(x.data_ptr()) + rows, np.uint64(out.data_ptr()) + rows],
         axis=1).view(np.int64)).to(dev)
-    lib = _build.load()
+    lib = _build._load(_build.LIB_NAME)
     stream = torch.cuda.current_stream().cuda_stream
 
     def raw():
@@ -2384,7 +2391,6 @@ def phase_host_plane_path(torch, dev, data):
     one). Counts from 0 just before, read just after."""
     from sparkrdma_tpu_torch.models.terasort import MapShardSorter
     from sparkrdma_tpu_torch.obs import get_registry
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
     from sparkrdma_tpu_torch.parallel import make_mesh
     from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
     from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
@@ -2393,17 +2399,14 @@ def phase_host_plane_path(torch, dev, data):
 
     shards, edges, want = data
     reg = get_registry()
-    rc.reset_launch_counts()
+    _reset_launches()
     report = {}
-
-    def launches():
-        return (rc.wave_pull_launches, rc.pipelined_wave_pull_launches)
 
     def degrades(ids):
         return sum(reg.counter("collective.degrades", role=i).value for i in ids)
 
     # ---- (a) dryrun sections 4 and 5, then CUDA-tensor blocks
-    l0 = launches()
+    l0 = _wave_launches()
     dry_ids = [f"dry-{i}" for i in range(HOST_EXECUTORS)]
     d0 = degrades(dry_ids)
     t = time.perf_counter()
@@ -2411,7 +2414,7 @@ def phase_host_plane_path(torch, dev, data):
     report["a"] = {
         "wall_s": time.perf_counter() - t, "deltas": seen["deltas"],
         "collective.degrades": degrades(dry_ids) - d0,
-        "wave_launches": [x - y for x, y in zip(launches(), l0)],
+        "wave_launches": [x - y for x, y in zip(_wave_launches(), l0)],
         "tensor_blocks": _tensor_publish_check(torch, dev),
     }
     if report["a"]["collective.degrades"] or sum(report["a"]["wave_launches"]) <= 0:
@@ -2469,7 +2472,7 @@ def phase_host_plane_path(torch, dev, data):
                                  for i in ids)
                           for k in ("blocks", "degrades", "fused_merges")}
                 f0 = {k: sum(io.metrics_snapshot()[k] for io in ios) for k in fetch_keys}
-                l0 = launches()
+                l0 = _wave_launches()
                 cold = reduce_all(fused, check=True)
                 warm = reduce_all(fused, check=False)
                 deltas = {f"collective.{k}": sum(
@@ -2485,7 +2488,7 @@ def phase_host_plane_path(torch, dev, data):
                 "reduce_warm_s": warm, "reduce_gbps_warm": KEYS * 4 / warm / 1e9,
                 "e2e_s": map_s + cold, "e2e_gbps": KEYS * 4 / (map_s + cold) / 1e9,
                 "fetch_stats_two_reduces": fetch,
-                "wave_launches": [x - y for x, y in zip(launches(), l0)],
+                "wave_launches": [x - y for x, y in zip(_wave_launches(), l0)],
                 **deltas,
             }
         report["b"]["peak_device_bytes_above_baseline"] = (
@@ -2536,8 +2539,8 @@ def phase_host_plane_path(torch, dev, data):
         raise AssertionError(f"run (c) used the waves: {off}")
     if not report["b"]["served_with_device"]:
         raise AssertionError("the driver served a location without device coordinates")
-    counts = {"srt_wave_pull": rc.wave_pull_launches,
-              "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches}
+    counts = {"srt_wave_pull": _launched("srt_wave_pull"),
+              "srt_pipelined_wave_pull": _launched("srt_pipelined_wave_pull")}
     emit(10, name="host_plane_path", launches=counts, **report)
     _REPORTS[10] = report
     return counts
@@ -2604,10 +2607,10 @@ def sp_dryrun_sections(torch, dev, e=SP_SHARDS):
     return out
 
 
-def _sp_counts(rc, pa):
+def _sp_counts():
     """The kernels of this phase's path and their launches since the last
     resets."""
-    return {"srt_neighbor_pull": rc.neighbor_pull_launches, **_flash_launches(pa)}
+    return {"srt_neighbor_pull": _launched("srt_neighbor_pull"), **_flash_launches()}
 
 
 def phase_sp_training_path(torch, dev, step7_s):
@@ -2626,16 +2629,13 @@ def phase_sp_training_path(torch, dev, step7_s):
         PARAM_SPECS, TransformerStep, make_training_mesh, reference_step,
     )
     from sparkrdma_tpu_torch.ops import RingAttention, UlyssesAttention
-    from sparkrdma_tpu_torch.ops import pallas_attention as pa
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
     from sparkrdma_tpu_torch.parallel import make_mesh, shard
 
     def reset():
-        rc.reset_launch_counts()
-        pa.reset_launch_counts()
+        _reset_launches()
 
     report = {}
-    total = dict.fromkeys(_sp_counts(rc, pa), 0)
+    total = dict.fromkeys(_sp_counts(), 0)
 
     def add(counts):
         for k, n in counts.items():
@@ -2647,7 +2647,7 @@ def phase_sp_training_path(torch, dev, step7_s):
     report["a"] = sp_dryrun_sections(torch, dev)
     torch.cuda.synchronize()
     report["a"]["wall_s"] = time.perf_counter() - t
-    counts = _sp_counts(rc, pa)
+    counts = _sp_counts()
     add(counts)
     report["a"]["launches"] = {k: n for k, n in counts.items() if n}
 
@@ -2676,7 +2676,7 @@ def phase_sp_training_path(torch, dev, step7_s):
                 outs[key].append(attn(q, k, v, causal=causal))
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t)
-            counts = _sp_counts(rc, pa)
+            counts = _sp_counts()
             add(counts)
             run[f"{key}_call_s"] = walls
             run[f"{key}_launches_per_call"] = {
@@ -2735,12 +2735,12 @@ def phase_sp_training_path(torch, dev, step7_s):
         loss1, new1 = step.step(params, x, y)
         torch.cuda.synchronize()
         step1_s = time.perf_counter() - t
-        after1 = {k: n for k, n in _sp_counts(rc, pa).items() if n}
+        after1 = {k: n for k, n in _sp_counts().items() if n}
         t = time.perf_counter()
         loss_k, _ = step.run_steps(new1, x, y, t_["steps_after_first"])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t
-        counts = _sp_counts(rc, pa)
+        counts = _sp_counts()
         add(counts)
         peak = torch.cuda.max_memory_allocated() - base
         want1 = ({"srt_flash_attn_fwd_tf32x3": 1, "srt_flash_attn_bwd_dq_tf32x3": 1,
@@ -2804,11 +2804,11 @@ ALS_RMSE_TOL = 5e-3
 ALS_CHUNK = 1 << 22  # ratings per index_add_ of the float64 plain version
 
 
-def _all_counts(rc, pa):
+def _all_counts():
     """Every kernel's launches since the last resets."""
-    return {"srt_wave_pull": rc.wave_pull_launches,
-            "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches,
-            **_sp_counts(rc, pa)}
+    return {"srt_wave_pull": _launched("srt_wave_pull"),
+            "srt_pipelined_wave_pull": _launched("srt_pipelined_wave_pull"),
+            **_sp_counts()}
 
 
 def _peak_run(torch, fn):
@@ -3048,51 +3048,44 @@ def phase_spmd_models(torch, dev):
     hand-written kernel (the exchanges are the dense all-to-all's
     transpose). Returns the pack's and the CSR kernels' launches."""
     from sparkrdma_tpu_torch.models import MapShardSorter
-    from sparkrdma_tpu_torch.ops import csr
-    from sparkrdma_tpu_torch.ops import pallas_attention as pa
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
-    from sparkrdma_tpu_torch.ops import sort as so
     from sparkrdma_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh([dev] * SPMD_MODEL_SHARDS)
     t0 = time.perf_counter()
-    rc.reset_launch_counts()
-    pa.reset_launch_counts()
-    so.reset_launch_counts()
-    csr.reset_launch_counts()
+    _reset_launches()
     report = {"shards": SPMD_MODEL_SHARDS}
     _, report["map_sorter_warm_s"] = _synced_s(
         torch, lambda: MapShardSorter(dev).warm(KEYS // EXECUTORS, REDUCERS - 1))
     report["a_hashjoin"] = _models_hashjoin(torch, dev, mesh)
     # join()'s tries, the warm step and the profiled step: two packs each
     want = 2 * (report["a_hashjoin"]["tries"] + 2)
-    if so.radix_pack_launches != want:
+    if _launched("srt_radix_pack") != want:
         raise AssertionError(
-            f"the join launched srt_radix_pack {so.radix_pack_launches} times, not {want}")
+            f"the join launched srt_radix_pack {_launched('srt_radix_pack')} times, not {want}")
     report["b_pagerank"] = _models_pagerank(torch, dev, mesh)
-    by_model = {"a_hashjoin": want, "b_pagerank": so.radix_pack_launches - want}
+    by_model = {"a_hashjoin": want, "b_pagerank": _launched("srt_radix_pack") - want}
     if by_model["b_pagerank"] != 2:  # its two ``blocks`` calls, one pack each
         raise AssertionError(
             f"PageRank launched srt_radix_pack {by_model['b_pagerank']} times, not 2")
-    want = so.radix_pack_launches
+    want = _launched("srt_radix_pack")
     report["srt_radix_pack_launches"] = by_model
     # run(), the warm and the profiled job: a CSR build a call, a pull an
     # iteration, and the join launched neither
-    pulls = (csr.csr_build_launches, csr.csr_pull_launches)
+    pulls = (_launched("srt_csr_build"), _launched("srt_csr_pull"))
     if pulls != (3, 3 * PR_ITERS):
         raise AssertionError(f"PageRank made {pulls[0]} CSR builds and {pulls[1]} pulls, "
                              f"not 3 and {3 * PR_ITERS}")
     report["c_als"] = _models_als(torch, dev, mesh)
-    launched = {k: n for k, n in _all_counts(rc, pa).items() if n}
-    if (launched or so.radix_pack_launches != want
-            or (csr.csr_build_launches, csr.csr_pull_launches) != pulls):
+    launched = {k: n for k, n in _all_counts().items() if n}
+    if (launched or _launched("srt_radix_pack") != want
+            or (_launched("srt_csr_build"), _launched("srt_csr_pull")) != pulls):
         raise AssertionError(
             f"the SPMD models launched kernels: {launched}, "
-            f"srt_radix_pack {so.radix_pack_launches}, CSR builds and pulls "
-            f"{csr.csr_build_launches} and {csr.csr_pull_launches}")
-    launches = {"srt_radix_pack": so.radix_pack_launches,
-                "srt_csr_build": csr.csr_build_launches,
-                "srt_csr_pull": csr.csr_pull_launches}
+            f"srt_radix_pack {_launched('srt_radix_pack')}, CSR builds and pulls "
+            f"{_launched('srt_csr_build')} and {_launched('srt_csr_pull')}")
+    launches = {"srt_radix_pack": _launched("srt_radix_pack"),
+                "srt_csr_build": _launched("srt_csr_build"),
+                "srt_csr_pull": _launched("srt_csr_pull")}
     emit(12, name="spmd_models", launches=launches, seconds=time.perf_counter() - t0,
          **report)
     return launches
@@ -3123,7 +3116,7 @@ def time_radix_pack(torch, dev):
                          generator=g).to(torch.int32).view(torch.uint32)
     vals = torch.arange(e * n, dtype=torch.int32, device=dev).view(e, n)
     t = time.perf_counter()
-    lib = _build.load_radix_pack()
+    lib = _build._load("libsrt_radix_pack.so")
     load_s = time.perf_counter() - t
     built = _build.builds.get("libsrt_radix_pack.so")
     got = so.radix_pack_pairs(keys, vals, p, cap, KEY_BITS, SENTINEL, -1)
@@ -3309,7 +3302,7 @@ def time_csr_pull(torch, dev):
     packed, _, n_local = pr.blocks(edges, n, capacity)
     del edges
     t = time.perf_counter()
-    lib = _build.load_csr_pull()
+    lib = _build._load("libsrt_csr_pull.so")
     load_s = time.perf_counter() - t
     built = _build.builds.get("libsrt_csr_pull.so")
     rows, sources = e * e * n_local, e * n_local
@@ -3635,14 +3628,11 @@ def phase_data_planes(torch, dev):
     data, against the same run without it. No hand-written kernel runs:
     every count is 0 from just before to just after."""
     from sparkrdma_tpu_torch.obs import get_registry
-    from sparkrdma_tpu_torch.ops import pallas_attention as pa
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
     from sparkrdma_tpu_torch.testing import faults
 
     reg = get_registry()
     t0 = time.perf_counter()
-    rc.reset_launch_counts()
-    pa.reset_launch_counts()
+    _reset_launches()
     report = {}
 
     t = time.perf_counter()
@@ -3719,7 +3709,7 @@ def phase_data_planes(torch, dev):
     if not all(np.array_equal(a, b) for a, b in zip(outs["fault_free"], outs["faulted"])):
         raise AssertionError("(d) the faulted run's output differs from the fault-free run's")
 
-    launched = {k: n for k, n in _all_counts(rc, pa).items() if n}
+    launched = {k: n for k, n in _all_counts().items() if n}
     if launched:
         raise AssertionError(f"the data planes launched kernels: {launched}")
     emit(13, name="data_planes", launches={}, seconds=time.perf_counter() - t0, **report)
@@ -4162,8 +4152,6 @@ def phase_engine(torch, dev):
     (e) the cluster's push route and executor loss at a tenth. The engine
     does no device work: no hand-written kernel runs, every count is 0
     from just before to just after, and no worker initialises CUDA."""
-    from sparkrdma_tpu_torch.ops import pallas_attention as pa
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
 
     # the workers are ``python -m sparkrdma_tpu_torch.engine.worker``: they
     # find the package on PYTHONPATH from any working directory
@@ -4176,8 +4164,7 @@ def phase_engine(torch, dev):
     import cloudpickle
 
     t0 = time.perf_counter()
-    rc.reset_launch_counts()
-    pa.reset_launch_counts()
+    _reset_launches()
     report = {"card": smi, "cloudpickle": f"{cloudpickle.__version__} {cloudpickle.__file__}"}
     report["a"] = _en_quick_start()
     keys = np.random.default_rng(EN_SEED).integers(0, 1 << 32, EN_RECORDS, dtype=np.uint64)
@@ -4185,7 +4172,7 @@ def phase_engine(torch, dev):
     report["c"] = _en_faults(keys[:EN_TENTH])
     report["d"] = _en_cluster_sort(EN_RECORDS)
     report["e"] = _en_cluster_faults(EN_TENTH)
-    launched = {k: n for k, n in _all_counts(rc, pa).items() if n}
+    launched = {k: n for k, n in _all_counts().items() if n}
     if launched:
         raise AssertionError(f"the engine launched kernels: {launched}")
     emit(14, name="engine", launches={}, seconds=time.perf_counter() - t0, **report)
@@ -4319,7 +4306,6 @@ def native_terasort(torch, dev, data, knobs=None, prefix="np", sid=150,
     ``keep``, returns each run's merged outputs too."""
     from sparkrdma_tpu_torch.models.terasort import MapShardSorter
     from sparkrdma_tpu_torch.obs import get_registry
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
     from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
     from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
     from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
@@ -4337,9 +4323,6 @@ def native_terasort(torch, dev, data, knobs=None, prefix="np", sid=150,
     execs = [TpuShuffleManager(conf, is_driver=False, executor_id=i) for i in ids]
     ios = [DeviceShuffleIO(ex, device=dev) for ex in execs]
     report, outs = {"knobs": knobs}, {}
-
-    def launches():
-        return (rc.wave_pull_launches, rc.pipelined_wave_pull_launches)
 
     def fetch_counts():
         snaps = [io.metrics_snapshot() for io in ios]
@@ -4377,7 +4360,7 @@ def native_terasort(torch, dev, data, knobs=None, prefix="np", sid=150,
             for k, v in run_knobs.items():
                 conf.set(k, v)
             try:
-                c0, l0 = fetch_counts(), launches()
+                c0, l0 = fetch_counts(), _wave_launches()
                 blobs = [] if name == "c" else None
                 cold, outs[f"{name}_cold"] = _hp_reduce_all(torch, dev, ios, sid, want,
                                                            blocks=blobs)
@@ -4389,7 +4372,7 @@ def native_terasort(torch, dev, data, knobs=None, prefix="np", sid=150,
             run = {"knobs": run_knobs, "reduce_cold_s": cold, "reduce_warm_s": warm,
                    "reduce_gbps_warm": sum(len(x) for x in shards) * 4 / warm / 1e9,
                    "e2e_s": map_s + cold,
-                   "wave_launches": [x - y for x, y in zip(launches(), l0)],
+                   "wave_launches": [x - y for x, y in zip(_wave_launches(), l0)],
                    **{f"{k}_two_reduces": c1[k] - c0[k] for k in c0}}
             report[name] = run
             if name == "b":
@@ -4448,12 +4431,11 @@ def phase_native_plane(torch, dev, data):
     Counts from 0 just before, read just after."""
     from sparkrdma_tpu_torch.memory import buffer
     from sparkrdma_tpu_torch.obs import get_registry
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
 
     reg = get_registry()
     t0 = time.perf_counter()
     report = {"facts": native_plane_facts()}
-    rc.reset_launch_counts()
+    _reset_launches()
     report["a"] = native_round_trip()
 
     # ---- (b) and (c): phase 10's TeraSort over native
@@ -4515,8 +4497,8 @@ def phase_native_plane(torch, dev, data):
         k: reg.counter(f"transport.sq.{k}").value
         for k in ("submits", "batches", "completions", "backend_fallbacks")}
     report["transport.sq"]["sqe_depth"] = reg.gauge("transport.sq.sqe_depth").value
-    counts = {"srt_wave_pull": rc.wave_pull_launches,
-              "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches}
+    counts = {"srt_wave_pull": _launched("srt_wave_pull"),
+              "srt_pipelined_wave_pull": _launched("srt_pipelined_wave_pull")}
     emit(15, name="native_plane", launches=counts, seconds=time.perf_counter() - t0,
          **report)
     return counts
@@ -4725,7 +4707,6 @@ def _obs_wave_pulls(torch, dev, data):
     range."""
     from sparkrdma_tpu_torch.models.terasort import MapShardSorter
     from sparkrdma_tpu_torch.obs import attr, get_registry
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
     from sparkrdma_tpu_torch.shuffle.autotune import WaveAutoTuner
     from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
     from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
@@ -4750,10 +4731,10 @@ def _obs_wave_pulls(torch, dev, data):
         sorter = MapShardSorter(dev)
         map_s, _, _, _ = _hp_map_phase(torch, dev, sorter, ios, shards, edges, sid)
         adj0 = sum(reg.counter("collective.autotune_adjustments", role=i).value for i in ids)
-        l0 = (rc.wave_pull_launches, rc.pipelined_wave_pull_launches)
+        l0 = _wave_launches()
         cold = _hp_reduce_all(torch, dev, ios, sid, want)[0]
         warm = _hp_reduce_all(torch, dev, ios, sid, want)[0]
-        launches = [rc.wave_pull_launches - l0[0], rc.pipelined_wave_pull_launches - l0[1]]
+        launches = [x - y for x, y in zip(_wave_launches(), l0)]
         adjusts = sum(reg.counter("collective.autotune_adjustments", role=i).value
                       for i in ids) - adj0
         events = driver.telemetry.journal.merged(kinds=["autotune.adjust"])
@@ -4797,8 +4778,6 @@ def phase_operations_planes(torch, dev, data):
     then; (c) ``ClusterContext``'s poll loop and the workers' journals;
     (d) phase 10 (b)'s wave pulls under the hub, the tuner's journal
     events against its counters."""
-    from sparkrdma_tpu_torch.ops import pallas_attention as pa
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
 
     os.environ["PYTHONPATH"] = os.pathsep.join(
         [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
@@ -4807,8 +4786,7 @@ def phase_operations_planes(torch, dev, data):
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    rc.reset_launch_counts()
-    pa.reset_launch_counts()
+    _reset_launches()
     report = {"card": smi}
     t = time.perf_counter()
     report["a"] = _obs_hub_alone()
@@ -4845,17 +4823,16 @@ def phase_operations_planes(torch, dev, data):
     report["c"]["seconds"] = time.perf_counter() - t
 
     # ---- (d) phase 10 (b)'s wave pulls under the hub
-    rc.reset_launch_counts()
-    pa.reset_launch_counts()
+    _reset_launches()
     t = time.perf_counter()
     report["d"] = _obs_wave_pulls(torch, dev, data)
     report["d"]["seconds"] = time.perf_counter() - t
-    launched = {k: v for k, v in _all_counts(rc, pa).items()
+    launched = {k: v for k, v in _all_counts().items()
                 if v and k not in ("srt_wave_pull", "srt_pipelined_wave_pull")}
     if launched:
         raise AssertionError(f"phase 16 launched other kernels: {launched}")
-    counts = {"srt_wave_pull": rc.wave_pull_launches,
-              "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches}
+    counts = {"srt_wave_pull": _launched("srt_wave_pull"),
+              "srt_pipelined_wave_pull": _launched("srt_pipelined_wave_pull")}
     emit(16, name="operations_planes", launches=counts, seconds=time.perf_counter() - t0,
          **report)
     return counts
@@ -5295,7 +5272,6 @@ def _el_lock_order(torch, dev, data):
     sparkrdma_tpu_torch.analysis`` on the checkout."""
     from sparkrdma_tpu_torch.analysis import lockorder
     from sparkrdma_tpu_torch.models.terasort import MapShardSorter
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
     from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
     from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
     from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
@@ -5317,10 +5293,10 @@ def _el_lock_order(torch, dev, data):
                 shuffle_id=sid, num_maps=EXECUTORS, partitioner=HashPartitioner(REDUCERS)))
             map_s, _, _, _ = _hp_map_phase(torch, dev, MapShardSorter(dev), ios, shards,
                                            edges, sid)
-            l0 = (rc.wave_pull_launches, rc.pipelined_wave_pull_launches)
+            l0 = _wave_launches()
             cold = _hp_reduce_all(torch, dev, ios, sid, want)[0]
             warm = _hp_reduce_all(torch, dev, ios, sid, want)[0]
-            launches = [rc.wave_pull_launches - l0[0], rc.pipelined_wave_pull_launches - l0[1]]
+            launches = [x - y for x, y in zip(_wave_launches(), l0)]
             det.disable()
             off = _hp_reduce_all(torch, dev, ios, sid, want)[0]
         finally:
@@ -5398,8 +5374,6 @@ def phase_elastic_planes(torch, dev, data):
     import shutil
     import tempfile
 
-    from sparkrdma_tpu_torch.ops import pallas_attention as pa
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
 
     os.environ["PYTHONPATH"] = _cli_env()["PYTHONPATH"]
     smi = subprocess.run(
@@ -5407,8 +5381,7 @@ def phase_elastic_planes(torch, dev, data):
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    rc.reset_launch_counts()
-    pa.reset_launch_counts()
+    _reset_launches()
     report = {"card": smi}
     tmp = tempfile.mkdtemp(prefix="phase17-")
     try:
@@ -5417,7 +5390,7 @@ def phase_elastic_planes(torch, dev, data):
             t = time.perf_counter()
             report[key] = run()
             report[key]["seconds"] = time.perf_counter() - t
-        launched = {k: n for k, n in _all_counts(rc, pa).items() if n}
+        launched = {k: n for k, n in _all_counts().items() if n}
         if launched:
             raise AssertionError(f"(a)-(d) launched kernels: {launched}")
         t = time.perf_counter()
@@ -5428,12 +5401,12 @@ def phase_elastic_planes(torch, dev, data):
         report["f"]["seconds"] = time.perf_counter() - t
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launched = {k: v for k, v in _all_counts(rc, pa).items()
+    launched = {k: v for k, v in _all_counts().items()
                 if v and k not in ("srt_wave_pull", "srt_pipelined_wave_pull")}
     if launched:
         raise AssertionError(f"phase 17 launched other kernels: {launched}")
-    counts = {"srt_wave_pull": rc.wave_pull_launches,
-              "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches}
+    counts = {"srt_wave_pull": _launched("srt_wave_pull"),
+              "srt_pipelined_wave_pull": _launched("srt_pipelined_wave_pull")}
     emit(17, name="elastic_planes", launches=counts, seconds=time.perf_counter() - t0,
          **report)
     return counts
@@ -5691,7 +5664,6 @@ def rank_worker(rank, port, device="cuda", block=STUDY_BLOCK):
     import torch.distributed as dist
 
     from sparkrdma_tpu_torch.obs import get_registry
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
     from sparkrdma_tpu_torch.ops.exchange import ExchangeProgram
     from sparkrdma_tpu_torch.parallel import multihost
 
@@ -5719,12 +5691,12 @@ def rank_worker(rank, port, device="cuda", block=STUDY_BLOCK):
         for i in range(RK_CALLS):
             dist.barrier()
             _sync(torch, dev)
-            n0 = rc.neighbor_pull_launches
+            n0 = _launched("srt_neighbor_pull")
             t = time.perf_counter()
             recv, rcounts = fn(send, counts)
             _sync(torch, dev)
             walls.append(time.perf_counter() - t)
-            launches.append(rc.neighbor_pull_launches - n0)
+            launches.append(_launched("srt_neighbor_pull") - n0)
             if i == 0:
                 digests = _shard_digests(torch, recv, rcounts, e)
             del recv, rcounts
@@ -5736,7 +5708,7 @@ def rank_worker(rank, port, device="cuda", block=STUDY_BLOCK):
             "exchange_deltas": {f: reg.counter(f"exchange.{f}", schedule=label).value - c0[f]
                                 for f in fams},
             "stats": prog.stats[label]}
-    res["neighbor_pull_launches"] = rc.neighbor_pull_launches
+    res["neighbor_pull_launches"] = _launched("srt_neighbor_pull")
     dist.barrier()
     dist.destroy_process_group()
     print("RANK " + json.dumps(res), flush=True)
@@ -5748,7 +5720,7 @@ def _boundary_row_kernel(torch, dev):
     small, odd and misaligned stacks and the ring's [4, 128 MiB] hop."""
     from sparkrdma_tpu_torch.ops import remote_copy as rc
 
-    n0 = rc.neighbor_pull_launches
+    n0 = _launched("srt_neighbor_pull")
     cases = [(1, (7,), torch.uint8, 0, 0), (3, (1025,), torch.int32, 0, 0),
              (4, (MESH,), torch.int32, 0, 0), (2, (4097,), torch.bfloat16, 0, 0),
              (4, ((64 << 10) + 3,), torch.uint8, 1, 3),
@@ -5769,7 +5741,7 @@ def _boundary_row_kernel(torch, dev):
                     "dtype": str(dtype), "src_offset": soff, "dst_offset": doff})
         del both, blocks, last, dst, got, want
     return {"cases": out, "equal": True,
-            "comparison_launches": rc.neighbor_pull_launches - n0}
+            "comparison_launches": _launched("srt_neighbor_pull") - n0}
 
 
 def _two_ranks(torch, dev):
@@ -5800,15 +5772,13 @@ def _two_ranks(torch, dev):
         del recv, rcounts
     if ref["a2a"] != ref["ring"]:
         raise AssertionError("(b) the one-process schedules' digests differ")
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
-
-    reference_launches = rc.neighbor_pull_launches
-    rc.reset_launch_counts()  # the reference's launches are a comparison's
+    reference_launches = _launched("srt_neighbor_pull")
+    _reset_launches()  # the reference's launches are a comparison's
     del send, counts, want, want_counts, prog
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        _build.load()  # built once here, loaded by both ranks
+        _build._load(_build.LIB_NAME)  # built once here, loaded by both ranks
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -5908,7 +5878,6 @@ def _live_seam(torch, dev, data):
 
     from sparkrdma_tpu_torch.analysis.modelcheck import sched
     from sparkrdma_tpu_torch.models.terasort import MapShardSorter
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
     from sparkrdma_tpu_torch.shuffle.device_io import DeviceShuffleIO
     from sparkrdma_tpu_torch.shuffle.handle import BaseShuffleHandle, HashPartitioner
     from sparkrdma_tpu_torch.shuffle.manager import TpuShuffleManager
@@ -5930,10 +5899,10 @@ def _live_seam(torch, dev, data):
         with _seam("count") as calls:
             map_s = _hp_map_phase(torch, dev, MapShardSorter(dev), ios, shards, edges, sid)[0]
             map_calls = calls["schedule_point"]
-            l0 = (rc.wave_pull_launches, rc.pipelined_wave_pull_launches)
+            l0 = _wave_launches()
             cold = _hp_reduce_all(torch, dev, ios, sid, want)[0]
             warm = _hp_reduce_all(torch, dev, ios, sid, want)[0]
-            launches = [rc.wave_pull_launches - l0[0], rc.pipelined_wave_pull_launches - l0[1]]
+            launches = [x - y for x, y in zip(_wave_launches(), l0)]
             reduce_calls = calls["schedule_point"] - map_calls
         for mode in SEAM_ORDER:
             with _seam(mode):
@@ -5971,8 +5940,6 @@ def phase_models_and_ranks(torch, dev, data):
     ``srt_neighbor_pull`` on the main path: the two ranks' ring calls."""
     import tempfile
 
-    from sparkrdma_tpu_torch.ops import pallas_attention as pa
-    from sparkrdma_tpu_torch.ops import remote_copy as rc
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5985,13 +5952,12 @@ def phase_models_and_ranks(torch, dev, data):
     emit("18a", name="model_checker", card=smi, **report["a"])
     t = time.perf_counter()
     report["boundary_row_kernel"] = _boundary_row_kernel(torch, dev)
-    rc.reset_launch_counts()
-    pa.reset_launch_counts()
+    _reset_launches()
     report["b"] = _two_ranks(torch, dev)
     report["b"]["seconds"] = time.perf_counter() - t
     emit("18b", name="two_ranks", card=smi,
          boundary_row_kernel=report["boundary_row_kernel"], **report["b"])
-    launched = {k: n for k, n in _all_counts(rc, pa).items() if n}
+    launched = {k: n for k, n in _all_counts().items() if n}
     if launched:
         raise AssertionError(f"(b) launched kernels in the parent: {launched}")
     ring = sum(r["neighbor_pull_launches"] for r in report["b"]["per_rank"])
@@ -5999,12 +5965,12 @@ def phase_models_and_ranks(torch, dev, data):
     report["c"] = _live_seam(torch, dev, data)
     report["c"]["seconds"] = time.perf_counter() - t
     emit("18c", name="live_seam", card=smi, **report["c"])
-    launched = {k: v for k, v in _all_counts(rc, pa).items()
+    launched = {k: v for k, v in _all_counts().items()
                 if v and k not in ("srt_wave_pull", "srt_pipelined_wave_pull")}
     if launched:
         raise AssertionError(f"phase 18 launched other kernels: {launched}")
-    counts = {"srt_neighbor_pull": ring, "srt_wave_pull": rc.wave_pull_launches,
-              "srt_pipelined_wave_pull": rc.pipelined_wave_pull_launches}
+    counts = {"srt_neighbor_pull": ring, "srt_wave_pull": _launched("srt_wave_pull"),
+              "srt_pipelined_wave_pull": _launched("srt_pipelined_wave_pull")}
     emit(18, name="models_and_ranks", card=smi, launches=counts,
          seconds=time.perf_counter() - t0, parts=["18a", "18b", "18c"],
          seconds_by_part={k: report[k]["seconds"] for k in ("a", "b", "c")})

@@ -12,6 +12,14 @@ Join shape: the build side has UNIQUE keys (the dimension-table case);
 every probe row matches at most one build row, so the output is exactly
 probe-sized. Probe rows with no match return ``miss_value`` (left-outer
 semantics). The output rows are the JAX package's, in its order.
+
+A step opens spans (``obs/trace.py`` ``span``): ``hashjoin.step`` once
+around ``_build``'s ``fn``, the whole step; directly in it
+``hashjoin.pack`` once a side (``radix_pack_pairs``: every shard's keys
+and payloads), ``hashjoin.build_sort`` once (the build keys' mask,
+``device_argsort``, the two gathers), ``hashjoin.probe`` once
+(``searchsorted``, the clamp, the gathers, ``hit``, ``joined``), and the
+exchange's ``exchange.a2a`` four times.
 """
 
 from __future__ import annotations

@@ -15,6 +15,14 @@ The PyTorch counterpart of the JAX package's ``models/terasort.py``:
   locally, no split and no exchange (the JAX step's ``e == 1`` branch);
 - ``merge_blocks``: the reduce side's merge of one partition's landed
   blocks (``merge_received`` over a sentinel-padded slab).
+
+A ``TeraSorter`` step opens spans (``obs/trace.py`` ``span``), per stage
+of E shards: ``terasort.step`` once around ``_build_step``'s ``fn`` (and
+``short`` on one shard), the whole step; directly in it, per shard,
+``terasort.local_sort`` (``device_sort``), ``terasort.split``
+(``split_sorted`` / ``split_sorted_edges`` and its send copy) and
+``terasort.merge`` (``merge_received`` and its copy into ``merged``),
+and the exchange's ``exchange.a2a`` once.
 """
 
 from __future__ import annotations

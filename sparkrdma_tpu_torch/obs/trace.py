@@ -44,48 +44,15 @@ runtime calls it encloses. A span is in one of three states:
   records into that tracer, nested under it, as ``Tracer.span`` does
   (Chrome export, critical path).
 
-:func:`span` is the form for the device steps' hot paths. The spans
-they open, per stage of E shards (a PageRank stage is one call of
-``iters`` iterations):
-
-==========================  ==========================================  =====
-span                        around                                      count
-==========================  ==========================================  =====
-``terasort.step``           ``TeraSorter._build_step`` ``fn`` (and      1
-                            ``short`` on one shard): the whole step
-``terasort.local_sort``     one shard's ``device_sort``                 E
-``terasort.split``          one shard's ``split_sorted`` /              E
-                            ``split_sorted_edges`` and its send copy
-``terasort.merge``          one shard's ``merge_received`` and its      E
-                            copy into ``merged``
-``hashjoin.step``           ``HashJoin._build`` ``fn``: the whole step  1
-``hashjoin.pack``           one side's ``radix_pack_pairs``: every      2
-                            shard's keys and payloads packed
-``hashjoin.build_sort``     the build keys' mask, ``device_argsort``,   1
-                            the two gathers
-``hashjoin.probe``          ``searchsorted``, the clamp, the gathers,   1
-                            ``hit``, ``joined``
-``pagerank.step``           ``PageRank._build`` ``fn``: the whole call  1
-``pagerank.index``          the blocks' CSR (``csr_build``), the        1
-                            degrees' masks
-``pagerank.gather``         one iteration's out-contributions and the   iters
-                            dangling sum
-``pagerank.scatter``        one iteration's ``csr_pull``: the edge      iters
-                            gather and every row's sum
-``pagerank.apply``          one iteration's received sum and update     iters
-``exchange.a2a``            the transpose copies of the program that    1 sort,
-                            ``ExchangeProgram.program_for`` returns     4 join,
-                                                                        iters
-                                                                        PageRank
-==========================  ==========================================  =====
-
-Every phase and ``exchange.a2a`` nests directly in its step span. A
-span adds no sync, no ``.item()`` and no host read. To see them,
-profile any step (``torch.profiler.profile`` with the CPU and CUDA
-activities) and export a Chrome trace. Span names never start with
-``cu`` and never look like a Python frame (``file.py(N): name``): the
-benchmark harness (``shufflebench/trace.py``) sorts trace events by
-those patterns.
+:func:`span` is the form for the device steps' hot paths. Each span's
+name is documented where it is opened: the step spans in the docstrings
+of ``models/terasort.py``, ``models/hashjoin.py`` and
+``models/pagerank.py``, ``exchange.a2a`` in ``ops/exchange.py``. A span
+adds no sync, no ``.item()`` and no host read. To see them, profile any
+step (``torch.profiler.profile`` with the CPU and CUDA activities) and
+export a Chrome trace. Span names never start with ``cu`` and never look
+like a Python frame (``file.py(N): name``): the benchmark harness
+(``shufflebench/trace.py``) sorts trace events by those patterns.
 
 Otherwise a copy of the JAX package's ``obs/trace.py``, its imports
 rewritten to this package; merged journal events (``obs/journal.py``)

@@ -1,27 +1,43 @@
-"""Build and bind the package's own CUDA kernels.
+"""Build, bind and launch the package's own CUDA kernels: the one seam
+between an op and a hand-written kernel.
 
-Every ``csrc/*.cu`` file but those of :data:`OWN_LIBRARIES` is compiled
-by its own ``nvcc`` for ``sm_90a`` (all started together; ``csrc/*.cuh``
-are their shared headers), and the objects are linked into one shared
-library with a plain C interface, loaded with ``ctypes``. A library of
-:data:`OWN_LIBRARIES` is built from its own sources alone, beside the
-main one with a stamp of its own, so that a path that needs only it
-(the hash join's pack: :func:`load_radix_pack`) builds one file, in
-seconds, and not every attention kernel; PageRank's CSR pull,
-:func:`load_csr_pull`, likewise. Nothing links ``-lcuda``: the one
-driver function a kernel needs (``cuTensorMapEncodeTiled``, for the
-tensor-core kernels' TMA maps, ``flash_attn_sm90_common.cuh``) is
-reached through the runtime's ``cudaGetDriverEntryPoint``. Each library
-goes to ``build/torch_kernels/`` under the checkout root
-(``libsrt_torch_kernels.so``, ``libsrt_radix_pack.so``,
-``libsrt_csr_pull.so``), beside a stamp
-holding the hash of the sources and headers it was built from; it is
-rebuilt at first use whenever they change. Nothing is built at import
-time.
+:data:`LIBRARIES` declares each shared library: its file, its sources
+under ``csrc/`` by name, and every C function it exports with its ctypes
+``(argtypes, restype)``. Each source is compiled by its own ``nvcc`` for
+``sm_90a`` (all started together; ``csrc/*.cuh`` are their shared
+headers), and the objects are linked into the library, which has a
+plain C interface and is loaded with ``ctypes``. The hash join's pack
+and PageRank's CSR kernels are libraries of their own, so that a path
+that needs only them builds one file, in seconds, and not every
+attention kernel. Nothing links ``-lcuda``: the one driver function a
+kernel needs (``cuTensorMapEncodeTiled``, for the tensor-core kernels'
+TMA maps, ``flash_attn_sm90_common.cuh``) is reached through the
+runtime's ``cudaGetDriverEntryPoint``. Each library goes to
+``build/torch_kernels/`` under the checkout root, beside a stamp holding
+the hash of the sources and headers it was built from; :func:`_load`
+rebuilds it at first use whenever they change. Nothing is built at
+import time.
+
+An op launches a kernel through :func:`launch`, which names the C
+function; the table says which library holds it::
+
+    with _build.launch("srt_csr_pull", dev) as k:
+        k.check(k.fn(outc.data_ptr(), ..., k.stream))
+
+Inside the block the device is current, ``k.fn`` is the bound function
+and ``k.stream`` the device's current stream. ``k.check`` takes back the
+return code: a nonzero one raises ``RuntimeError`` with the library's
+``srt_error_string``, a zero one adds one to :data:`launches` under the
+function's name. The call itself stays in the op's own function: the
+profiler gives a kernel's device time to the innermost package frame
+open at its launch (``shufflebench/trace.py``), so a helper here that
+made the call would take that time from the op.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,20 +46,70 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable, Dict, List, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Tuple
+
+import torch
 
 from sparkrdma_tpu_torch.utils.torch_compat import find_nvcc
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-LIB_NAME = "libsrt_torch_kernels.so"
-# library name -> its sources under csrc/, which the main library leaves out
-OWN_LIBRARIES = {"libsrt_radix_pack.so": ("radix_pack.cu",),
-                 "libsrt_csr_pull.so": ("csr_pull.cu",)}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# (argtypes, restype): pointers, then sizes, then the stream
+_FWD = ((_vp,) * 5 + (_ll,) * 6 + (_vp,), _int)  # q k v out lse
+_BWD_DQ = ((_vp,) * 7 + (_ll,) * 6 + (_vp,), _int)  # q k v do lse delta dq
+_BWD_DKV = ((_vp,) * 8 + (_ll,) * 6 + (_vp,), _int)  # ... dk dv
+_ERROR_STRING = ((_int,), ctypes.c_char_p)
+
+
+class Library(NamedTuple):
+    sources: Tuple[str, ...]  # under csrc/; the stamp also hashes csrc/*.cuh
+    symbols: Dict[str, Tuple[tuple, type]]  # C function -> (argtypes, restype)
+
+
+LIB_NAME = "libsrt_torch_kernels.so"
+LIBRARIES: Dict[str, Library] = {
+    LIB_NAME: Library(
+        ("flash_attn_bwd.cu", "flash_attn_bwd_sm90.cu", "flash_attn_bwd_tf32x3.cu",
+         "flash_attn_fwd.cu", "flash_attn_fwd_sm90.cu", "flash_attn_fwd_tf32x3.cu",
+         "neighbor_pull.cu", "wave_pull.cu"),
+        {"srt_wave_pull": ((_vp, _vp, _ll, _ll, _vp), _int),
+         "srt_pipelined_wave_pull": ((_vp, _vp, _ll, _ll, _ll, _vp), _int),
+         "srt_neighbor_pull": ((_vp, _ll, _ll, _vp), _int),
+         "srt_flash_attn_fwd": _FWD,
+         "srt_flash_attn_fwd_sm90": _FWD,
+         "srt_flash_attn_fwd_tf32x3": _FWD,
+         "srt_flash_attn_bwd_dq": _BWD_DQ,
+         "srt_flash_attn_bwd_dq_sm90": _BWD_DQ,
+         "srt_flash_attn_bwd_dq_tf32x3": _BWD_DQ,
+         "srt_flash_attn_bwd_dkv": _BWD_DKV,
+         "srt_flash_attn_bwd_dkv_sm90": _BWD_DKV,
+         "srt_flash_attn_bwd_dkv_tf32x3": _BWD_DKV,
+         "srt_error_string": _ERROR_STRING}),
+    "libsrt_radix_pack.so": Library(
+        ("radix_pack.cu",),
+        {"srt_radix_pack": ((_vp,) * 7 + (_ll,) * 7 + (_vp,), _int),
+         "srt_radix_pack_scratch": ((_ll,) * 3, _ll),
+         "srt_error_string": _ERROR_STRING}),
+    "libsrt_csr_pull.so": Library(
+        ("csr_pull.cu",),
+        {"srt_csr_tile_steps": ((), _ll),
+         "srt_csr_scratch_bytes": ((_ll,) * 4, _ll),
+         "srt_csr_build": ((_vp,) * 5 + (_ll,) * 5 + (_vp,), _int),
+         "srt_csr_pull": ((_vp,) * 6 + (_ll,) * 3 + (_vp,), _int),
+         "srt_error_string": _ERROR_STRING}),
+}
+# C function -> the library that holds it (each holds its own srt_error_string)
+_LIBRARY_OF = {symbol: name for name, lib in LIBRARIES.items()
+               for symbol in lib.symbols if symbol != "srt_error_string"}
+
+# successful launches by C function, since the last reset_launch_counts()
+launches: "collections.Counter[str]" = collections.Counter()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -52,11 +118,12 @@ _libs: Dict[str, ctypes.CDLL] = {}
 builds: Dict[str, Tuple[float, str]] = {}
 
 
-def _sources(name: str = LIB_NAME) -> List[Path]:
-    if name in OWN_LIBRARIES:
-        return [CSRC / src for src in OWN_LIBRARIES[name]]
-    own = {src for srcs in OWN_LIBRARIES.values() for src in srcs}
-    return sorted(p for p in CSRC.glob("*.cu") if p.name not in own)
+def reset_launch_counts() -> None:
+    launches.clear()
+
+
+def _sources(name: str) -> List[Path]:
+    return [CSRC / src for src in LIBRARIES[name].sources]
 
 
 def sources_hash(name: str = LIB_NAME) -> str:
@@ -113,67 +180,18 @@ def _build(out: Path, digest: str) -> Tuple[float, str]:
     return seconds, "".join(logs)
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.srt_wave_pull.argtypes = [vp, vp, ll, ll, vp]
-    lib.srt_wave_pull.restype = ctypes.c_int
-    lib.srt_pipelined_wave_pull.argtypes = [vp, vp, ll, ll, ll, vp]
-    lib.srt_pipelined_wave_pull.restype = ctypes.c_int
-    lib.srt_neighbor_pull.argtypes = [vp, ll, ll, vp]
-    lib.srt_neighbor_pull.restype = ctypes.c_int
-    lib.srt_flash_attn_fwd.argtypes = [vp, vp, vp, vp, vp,
-                                       ll, ll, ll, ll, ll, ll, vp]
-    lib.srt_flash_attn_fwd.restype = ctypes.c_int
-    lib.srt_flash_attn_fwd_sm90.argtypes = [vp] * 5 + [ll] * 6 + [vp]
-    lib.srt_flash_attn_fwd_sm90.restype = ctypes.c_int
-    lib.srt_flash_attn_fwd_tf32x3.argtypes = [vp] * 5 + [ll] * 6 + [vp]
-    lib.srt_flash_attn_fwd_tf32x3.restype = ctypes.c_int
-    lib.srt_flash_attn_bwd_dq.argtypes = [vp] * 7 + [ll] * 6 + [vp]
-    lib.srt_flash_attn_bwd_dq.restype = ctypes.c_int
-    lib.srt_flash_attn_bwd_dkv.argtypes = [vp] * 8 + [ll] * 6 + [vp]
-    lib.srt_flash_attn_bwd_dkv.restype = ctypes.c_int
-    lib.srt_flash_attn_bwd_dq_sm90.argtypes = [vp] * 7 + [ll] * 6 + [vp]
-    lib.srt_flash_attn_bwd_dq_sm90.restype = ctypes.c_int
-    lib.srt_flash_attn_bwd_dkv_sm90.argtypes = [vp] * 8 + [ll] * 6 + [vp]
-    lib.srt_flash_attn_bwd_dkv_sm90.restype = ctypes.c_int
-    lib.srt_flash_attn_bwd_dq_tf32x3.argtypes = [vp] * 7 + [ll] * 6 + [vp]
-    lib.srt_flash_attn_bwd_dq_tf32x3.restype = ctypes.c_int
-    lib.srt_flash_attn_bwd_dkv_tf32x3.argtypes = [vp] * 8 + [ll] * 6 + [vp]
-    lib.srt_flash_attn_bwd_dkv_tf32x3.restype = ctypes.c_int
-    lib.srt_error_string.argtypes = [ctypes.c_int]
-    lib.srt_error_string.restype = ctypes.c_char_p
+def _bind(lib, name: str):
+    """Set every function of library ``name`` to its table signature."""
+    for symbol, (argtypes, restype) in LIBRARIES[name].symbols.items():
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
-def _bind_radix_pack(lib: ctypes.CDLL) -> ctypes.CDLL:
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.srt_radix_pack.argtypes = [vp] * 7 + [ll] * 7 + [vp]
-    lib.srt_radix_pack.restype = ctypes.c_int
-    lib.srt_radix_pack_scratch.argtypes = [ll, ll, ll]
-    lib.srt_radix_pack_scratch.restype = ll
-    lib.srt_error_string.argtypes = [ctypes.c_int]
-    lib.srt_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _bind_csr_pull(lib: ctypes.CDLL) -> ctypes.CDLL:
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.srt_csr_tile_steps.argtypes = []
-    lib.srt_csr_tile_steps.restype = ll
-    lib.srt_csr_scratch_bytes.argtypes = [ll] * 4
-    lib.srt_csr_scratch_bytes.restype = ll
-    lib.srt_csr_build.argtypes = [vp] * 5 + [ll] * 5 + [vp]
-    lib.srt_csr_build.restype = ctypes.c_int
-    lib.srt_csr_pull.argtypes = [vp] * 6 + [ll] * 3 + [vp]
-    lib.srt_csr_pull.restype = ctypes.c_int
-    lib.srt_error_string.argtypes = [ctypes.c_int]
-    lib.srt_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _load(name: str, bind: Callable[[ctypes.CDLL], ctypes.CDLL]) -> ctypes.CDLL:
-    """Library ``name``, built from the checkout's sources if the library
-    on disk is missing or was built from other sources."""
+def _load(name: str) -> ctypes.CDLL:
+    """Library ``name`` of :data:`LIBRARIES`, bound; built from the
+    checkout's sources if the library on disk is missing or was built
+    from other sources."""
     with _lock:
         if name not in _libs:
             out = BUILD_DIR / name
@@ -182,22 +200,41 @@ def _load(name: str, bind: Callable[[ctypes.CDLL], ctypes.CDLL]) -> ctypes.CDLL:
             if not (out.exists() and stamp.exists()
                     and stamp.read_text() == digest):
                 builds[name] = _build(out, digest)
-            _libs[name] = bind(ctypes.CDLL(str(out)))
+            _libs[name] = _bind(ctypes.CDLL(str(out)), name)
         return _libs[name]
 
 
-def load() -> ctypes.CDLL:
-    """The main kernel library (every kernel but the own libraries')."""
-    return _load(LIB_NAME, _bind)
+class Launch:
+    """A launch site's handle: ``fn``, the bound C function ``symbol``;
+    ``stream``, the device's current stream; ``lib``, its library, for
+    the helper functions beside the kernel (scratch sizes)."""
+
+    __slots__ = ("symbol", "lib", "fn", "stream")
+
+    def __init__(self, symbol: str, lib, stream: int):
+        self.symbol, self.lib, self.stream = symbol, lib, stream
+        self.fn = getattr(lib, symbol)
+
+    def check(self, rc: int) -> None:
+        """Raise on a nonzero return code; count a zero one."""
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: "
+                               f"{self.lib.srt_error_string(rc).decode()} ({rc})")
+        launches[self.symbol] += 1
 
 
-def load_radix_pack() -> ctypes.CDLL:
-    """The hash join's pack, ``srt_radix_pack`` (``csrc/radix_pack.cu``),
-    a library of its own."""
-    return _load("libsrt_radix_pack.so", _bind_radix_pack)
+@contextlib.contextmanager
+def _on_device(symbol: str, device) -> Iterator[Tuple[ctypes.CDLL, int]]:
+    """``symbol``'s library and ``device``'s current stream, with the
+    device current: all that a launch takes from CUDA, and the one point
+    a test's fake library replaces."""
+    lib = _load(_LIBRARY_OF[symbol])
+    with torch.cuda.device(device):
+        yield lib, torch.cuda.current_stream(device).cuda_stream
 
 
-def load_csr_pull() -> ctypes.CDLL:
-    """PageRank's CSR build and pull, ``srt_csr_build`` and
-    ``srt_csr_pull`` (``csrc/csr_pull.cu``), a library of its own."""
-    return _load("libsrt_csr_pull.so", _bind_csr_pull)
+@contextlib.contextmanager
+def launch(symbol: str, device) -> Iterator[Launch]:
+    """The :class:`Launch` of C function ``symbol`` on ``device``."""
+    with _on_device(symbol, device) as (lib, stream):
+        yield Launch(symbol, lib, stream)

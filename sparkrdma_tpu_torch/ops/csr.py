@@ -13,9 +13,9 @@ On CUDA each is one call of the hand-written kernels of
 ``csrc/csr_pull.cu``, a library of its own: the build a two-level
 counting sort by row (buckets of rows, then rows, on shared-memory
 counters) and the pull's merge-path split; the pull one pass and a pass
-of one carry a tile. Nothing is read back to the host. Each build adds
-one to ``csr_build_launches``, each pull one to ``csr_pull_launches``.
-On the CPU they run the plain versions, :func:`csr_build_reference` and
+of one carry a tile. Nothing is read back to the host. Each launch
+counts under its C function in ``_build.launches``. On the CPU they run
+the plain versions, :func:`csr_build_reference` and
 :func:`csr_pull_reference`; nothing falls back. Offsets are int32, or
 int64 where rows and slots together reach 2^31.
 """
@@ -26,13 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-csr_build_launches = 0
-csr_pull_launches = 0
-
-
-def reset_launch_counts() -> None:
-    global csr_build_launches, csr_pull_launches
-    csr_build_launches = csr_pull_launches = 0
+from sparkrdma_tpu_torch.ops import _build
 
 
 class Csr(NamedTuple):
@@ -123,55 +117,35 @@ def csr_pull_reference(outc: torch.Tensor, offsets: torch.Tensor,
         0, row, outc[src[:edges].to(torch.int64)])
 
 
-def _raise_on(lib, code: int, name: str) -> None:
-    if code != 0:
-        raise RuntimeError(
-            f"{name} launch failed: {lib.srt_error_string(code).decode()} ({code})")
-
-
 def _launch_build(packed: torch.Tensor, n_local: int, dtype: torch.dtype) -> Csr:
-    from sparkrdma_tpu_torch.ops import _build
-
-    global csr_build_launches
     e, cap = packed.shape[0], packed.shape[2]
     rows, slots = e * e * n_local, e * e * cap
-    lib = _build.load_csr_pull()
     wide = int(dtype == torch.int64)
-    nbytes = lib.srt_csr_scratch_bytes(e, cap, n_local, wide)
-    if nbytes < 0:
-        raise ValueError(f"srt_csr_build takes no [{e}, {e}, {cap}, 2] blocks of "
-                         f"{n_local} rows")
-    tiles = -(-(rows + slots) // lib.srt_csr_tile_steps())
     dev = packed.device
-    ends = torch.empty((rows + 2,), dtype=dtype, device=dev)
-    src = torch.empty((slots,), dtype=torch.int32, device=dev)
-    coords = torch.empty((tiles + 1, 2), dtype=dtype, device=dev)
-    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(lib, lib.srt_csr_build(
-            packed.data_ptr(), ends.data_ptr(), src.data_ptr(), coords.data_ptr(),
-            scratch.data_ptr(), e, cap, n_local, tiles, wide, stream), "srt_csr_build")
-    csr_build_launches += 1
+    with _build.launch("srt_csr_build", dev) as k:
+        nbytes = k.lib.srt_csr_scratch_bytes(e, cap, n_local, wide)
+        if nbytes < 0:
+            raise ValueError(f"srt_csr_build takes no [{e}, {e}, {cap}, 2] blocks of "
+                             f"{n_local} rows")
+        tiles = -(-(rows + slots) // k.lib.srt_csr_tile_steps())
+        ends = torch.empty((rows + 2,), dtype=dtype, device=dev)
+        src = torch.empty((slots,), dtype=torch.int32, device=dev)
+        coords = torch.empty((tiles + 1, 2), dtype=dtype, device=dev)
+        scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+        k.check(k.fn(packed.data_ptr(), ends.data_ptr(), src.data_ptr(), coords.data_ptr(),
+                     scratch.data_ptr(), e, cap, n_local, tiles, wide, k.stream))
     return Csr(ends[1:], src, coords, e * n_local)
 
 
 def _launch_pull(outc: torch.Tensor, graph: Csr) -> torch.Tensor:
-    from sparkrdma_tpu_torch.ops import _build
-
-    global csr_pull_launches
     if graph.coords is None:
         raise ValueError("csr_pull on CUDA takes a graph that csr_build made there")
-    lib = _build.load_csr_pull()
     rows, tiles = graph.offsets.shape[0] - 1, graph.coords.shape[0] - 1
     dev = outc.device
     y = torch.empty((rows,), dtype=torch.float32, device=dev)
     carry = torch.empty((tiles,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(lib, lib.srt_csr_pull(
-            outc.data_ptr(), graph.offsets.data_ptr(), graph.src.data_ptr(),
-            graph.coords.data_ptr(), carry.data_ptr(), y.data_ptr(), rows, tiles,
-            int(graph.offsets.dtype == torch.int64), stream), "srt_csr_pull")
-    csr_pull_launches += 1
+    with _build.launch("srt_csr_pull", dev) as k:
+        k.check(k.fn(outc.data_ptr(), graph.offsets.data_ptr(), graph.src.data_ptr(),
+                     graph.coords.data_ptr(), carry.data_ptr(), y.data_ptr(), rows, tiles,
+                     int(graph.offsets.dtype == torch.int64), k.stream))
     return y

@@ -56,14 +56,8 @@ probability tiles from ``(q, k, lse)``.
   JAX ``interpret=`` argument has no counterpart: the plain version is
   the port's interpret mode.
 
-Every launch adds one to its kernel's counter: ``flash_fwd_launches``
-(every forward launch, on any kernel), ``flash_fwd_sm90_launches``
-(those of ``srt_flash_attn_fwd_sm90``), ``flash_fwd_tf32x3_launches``
-(those of ``srt_flash_attn_fwd_tf32x3``), ``flash_bwd_dq_launches`` and
-``flash_bwd_dkv_launches`` (every backward launch, on any pair),
-``flash_bwd_dq_sm90_launches`` and ``flash_bwd_dkv_sm90_launches``
-(those of the bf16 tensor-core pair), ``flash_bwd_dq_tf32x3_launches``
-and ``flash_bwd_dkv_tf32x3_launches`` (those of the 3xTF32 pair).
+Every launch counts under its C function in ``_build.launches``; a
+family (every forward, every dq launch) is the sum of its functions.
 """
 
 from __future__ import annotations
@@ -74,38 +68,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from sparkrdma_tpu_torch.ops import _build
+
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256  # the largest D the CUDA kernels take
 SM90_HEAD_DIMS = (64, 128)  # the head dims the tensor-core kernels take
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 PRECISIONS = ("default", "high", "highest")
-
-flash_fwd_launches = 0
-flash_fwd_sm90_launches = 0
-flash_fwd_tf32x3_launches = 0
-flash_bwd_dq_launches = 0
-flash_bwd_dkv_launches = 0
-flash_bwd_dq_sm90_launches = 0
-flash_bwd_dkv_sm90_launches = 0
-flash_bwd_dq_tf32x3_launches = 0
-flash_bwd_dkv_tf32x3_launches = 0
-
-
-def reset_launch_counts() -> None:
-    global flash_fwd_launches, flash_fwd_sm90_launches, flash_fwd_tf32x3_launches
-    global flash_bwd_dq_launches, flash_bwd_dkv_launches
-    global flash_bwd_dq_sm90_launches, flash_bwd_dkv_sm90_launches
-    global flash_bwd_dq_tf32x3_launches, flash_bwd_dkv_tf32x3_launches
-    flash_fwd_launches = 0
-    flash_fwd_sm90_launches = 0
-    flash_fwd_tf32x3_launches = 0
-    flash_bwd_dq_launches = 0
-    flash_bwd_dkv_launches = 0
-    flash_bwd_dq_sm90_launches = 0
-    flash_bwd_dkv_sm90_launches = 0
-    flash_bwd_dq_tf32x3_launches = 0
-    flash_bwd_dkv_tf32x3_launches = 0
-
 
 def resolve_precision(precision, dtype: torch.dtype) -> str:
     """``precision`` as one of :data:`PRECISIONS`: None picks as the JAX
@@ -456,36 +425,22 @@ def bwd_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             want_lse: bool, precision=None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    from sparkrdma_tpu_torch.ops import _build
-
-    global flash_fwd_launches, flash_fwd_sm90_launches, flash_fwd_tf32x3_launches
     b, s, h, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(
             f"head dim {d} exceeds the kernel's maximum of {MAX_HEAD_DIM}"
         )
-    lib = _build.load()
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if want_lse else None)
     if q.numel() == 0:
         return out, lse
-    name = fwd_entry(q, k, v, out, precision)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, name)(
+    with _build.launch(fwd_entry(q, k, v, out, precision), q.device) as kl:
+        kl.check(kl.fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            b, s, h, d, _DTYPE_CODE[q.dtype], int(bool(causal)), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"{name} launch failed: "
-            f"{lib.srt_error_string(rc).decode()} ({rc})"
-        )
-    flash_fwd_launches += 1
-    flash_fwd_sm90_launches += int(name.endswith("_sm90"))
-    flash_fwd_tf32x3_launches += int(name.endswith("_tf32x3"))
+            b, s, h, d, _DTYPE_CODE[q.dtype], int(bool(causal)), kl.stream,
+        ))
     return out, lse
 
 
@@ -522,17 +477,11 @@ def flash_attention_fwd(
 
 
 def _launch_bwd(q, k, v, out, lse, do, causal, precision=None):
-    from sparkrdma_tpu_torch.ops import _build
-
-    global flash_bwd_dq_launches, flash_bwd_dkv_launches
-    global flash_bwd_dq_sm90_launches, flash_bwd_dkv_sm90_launches
-    global flash_bwd_dq_tf32x3_launches, flash_bwd_dkv_tf32x3_launches
     b, s, h, d = q.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(
             f"head dim {d} exceeds the kernel's maximum of {MAX_HEAD_DIM}"
         )
-    lib = _build.load()
     dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format)
                   for x in (q, k, v))
     if q.numel() == 0:
@@ -543,27 +492,10 @@ def _launch_bwd(q, k, v, out, lse, do, causal, precision=None):
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
     sizes = (b, s, h, d, _DTYPE_CODE[q.dtype], int(bool(causal)))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-
-        def call(name, *outs):
-            rc = getattr(lib, name)(*ins, *(x.data_ptr() for x in outs),
-                                    *sizes, stream)
-            if rc != 0:
-                raise RuntimeError(
-                    f"{name} launch failed: "
-                    f"{lib.srt_error_string(rc).decode()} ({rc})"
-                )
-
-        dq_name, dkv_name = bwd_entry(q, k, v, do, dq, dk, dv, precision)
-        call(dq_name, dq)
-        flash_bwd_dq_launches += 1
-        flash_bwd_dq_sm90_launches += int(dq_name.endswith("_sm90"))
-        flash_bwd_dq_tf32x3_launches += int(dq_name.endswith("_tf32x3"))
-        call(dkv_name, dk, dv)
-        flash_bwd_dkv_launches += 1
-        flash_bwd_dkv_sm90_launches += int(dkv_name.endswith("_sm90"))
-        flash_bwd_dkv_tf32x3_launches += int(dkv_name.endswith("_tf32x3"))
+    dq_name, dkv_name = bwd_entry(q, k, v, do, dq, dk, dv, precision)
+    for name, outs in ((dq_name, (dq,)), (dkv_name, (dk, dv))):
+        with _build.launch(name, q.device) as kl:
+            kl.check(kl.fn(*ins, *(x.data_ptr() for x in outs), *sizes, kl.stream))
     return dq, dk, dv
 
 

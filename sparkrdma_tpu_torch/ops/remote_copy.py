@@ -26,9 +26,7 @@ The PyTorch counterpart of the JAX package's ``ops/remote_copy.py``.
   schedule compiler and the per-block planner use off CUDA, each an
   independent copy (``clone``) of the source.
 
-Every wrapper that launches its kernel adds one to its launch count
-(``wave_pull_launches``, ``pipelined_wave_pull_launches``,
-``neighbor_pull_launches``).
+Every launch counts under its C function in ``_build.launches``.
 """
 
 from __future__ import annotations
@@ -38,19 +36,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.ops import _build
 from sparkrdma_tpu_torch.utils.torch_compat import torch_dtype
-
-wave_pull_launches = 0
-pipelined_wave_pull_launches = 0
-neighbor_pull_launches = 0
-
-
-def reset_launch_counts() -> None:
-    global wave_pull_launches, pipelined_wave_pull_launches
-    global neighbor_pull_launches
-    wave_pull_launches = 0
-    pipelined_wave_pull_launches = 0
-    neighbor_pull_launches = 0
 
 
 def _bytes_of(src: torch.Tensor) -> torch.Tensor:
@@ -142,37 +129,19 @@ def _wave_kernel_path(device: torch.device) -> bool:
 def _launch(pipelined: bool, sources, offsets, nbytes, rows_b: int,
             bucket_elems: int, dtype: torch.dtype, depth: int,
             device: torch.device) -> torch.Tensor:
-    from sparkrdma_tpu_torch.ops import _build
-
-    global wave_pull_launches, pipelined_wave_pull_launches
     item = torch.empty((), dtype=dtype).element_size()
     bucket_bytes = bucket_elems * item
     rows_total = depth * rows_b
     table = _check_rows(sources, offsets, nbytes, rows_total, bucket_bytes,
                         device)
-    lib = _build.load()
+    symbol, rows = (("srt_pipelined_wave_pull", (depth, rows_b)) if pipelined
+                    else ("srt_wave_pull", (rows_b,)))
     dst = torch.empty((rows_total, bucket_bytes), dtype=torch.uint8,
                       device=device)
-    dev_table = _upload(table, device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if pipelined:
-        rc = lib.srt_pipelined_wave_pull(
-            dev_table.data_ptr(), dst.data_ptr(), depth, rows_b, bucket_bytes,
-            stream,
-        )
-    else:
-        rc = lib.srt_wave_pull(
-            dev_table.data_ptr(), dst.data_ptr(), rows_b, bucket_bytes, stream,
-        )
-    if rc != 0:
-        name = "srt_pipelined_wave_pull" if pipelined else "srt_wave_pull"
-        raise RuntimeError(
-            f"{name} launch failed: {lib.srt_error_string(rc).decode()} ({rc})"
-        )
-    if pipelined:
-        pipelined_wave_pull_launches += 1
-    else:
-        wave_pull_launches += 1
+    with _build.launch(symbol, device) as k:
+        dev_table = _upload(table, device)
+        k.check(k.fn(dev_table.data_ptr(), dst.data_ptr(), *rows, bucket_bytes,
+                     k.stream))
     return dst.view(dtype).view(depth, rows_b, bucket_elems)
 
 
@@ -389,14 +358,10 @@ def _launch_neighbor_pull(blocks: torch.Tensor, out: torch.Tensor,
     is a tensor, that shard-sized tensor (checked by the caller). The
     kernel writes ``table[i].dst`` from ``table[(i + 1) mod n].src``, so
     the source of row ``i`` sits one entry on."""
-    from sparkrdma_tpu_torch.ops import _build
-
-    global neighbor_pull_launches
     n = blocks.shape[0]
     shard_bytes = _nbytes(blocks) // n if n else 0
     if shard_bytes == 0:
         return out
-    lib = _build.load()
     # one (src, dst) pair per shard: rows of the two stacks, or a receive
     # buffer from another rank (the ring over ranks); another card's
     # peer-mapped rows in the multi-GPU slice (ROADMAP M7)
@@ -407,16 +372,9 @@ def _launch_neighbor_pull(blocks: torch.Tensor, out: torch.Tensor,
         [s.data_ptr() if isinstance(s, torch.Tensor) else base + int(s) * shard_bytes
          for s in sources], dtype=np.uint64), 1)
     table = np.stack([srcs, np.uint64(out.data_ptr()) + rows], axis=1)
-    with torch.cuda.device(blocks.device):
+    with _build.launch("srt_neighbor_pull", blocks.device) as k:
         dev_table = _upload(table, blocks.device)
-        stream = torch.cuda.current_stream(blocks.device).cuda_stream
-        rc = lib.srt_neighbor_pull(dev_table.data_ptr(), n, shard_bytes, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"srt_neighbor_pull launch failed: "
-            f"{lib.srt_error_string(rc).decode()} ({rc})"
-        )
-    neighbor_pull_launches += 1
+        k.check(k.fn(dev_table.data_ptr(), n, shard_bytes, k.stream))
     return out
 
 

@@ -18,8 +18,8 @@ same arguments, results and overflow contract:
   an ``[E, n]`` stack at once. On CUDA it launches the hand-written
   ``srt_radix_pack`` (``csrc/radix_pack.cu``, a library of its own);
   on the CPU it runs :func:`radix_pack_pairs_reference`, the plain
-  version; nothing falls back. Each launch adds one to
-  ``radix_pack_launches``. PageRank's bucketing packs by it too;
+  version; nothing falls back. Each launch counts in
+  ``_build.launches``. PageRank's bucketing packs by it too;
   ``pack_by_partition`` stays the plain op of any ``dest`` (ALS, and
   PageRank's meshes beyond the kernel),
 - ``merge_received``: mask + sort of a received slab,
@@ -44,17 +44,11 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from sparkrdma_tpu_torch.ops import _build
 from sparkrdma_tpu_torch.utils.torch_compat import resolve_device, torch_dtype
 
 _SIGN = -(1 << 31)  # the int32 bit pattern 0x80000000
 RADIX_PACK_MAX_PARTITIONS = 256  # the kernel's per-block histogram
-
-radix_pack_launches = 0
-
-
-def reset_launch_counts() -> None:
-    global radix_pack_launches
-    radix_pack_launches = 0
 
 
 def _ordered(x: torch.Tensor) -> torch.Tensor:
@@ -288,52 +282,21 @@ def radix_pack_pairs(
 
 
 def _launch_radix_pack(keys, vals, p, capacity, key_bits, key_fill, val_fill):
-    from sparkrdma_tpu_torch.ops import _build
-
-    global radix_pack_launches
     e, n = keys.shape
-    lib = _build.load_radix_pack()
     dev = keys.device
-    kslab = torch.empty((e, p, capacity), dtype=torch.int32, device=dev)
-    vslab = torch.empty_like(kslab)
-    counts = torch.empty((e, p), dtype=torch.int32, device=dev)
-    flags = torch.empty((e,), dtype=torch.bool, device=dev)
-    scratch = torch.empty((lib.srt_radix_pack_scratch(e, n, p),), dtype=torch.int32,
-                          device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.srt_radix_pack(
+    with _build.launch("srt_radix_pack", dev) as k:
+        kslab = torch.empty((e, p, capacity), dtype=torch.int32, device=dev)
+        vslab = torch.empty_like(kslab)
+        counts = torch.empty((e, p), dtype=torch.int32, device=dev)
+        flags = torch.empty((e,), dtype=torch.bool, device=dev)
+        scratch = torch.empty((k.lib.srt_radix_pack_scratch(e, n, p),),
+                              dtype=torch.int32, device=dev)
+        k.check(k.fn(
             keys.data_ptr(), vals.data_ptr(), kslab.data_ptr(), vslab.data_ptr(),
             counts.data_ptr(), flags.data_ptr(), scratch.data_ptr(), e, n, p,
             key_bits, capacity, _bits_scalar(key_fill, torch.uint32), val_fill,
-            stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"srt_radix_pack launch failed: {lib.srt_error_string(rc).decode()} ({rc})")
-    radix_pack_launches += 1
+            k.stream))
     return kslab.view(torch.uint32), vslab, counts, flags
-
-
-def _slab_from_starts(sorted_keys: torch.Tensor, starts: torch.Tensor,
-                      capacity: int, fill: int):
-    """Rows ``sorted_keys[starts[e] : starts[e] + capacity]`` past the run
-    ends filled with ``fill``, plus the run counts and overflow flag."""
-    n = sorted_keys.shape[0]
-    dev = sorted_keys.device
-    ends = torch.cat([starts[1:], torch.tensor([n], dtype=torch.int32, device=dev)])
-    counts = ends - starts
-    overflowed = torch.any(counts > capacity)
-    bits = _bits(sorted_keys)
-    fill_bits = _bits_scalar(fill, sorted_keys.dtype)
-    padded = torch.cat(
-        [bits, torch.full((capacity,), fill_bits, dtype=bits.dtype, device=dev)]
-    )
-    col = torch.arange(capacity, dtype=torch.int64, device=dev)
-    slab = padded[starts.to(torch.int64)[:, None] + col[None, :]]
-    valid = col[None, :] < counts[:, None]
-    slab = torch.where(valid, slab, torch.full_like(slab, fill_bits))
-    return (_from_bits(slab, sorted_keys.dtype),
-            torch.clamp(counts, max=capacity), overflowed)
 
 
 def split_sorted(
@@ -354,12 +317,8 @@ def split_sorted(
         [_bits_scalar(e << shift, sorted_keys.dtype) for e in range(1, p)],
         dtype=_bits(sorted_keys).dtype, device=sorted_keys.device,
     )
-    edges = _from_bits(edges, sorted_keys.dtype)
-    starts = torch.cat([
-        torch.zeros((1,), dtype=torch.int32, device=sorted_keys.device),
-        searchsorted(sorted_keys, edges),
-    ])
-    return _slab_from_starts(sorted_keys, starts, capacity, fill)
+    return split_sorted_edges(sorted_keys, _from_bits(edges, sorted_keys.dtype),
+                              capacity, fill)
 
 
 def split_sorted_edges(
@@ -369,11 +328,26 @@ def split_sorted_edges(
     """:func:`split_sorted` with the range edges given: an ascending
     ``[P-1]`` tensor of the keys' dtype; partition ``e`` owns keys in
     ``[edges[e-1], edges[e])``. ``P`` need not be a power of two."""
+    n = sorted_keys.shape[0]
+    dev = sorted_keys.device
     starts = torch.cat([
-        torch.zeros((1,), dtype=torch.int32, device=sorted_keys.device),
+        torch.zeros((1,), dtype=torch.int32, device=dev),
         searchsorted(sorted_keys, edges),
     ])
-    return _slab_from_starts(sorted_keys, starts, capacity, fill)
+    ends = torch.cat([starts[1:], torch.tensor([n], dtype=torch.int32, device=dev)])
+    counts = ends - starts
+    overflowed = torch.any(counts > capacity)
+    bits = _bits(sorted_keys)
+    fill_bits = _bits_scalar(fill, sorted_keys.dtype)
+    padded = torch.cat(
+        [bits, torch.full((capacity,), fill_bits, dtype=bits.dtype, device=dev)]
+    )
+    col = torch.arange(capacity, dtype=torch.int64, device=dev)
+    slab = padded[starts.to(torch.int64)[:, None] + col[None, :]]
+    valid = col[None, :] < counts[:, None]
+    slab = torch.where(valid, slab, torch.full_like(slab, fill_bits))
+    return (_from_bits(slab, sorted_keys.dtype),
+            torch.clamp(counts, max=capacity), overflowed)
 
 
 def merge_received(

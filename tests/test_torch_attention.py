@@ -8,9 +8,7 @@ order); bf16 out 1e-2 / 1e-2 (the output rounds to bf16, whose unit step
 at 1.0 is 2^-7)."""
 
 import contextlib
-import ctypes
 import math
-import types
 
 import jax
 import jax.numpy as jnp
@@ -70,7 +68,7 @@ def test_flash_matches_jax_kernel(case):
     arrays = _inputs(b, s, h, d, seed=len(case))
     want, want_lse = _jax_fwd(arrays, causal, bq, bk)
     q, k, v = (torch.from_numpy(x) for x in arrays)
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     out = tpa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
     out2, lse = tpa.flash_attention_fwd(q, k, v, causal, bq, bk, want_lse=True)
     assert out.shape == q.shape and out.dtype == torch.float32
@@ -80,7 +78,7 @@ def test_flash_matches_jax_kernel(case):
     np.testing.assert_allclose(lse.numpy(),
                                _jax_lse(want_lse, b, h, s, bq, bk), **LSE_TOL)
     # on the CPU the wrapper runs the plain version and launches nothing
-    assert tpa.flash_fwd_launches == 0
+    assert not _build.launches
 
 
 def test_flash_bf16_matches_jax_kernel():
@@ -190,12 +188,10 @@ class _FakeLib:
 @pytest.fixture
 def kernel_path(monkeypatch):
     monkeypatch.setattr(tpa, "_kernel_path", lambda q: True)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
 
     def use(load):
-        monkeypatch.setattr(_build, "load", load)
+        monkeypatch.setattr(_build, "_on_device",
+                            lambda symbol, device: contextlib.nullcontext((load(), 77)))
 
     return use
 
@@ -207,7 +203,7 @@ def test_kernel_launch_arguments(kernel_path, causal, want_lse, dtype):
     lib = _FakeLib(0)
     kernel_path(lambda: lib)
     q, k, v = (torch.from_numpy(x).to(dtype) for x in _inputs(2, 24, 3, 16, 4))
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     out, lse = tpa.flash_attention_fwd(q, k, v, causal, want_lse=want_lse)
     (args,) = lib.calls
     assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
@@ -215,7 +211,7 @@ def test_kernel_launch_arguments(kernel_path, causal, want_lse, dtype):
     assert args[5:] == (2, 24, 3, 16, int(dtype == torch.bfloat16), int(causal), 77)
     assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
     assert (lse is not None) == want_lse
-    assert tpa.flash_fwd_launches == 1
+    assert _build.launches == {"srt_flash_attn_fwd": 1}  # D 16: the SIMT kernel
 
 
 def test_kernel_errors_propagate(kernel_path):
@@ -226,12 +222,12 @@ def test_kernel_errors_propagate(kernel_path):
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 16, 2, 8, seed=5))
     lib = _FakeLib(1)
     kernel_path(lambda: lib)
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     with pytest.raises(RuntimeError, match="srt_flash_attn_fwd launch failed"):
         tpa.flash_attention(q, k, v)
     with pytest.raises(RuntimeError, match="launch failed"):
         UlyssesAttention(device="cpu")(q, k, v)
-    assert tpa.flash_fwd_launches == 0
+    assert not _build.launches
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")
@@ -250,22 +246,6 @@ def test_head_dim_above_the_kernel_maximum_raises(kernel_path):
     assert lib.calls == []
 
 
-def test_binding_passes_pointers_as_void_p():
-    fns = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-           "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90", "srt_flash_attn_fwd_tf32x3",
-           "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
-           "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
-           "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3",
-           "srt_error_string")
-    lib = _build._bind(types.SimpleNamespace(
-        **{f: types.SimpleNamespace() for f in fns}))
-    for fa in (lib.srt_flash_attn_fwd, lib.srt_flash_attn_fwd_sm90):
-        assert fa.argtypes[:5] == [ctypes.c_void_p] * 5
-        assert fa.argtypes[5:11] == [ctypes.c_longlong] * 6
-        assert fa.argtypes[11] is ctypes.c_void_p and len(fa.argtypes) == 12
-        assert fa.restype is ctypes.c_int
-
-
 # ----------------------------------------------------------------------
 # the route between the two forward kernels, chosen before the launch
 # ----------------------------------------------------------------------
@@ -279,7 +259,7 @@ def test_bf16_route_takes_the_tensor_core_kernel(kernel_path, d, causal, want_ls
     lib = _FakeLib(0)
     kernel_path(lambda: lib)
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(2, 24, 3, d, 8))
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     out, lse = tpa.flash_attention_fwd(q, k, v, causal, want_lse=want_lse)
     assert lib.entries == ["srt_flash_attn_fwd_sm90"]
     (args,) = lib.calls
@@ -287,7 +267,7 @@ def test_bf16_route_takes_the_tensor_core_kernel(kernel_path, d, causal, want_ls
                     lse.data_ptr() if want_lse else None, 2, 24, 3, d, 1,
                     int(causal), 77)
     assert out.dtype == torch.bfloat16 and (lse is not None) == want_lse
-    assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches) == (1, 1)
+    assert _build.launches == {"srt_flash_attn_fwd_sm90": 1}
 
 
 @pytest.mark.parametrize("case", ["fp32", "fp32_misaligned_q", "bf16_d20",
@@ -307,13 +287,12 @@ def test_other_inputs_take_the_simt_kernel(kernel_path, case):
         qm.copy_(q)
         q = qm
         assert q.is_contiguous() and q.data_ptr() % 16 != 0
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     out, _ = tpa.flash_attention_fwd(q, k, v, True)
     assert lib.entries == ["srt_flash_attn_fwd"]
     assert lib.calls[0][0] == q.data_ptr()  # the view itself, not a copy
     assert tpa.fwd_entry(q, k, v, out) == "srt_flash_attn_fwd"
-    assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches,
-            tpa.flash_fwd_tf32x3_launches) == (1, 0, 0)
+    assert _build.launches == {"srt_flash_attn_fwd": 1}
 
 
 def test_tensor_core_kernel_errors_raise_without_retry(kernel_path):
@@ -323,11 +302,11 @@ def test_tensor_core_kernel_errors_raise_without_retry(kernel_path):
     kernel_path(lambda: lib)
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
                for x in _inputs(1, 16, 2, 64, 10))
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     with pytest.raises(RuntimeError, match="srt_flash_attn_fwd_sm90 launch failed"):
         tpa.flash_attention(q, k, v, causal=True)
     assert lib.entries == ["srt_flash_attn_fwd_sm90"]
-    assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches) == (0, 0)
+    assert not _build.launches
 
 
 # ----------------------------------------------------------------------

@@ -10,7 +10,6 @@ kernel library that records the ctypes arguments."""
 
 import contextlib
 import ctypes
-import types
 
 import jax
 import jax.numpy as jnp
@@ -69,14 +68,13 @@ def test_grads_match_jax_vjp(geometry, causal):
     b, s, h, d, bq, bk = GEOMETRIES[geometry]
     arrays = _inputs(b, s, h, d, seed=len(geometry) + causal)
     want = _jax_grads(arrays, causal, bq, bk)
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     got = _port_grads(arrays, causal, bq, bk)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == (b, s, h, d) and g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), w, **F32_TOL, err_msg=name)
     # on the CPU the wrappers run the plain versions and launch nothing
-    assert (tpa.flash_fwd_launches, tpa.flash_bwd_dq_launches,
-            tpa.flash_bwd_dkv_launches) == (0, 0, 0)
+    assert not _build.launches
 
 
 def test_bf16_grads_match_jax_vjp():
@@ -196,12 +194,10 @@ class _FakeLib:
 @pytest.fixture
 def kernel_path(monkeypatch):
     monkeypatch.setattr(tpa, "_kernel_path", lambda q: True)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
 
     def use(lib):
-        monkeypatch.setattr(_build, "load", lambda: lib)
+        monkeypatch.setattr(_build, "_on_device",
+                            lambda symbol, device: contextlib.nullcontext((lib, 77)))
         return lib
 
     return use
@@ -214,7 +210,7 @@ def test_bwd_launch_arguments(kernel_path, causal, dtype):
     q, k, v, do, out = (torch.from_numpy(x).to(dtype)
                         for x in _inputs(2, 24, 3, 16, seed=4, n=5))
     lse = torch.randn(2, 3, 24)
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     dq, dk, dv = tpa.flash_attention_bwd(q, k, v, out, lse, do, causal)
     assert lib.names() == ["srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv"]
     (_, a_dq), (_, a_dkv) = lib.calls
@@ -229,7 +225,7 @@ def test_bwd_launch_arguments(kernel_path, causal, dtype):
     # delta = rowsum(do * out) in f32 from `out` as given (bf16: rounded)
     want = torch.einsum("bshd,bshd->bhs", do.float(), out.float()).numpy()
     np.testing.assert_allclose(lib.deltas[0], want, rtol=1e-6, atol=1e-6)
-    assert (tpa.flash_bwd_dq_launches, tpa.flash_bwd_dkv_launches) == (1, 1)
+    assert _build.launches == {"srt_flash_attn_bwd_dq": 1, "srt_flash_attn_bwd_dkv": 1}
 
 
 def test_strided_do_is_made_contiguous(kernel_path):
@@ -256,16 +252,16 @@ def test_autograd_through_the_kernel_path(kernel_path):
     dq, dk, dv = tpa.flash_attention_bwd_reference(q, k, v, out, lse, ct, True)
     lib = kernel_path(_FakeLib(dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)))
 
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     with torch.no_grad():
         tpa.flash_attention(q, k, v, causal=True)
     tpa.flash_attention(q, k, v, causal=True)  # nothing requires grad
     assert lib.names() == ["srt_flash_attn_fwd"] * 2
     assert all(args[4] is None for _, args in lib.calls)  # no lse
-    assert tpa.flash_fwd_launches == 2
+    assert _build.launches == {"srt_flash_attn_fwd": 2}
 
     lib.calls.clear()
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
     got = tpa.flash_attention(qg, kg, vg, causal=True)
     torch.testing.assert_close(got, out, rtol=0, atol=0)
@@ -273,8 +269,8 @@ def test_autograd_through_the_kernel_path(kernel_path):
     got.backward(ct.transpose(1, 2).contiguous().transpose(1, 2))  # strided
     assert lib.names() == ["srt_flash_attn_fwd", "srt_flash_attn_bwd_dq",
                            "srt_flash_attn_bwd_dkv"]
-    assert (tpa.flash_fwd_launches, tpa.flash_bwd_dq_launches,
-            tpa.flash_bwd_dkv_launches) == (1, 1, 1)
+    assert _build.launches == {"srt_flash_attn_fwd": 1, "srt_flash_attn_bwd_dq": 1,
+                               "srt_flash_attn_bwd_dkv": 1}
     for g, w in ((qg.grad, dq), (kg.grad, dk), (vg.grad, dv)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
@@ -284,12 +280,12 @@ def test_autograd_through_the_kernel_path(kernel_path):
 def test_bwd_kernel_errors_propagate(kernel_path, failing):
     lib = kernel_path(_FakeLib(rc={failing: 1}))
     q, k, v, do, out = (torch.from_numpy(x) for x in _inputs(1, 16, 2, 8, 5, n=5))
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     with pytest.raises(RuntimeError, match=f"{failing} launch failed"):
         tpa.flash_attention_bwd(q, k, v, out, torch.zeros(1, 2, 16), do)
     dq_ok = failing == "srt_flash_attn_bwd_dkv"
-    assert tpa.flash_bwd_dq_launches == int(dq_ok)
-    assert tpa.flash_bwd_dkv_launches == 0
+    assert _build.launches["srt_flash_attn_bwd_dq"] == int(dq_ok)
+    assert _build.launches["srt_flash_attn_bwd_dkv"] == 0
     assert lib.names()[-1] == failing
 
 
@@ -299,20 +295,3 @@ def test_bwd_head_dim_above_the_kernel_maximum_raises(kernel_path):
     with pytest.raises(ValueError, match="head dim"):
         tpa.flash_attention_bwd(x, x, x, x, torch.zeros(1, 1, 4), x)
     assert lib.calls == []
-
-
-def test_binding_declares_bwd_pointers_void_p():
-    fns = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-           "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90", "srt_flash_attn_fwd_tf32x3",
-           "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
-           "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
-           "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3",
-           "srt_error_string")
-    lib = _build._bind(types.SimpleNamespace(
-        **{f: types.SimpleNamespace() for f in fns}))
-    for name, n_ptr in (("srt_flash_attn_bwd_dq", 7), ("srt_flash_attn_bwd_dkv", 8)):
-        fn = getattr(lib, name)
-        assert fn.argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr
-        assert fn.argtypes[n_ptr:n_ptr + 6] == [ctypes.c_longlong] * 6
-        assert fn.argtypes[-1] is ctypes.c_void_p and len(fn.argtypes) == n_ptr + 7
-        assert fn.restype is ctypes.c_int

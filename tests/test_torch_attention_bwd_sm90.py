@@ -16,7 +16,6 @@ its arithmetic, on the CPU.
 
 import contextlib
 import ctypes
-import types
 
 import jax
 import jax.numpy as jnp
@@ -34,12 +33,6 @@ BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 SM90 = ("srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90")
 SIMT = ("srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv")
 TF32X3 = ("srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3")
-BOUND = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-         "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90", "srt_flash_attn_fwd_tf32x3",
-         "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
-         "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
-         "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3",
-         "srt_error_string")
 
 
 def _inputs(b, s, h, d, seed, n=4):
@@ -146,32 +139,30 @@ class _FakeLib:
 @pytest.fixture
 def kernel_path(monkeypatch):
     monkeypatch.setattr(tpa, "_kernel_path", lambda q: True)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
 
     def use(lib):
-        monkeypatch.setattr(_build, "load", lambda: lib)
+        monkeypatch.setattr(_build, "_on_device",
+                            lambda symbol, device: contextlib.nullcontext((lib, 77)))
         return lib
 
     return use
 
 
 def _counts():
-    return (tpa.flash_bwd_dq_launches, tpa.flash_bwd_dkv_launches,
-            tpa.flash_bwd_dq_sm90_launches, tpa.flash_bwd_dkv_sm90_launches)
+    """Launches of the SIMT pair, then of the tensor-core pair."""
+    return tuple(_build.launches[s] for s in SIMT + SM90)
 
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [64, 128])
 def test_sm90_launch_arguments_and_counters(kernel_path, d, causal):
     """bf16 with D 64 or 128 reaches the tensor-core pair with the SIMT
-    pair's argument lists; every counter of the pair goes up by one."""
+    pair's argument lists; each of the pair counts one launch."""
     lib = kernel_path(_FakeLib())
     q, k, v, do, out = (torch.from_numpy(x).to(torch.bfloat16)
                         for x in _inputs(2, 24, 3, d, seed=4, n=5))
     lse = torch.randn(2, 3, 24)
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     dq, dk, dv = tpa.flash_attention_bwd(q, k, v, out, lse, do, causal)
     assert lib.names() == list(SM90)
     (_, a_dq), (_, a_dkv) = lib.calls
@@ -183,7 +174,7 @@ def test_sm90_launch_arguments_and_counters(kernel_path, d, causal):
     assert a_dkv[6:] == (dk.data_ptr(), dv.data_ptr()) + tail
     for g, like in zip((dq, dk, dv), (q, k, v)):
         assert g.shape == like.shape and g.dtype == torch.bfloat16 and g.is_contiguous()
-    assert _counts() == (1, 1, 1, 1)
+    assert _counts() == (0, 0, 1, 1)
 
 
 @pytest.mark.parametrize("case", ["fp32", "bf16_d32", "bf16_misaligned_do"])
@@ -197,7 +188,7 @@ def test_other_inputs_keep_the_simt_pair(kernel_path, case):
                         for x in _inputs(1, 16, 2, d, seed=5, n=5))
     if case == "bf16_misaligned_do":
         do = _misaligned(do)
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     tpa.flash_attention_bwd(q, k, v, out, torch.zeros(1, 2, 16), do, True)
     assert lib.names() == list(SIMT)
     assert lib.calls[0][1][3] == do.data_ptr()  # the view itself, not a copy
@@ -209,24 +200,12 @@ def test_sm90_launch_failure_raises_without_simt_retry(kernel_path, failing):
     lib = kernel_path(_FakeLib(rc={failing: 1}))
     q, k, v, do, out = (torch.from_numpy(x).to(torch.bfloat16)
                         for x in _inputs(1, 16, 2, 64, seed=6, n=5))
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     with pytest.raises(RuntimeError, match=f"{failing} launch failed"):
         tpa.flash_attention_bwd(q, k, v, out, torch.zeros(1, 2, 16), do)
     assert lib.names() == list(SM90[:SM90.index(failing) + 1])
     dq_ok = failing == SM90[1]
-    assert _counts() == (int(dq_ok), 0, int(dq_ok), 0)
-
-
-def test_binding_declares_every_symbol():
-    lib = _build._bind(types.SimpleNamespace(
-        **{f: types.SimpleNamespace() for f in BOUND}))
-    for name, n_ptr in ((SM90[0], 7), (SM90[1], 8)):
-        fn = getattr(lib, name)
-        assert fn.argtypes == getattr(lib, name[:-5]).argtypes
-        assert fn.argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr
-        assert fn.argtypes[n_ptr:n_ptr + 6] == [ctypes.c_longlong] * 6
-        assert fn.argtypes[-1] is ctypes.c_void_p and len(fn.argtypes) == n_ptr + 7
-        assert fn.restype is ctypes.c_int
+    assert _counts() == (0, 0, int(dq_ok), 0)
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -239,15 +218,16 @@ def test_autograd_through_the_sm90_kernel_path(kernel_path, d):
     out, lse = tpa.flash_attention_reference(q, k, v, True, want_lse=True)
     dq, dk, dv = tpa.flash_attention_bwd_sm90_reference(q, k, v, out, lse, ct, True)
     lib = kernel_path(_FakeLib(dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)))
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
     got = tpa.flash_attention(qg, kg, vg, causal=True)
     torch.testing.assert_close(got, out, rtol=0, atol=0)
     got.backward(ct.transpose(1, 2).contiguous().transpose(1, 2))  # strided
     assert lib.names() == ["srt_flash_attn_fwd_sm90", *SM90]
     assert lib.calls[0][1][4] is not None  # training: the lse variant
-    assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches) == (1, 1)
-    assert _counts() == (1, 1, 1, 1)
+    assert (_build.launches["srt_flash_attn_fwd"],
+            _build.launches["srt_flash_attn_fwd_sm90"]) == (0, 1)
+    assert _counts() == (0, 0, 1, 1)
     for g, w in ((qg.grad, dq), (kg.grad, dk), (vg.grad, dv)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 

@@ -21,7 +21,6 @@ and its arithmetic, on the CPU.
 import contextlib
 import ctypes
 import functools
-import types
 
 import jax
 import jax.numpy as jnp
@@ -38,12 +37,7 @@ torch.set_num_threads(1)
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 TF32X3 = ("srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3")
 SIMT = ("srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv")
-BOUND = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-         "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90", "srt_flash_attn_fwd_tf32x3",
-         "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
-         "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
-         "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3",
-         "srt_error_string")
+SM90 = ("srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90")
 
 
 def _inputs(b, s, h, d, seed, n=4):
@@ -261,32 +255,29 @@ class _FakeLib:
 @pytest.fixture
 def kernel_path(monkeypatch):
     monkeypatch.setattr(tpa, "_kernel_path", lambda q: True)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
 
     def use(lib):
-        monkeypatch.setattr(_build, "load", lambda: lib)
+        monkeypatch.setattr(_build, "_on_device",
+                            lambda symbol, device: contextlib.nullcontext((lib, 77)))
         return lib
 
     return use
 
 
 def _counts():
-    return (tpa.flash_bwd_dq_launches, tpa.flash_bwd_dkv_launches,
-            tpa.flash_bwd_dq_sm90_launches, tpa.flash_bwd_dkv_sm90_launches,
-            tpa.flash_bwd_dq_tf32x3_launches, tpa.flash_bwd_dkv_tf32x3_launches)
+    """Launches of the SIMT, the tensor-core and the 3xTF32 pair."""
+    return tuple(_build.launches[s] for s in SIMT + SM90 + TF32X3)
 
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [64, 128])
 def test_tf32x3_launch_arguments_and_counters(kernel_path, d, causal):
     """fp32 with D 64 or 128 reaches the 3xTF32 pair with the SIMT pair's
-    argument lists; the pair's counters and the totals go up by one."""
+    argument lists; each of the pair counts one launch."""
     lib = kernel_path(_FakeLib())
     q, k, v, do, out = (torch.from_numpy(x) for x in _inputs(2, 24, 3, d, seed=4, n=5))
     lse = torch.randn(2, 3, 24)
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     dq, dk, dv = tpa.flash_attention_bwd(q, k, v, out, lse, do, causal)
     assert lib.names() == list(TF32X3)
     (_, a_dq), (_, a_dkv) = lib.calls
@@ -299,28 +290,19 @@ def test_tf32x3_launch_arguments_and_counters(kernel_path, d, causal):
     for g, like in zip((dq, dk, dv), (q, k, v)):
         assert g.shape == like.shape and g.dtype == torch.float32 and g.is_contiguous()
         assert g.data_ptr() % 16 == 0
-    assert _counts() == (1, 1, 0, 0, 1, 1)
+    assert _counts() == (0, 0, 0, 0, 1, 1)
 
 
 @pytest.mark.parametrize("failing", TF32X3)
 def test_tf32x3_launch_failure_raises_without_simt_retry(kernel_path, failing):
     lib = kernel_path(_FakeLib(rc={failing: 1}))
     q, k, v, do, out = (torch.from_numpy(x) for x in _inputs(1, 16, 2, 64, seed=6, n=5))
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     with pytest.raises(RuntimeError, match=f"{failing} launch failed"):
         tpa.flash_attention_bwd(q, k, v, out, torch.zeros(1, 2, 16), do)
     assert lib.names() == list(TF32X3[:TF32X3.index(failing) + 1])
     dq_ok = int(failing == TF32X3[1])
-    assert _counts() == (dq_ok, 0, 0, 0, dq_ok, 0)
-
-
-def test_binding_declares_the_tf32x3_symbols():
-    lib = _build._bind(types.SimpleNamespace(
-        **{f: types.SimpleNamespace() for f in BOUND}))
-    for name, simt in zip(TF32X3, SIMT):
-        fn = getattr(lib, name)
-        assert fn.argtypes == getattr(lib, simt).argtypes
-        assert fn.restype is ctypes.c_int
+    assert _counts() == (0, 0, 0, 0, dq_ok, 0)
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -333,15 +315,15 @@ def test_autograd_through_the_tf32x3_kernel_path(kernel_path, d):
     out, lse = tpa.flash_attention_reference(q, k, v, True, want_lse=True)
     dq, dk, dv = tpa.flash_attention_bwd_tf32x3_reference(q, k, v, out, lse, ct, True)
     lib = kernel_path(_FakeLib(dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)))
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
     got = tpa.flash_attention(qg, kg, vg, causal=True)
     torch.testing.assert_close(got, out, rtol=0, atol=0)
     got.backward(ct.transpose(1, 2).contiguous().transpose(1, 2))  # strided
     assert lib.names() == ["srt_flash_attn_fwd_tf32x3", *TF32X3]
     assert lib.calls[0][1][4] is not None  # training: the lse variant
-    assert (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches,
-            tpa.flash_fwd_tf32x3_launches) == (1, 0, 1)
-    assert _counts() == (1, 1, 0, 0, 1, 1)
+    assert (_build.launches["srt_flash_attn_fwd"], _build.launches["srt_flash_attn_fwd_sm90"],
+            _build.launches["srt_flash_attn_fwd_tf32x3"]) == (0, 0, 1)
+    assert _counts() == (0, 0, 0, 0, 1, 1)
     for g, w in ((qg.grad, dq), (kg.grad, dk), (vg.grad, dv)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -18,7 +18,6 @@
 import contextlib
 import ctypes
 import functools
-import types
 
 import jax
 import jax.numpy as jnp
@@ -38,12 +37,6 @@ TF32X3 = "srt_flash_attn_fwd_tf32x3"
 SIMT = "srt_flash_attn_fwd"
 SM90 = "srt_flash_attn_fwd_sm90"
 BWD_TF32X3 = ["srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3"]
-BOUND = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-         "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90", "srt_flash_attn_fwd_tf32x3",
-         "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
-         "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
-         "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3",
-         "srt_error_string")
 
 
 def _inputs(b, s, h, d, seed, n=3):
@@ -209,20 +202,18 @@ class _FakeLib:
 @pytest.fixture
 def kernel_path(monkeypatch):
     monkeypatch.setattr(tpa, "_kernel_path", lambda q: True)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
 
     def use(lib):
-        monkeypatch.setattr(_build, "load", lambda: lib)
+        monkeypatch.setattr(_build, "_on_device",
+                            lambda symbol, device: contextlib.nullcontext((lib, 77)))
         return lib
 
     return use
 
 
 def _counts():
-    return (tpa.flash_fwd_launches, tpa.flash_fwd_sm90_launches,
-            tpa.flash_fwd_tf32x3_launches)
+    """Launches of the SIMT, the tensor-core and the 3xTF32 forward."""
+    return tuple(_build.launches[s] for s in (SIMT, SM90, TF32X3))
 
 
 @pytest.mark.parametrize("want_lse", [False, True])
@@ -230,11 +221,10 @@ def _counts():
 @pytest.mark.parametrize("d", [64, 128])
 def test_tf32x3_launch_arguments_and_counters(kernel_path, d, causal, want_lse):
     """fp32 with D 64 or 128 reaches the 3xTF32 kernel with the SIMT
-    kernel's argument tuple; the total and the tf32x3 counter go up by
-    one."""
+    kernel's argument tuple; it counts one launch."""
     lib = kernel_path(_FakeLib())
     q, k, v = (torch.from_numpy(x) for x in _inputs(2, 24, 3, d, seed=8))
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     out, lse = tpa.flash_attention_fwd(q, k, v, causal, want_lse=want_lse)
     assert lib.names() == [TF32X3]
     (_, args), = lib.calls
@@ -243,7 +233,7 @@ def test_tf32x3_launch_arguments_and_counters(kernel_path, d, causal, want_lse):
                     int(causal), 77)
     assert out.shape == q.shape and out.dtype == torch.float32 and out.is_contiguous()
     assert out.data_ptr() % 16 == 0 and (lse is not None) == want_lse
-    assert _counts() == (1, 0, 1)
+    assert _counts() == (0, 0, 1)
 
 
 def test_tf32x3_launch_failure_raises_without_simt_retry(kernel_path):
@@ -252,20 +242,11 @@ def test_tf32x3_launch_failure_raises_without_simt_retry(kernel_path):
     moves."""
     lib = kernel_path(_FakeLib(rc={TF32X3: 1}))
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 16, 2, 64, seed=10))
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     with pytest.raises(RuntimeError, match=f"{TF32X3} launch failed"):
         tpa.flash_attention(q, k, v, causal=True)
     assert lib.names() == [TF32X3]
     assert _counts() == (0, 0, 0)
-
-
-def test_binding_declares_the_tf32x3_forward():
-    lib = _build._bind(types.SimpleNamespace(
-        **{f: types.SimpleNamespace() for f in BOUND}))
-    fn = lib.srt_flash_attn_fwd_tf32x3
-    assert fn.argtypes == lib.srt_flash_attn_fwd.argtypes
-    assert fn.argtypes == [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
-    assert fn.restype is ctypes.c_int
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -278,20 +259,20 @@ def test_autograd_through_the_tf32x3_kernels(kernel_path, d):
     dq, dk, dv = tpa.flash_attention_bwd_tf32x3_reference(q, k, v, out, lse, ct, True)
     lib = kernel_path(_FakeLib(dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)))
 
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     with torch.no_grad():
         got = tpa.flash_attention(q, k, v, causal=True)
     assert lib.names() == [TF32X3] and lib.calls[0][1][4] is None  # no lse
     torch.testing.assert_close(got, out, rtol=0, atol=0)
 
     lib.calls.clear()
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
     got = tpa.flash_attention(qg, kg, vg, causal=True)
     assert lib.calls[0][1][4] is not None  # training: the lse variant
     got.backward(ct)
     assert lib.names() == [TF32X3, *BWD_TF32X3]
-    assert _counts() == (1, 0, 1)
-    assert (tpa.flash_bwd_dq_tf32x3_launches, tpa.flash_bwd_dkv_tf32x3_launches) == (1, 1)
+    assert _counts() == (0, 0, 1)
+    assert [_build.launches[s] for s in BWD_TF32X3] == [1, 1]
     for g, w in ((qg.grad, dq), (kg.grad, dk), (vg.grad, dv)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -17,7 +17,6 @@ configuration of the port's flash attention.
 import contextlib
 import pathlib
 import re
-import types
 
 import jax
 import jax.numpy as jnp
@@ -124,10 +123,8 @@ class _FakeLib:
 def fake_lib(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(tpa, "_kernel_path", lambda q: True)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
-    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "_on_device",
+                        lambda symbol, device: contextlib.nullcontext((lib, 77)))
     return lib
 
 

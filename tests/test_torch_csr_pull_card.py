@@ -22,7 +22,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from sparkrdma_tpu_torch.ops import csr
+from sparkrdma_tpu_torch.ops import _build, csr
 
 pytestmark = pytest.mark.card
 
@@ -38,9 +38,12 @@ def card():
 
 
 def _tile_steps():
-    from sparkrdma_tpu_torch.ops import _build
+    return _build._load("libsrt_csr_pull.so").srt_csr_tile_steps()
 
-    return _build.load_csr_pull().srt_csr_tile_steps()
+
+def _launches():
+    """CSR builds and pulls launched so far."""
+    return _build.launches["srt_csr_build"], _build.launches["srt_csr_pull"]
 
 
 def _boundary_rows(dev, n, seed):
@@ -99,7 +102,7 @@ def _graph(name, dev):
     return packed, n_local, wide
 
 
-def _build(packed, n_local, wide):
+def _csr_build(packed, n_local, wide):
     if wide:
         return csr._launch_build(packed, n_local, torch.int64)
     return csr.csr_build(packed, n_local)
@@ -117,8 +120,8 @@ def _sorted_rows(offsets, src):
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_kernels_match_plain_versions(name, card):
     packed, n_local, wide = _graph(name, card)
-    builds, pulls = csr.csr_build_launches, csr.csr_pull_launches
-    got = _build(packed, n_local, wide)
+    builds, pulls = _launches()
+    got = _csr_build(packed, n_local, wide)
     want = csr.csr_build_reference(packed, n_local)
     torch.cuda.synchronize()
     assert got.offsets.dtype == (torch.int64 if wide else torch.int32)
@@ -135,7 +138,7 @@ def test_kernels_match_plain_versions(name, card):
     outc = torch.rand((got.sources,), device=card, generator=g)
     y = csr.csr_pull(outc, got)
     torch.cuda.synchronize()
-    assert (csr.csr_build_launches, csr.csr_pull_launches) == (builds + 1, pulls + 2)
+    assert _launches() == (builds + 1, pulls + 2)
     exact = csr.csr_pull_reference(outc.double(), want.offsets, want.src)
     length = (want.offsets[1:] - want.offsets[:-1]).double()
     # the kernel adds a row's edges in runs of at most kItems (tile steps
@@ -162,11 +165,11 @@ def test_a_ten_iteration_job_builds_once_and_pulls_ten_times(card):
     fn = pr.step(n_local, packed.shape[2], iters, n)
     fn(rank0, deg, valid, packed)  # builds the library, warms the allocator
     torch.cuda.synchronize()
-    builds, pulls = csr.csr_build_launches, csr.csr_pull_launches
+    builds, pulls = _launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         ranks = fn(rank0, deg, valid, packed)
         torch.cuda.synchronize()
-    assert (csr.csr_build_launches - builds, csr.csr_pull_launches - pulls) == (1, iters)
+    assert _launches() == (builds + 1, pulls + iters)
 
     # against a float64 power iteration from the raw edges
     src, dst = edges[:, 0].long(), edges[:, 1].long()

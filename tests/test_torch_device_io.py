@@ -12,7 +12,6 @@ import contextlib
 import ctypes
 import threading
 import time
-import types
 
 import numpy as np
 import pytest
@@ -468,11 +467,10 @@ def test_fetch_launches_wave_kernels_with_jax_bytes(monkeypatch, fused,
     monkeypatch.setattr(ShuffleScheduleCompiler, "_kernel_path",
                         lambda self: True)
     monkeypatch.setattr(trc, "_wave_kernel_path", lambda device: True)
-    monkeypatch.setattr(_build, "load", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(_build, "_on_device",
+                        lambda symbol, device: contextlib.nullcontext((lib, 0)))
     with _cluster_n("torch", n, knobs, "wk-torch") as ios:
-        trc.reset_launch_counts()
+        _build.reset_launch_counts()
         got = ios[0].fetch_device_blocks(8, 0, n, dtype=np.uint32,
                                          timeout_s=60, fused=fused)
         try:
@@ -486,13 +484,13 @@ def test_fetch_launches_wave_kernels_with_jax_bytes(monkeypatch, fused,
                        for bufs in got.values() for b in bufs)
         finally:
             _free_all(got)
-    launched = trc.wave_pull_launches + trc.pipelined_wave_pull_launches
+    launched = _build.launches["srt_wave_pull"] + _build.launches["srt_pipelined_wave_pull"]
     assert launched == len(lib.calls) > 0
     if wave_bytes == "64k":
         # pipelined same-class runs at the default depth 2
-        assert trc.pipelined_wave_pull_launches > 0
+        assert _build.launches["srt_pipelined_wave_pull"] > 0
     else:
-        assert trc.wave_pull_launches == 1
+        assert _build.launches["srt_wave_pull"] == 1
 
 
 # ----------------------------------------------------------------------

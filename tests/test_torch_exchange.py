@@ -8,7 +8,6 @@ library that does the rotation from the pointer table it is given."""
 
 import contextlib
 import ctypes
-import types
 
 import jax
 import jax.numpy as jnp
@@ -73,13 +72,13 @@ def test_neighbor_pull_matches_ppermute(n, dtype):
     x = _stack(n, (3, 5), np_dt, seed=n)
     want = _ppermute_left(x)
     blocks = torch.from_numpy(x.view(np.uint8)).view(t_dt)
-    trc.reset_launch_counts()
+    _build.reset_launch_counts()
     got = trc.neighbor_pull(blocks)
     assert got.dtype == t_dt and got.shape == blocks.shape
     assert got.data_ptr() != blocks.data_ptr()
     np.testing.assert_array_equal(got.view(torch.uint8).numpy(), want.view(np.uint8))
     np.testing.assert_array_equal(want.view(np.uint8), np.roll(x, -1, 0).view(np.uint8))
-    assert trc.neighbor_pull_launches == 0  # the CPU runs the plain version
+    assert _build.launches["srt_neighbor_pull"] == 0  # the CPU runs the plain version
 
 
 def test_neighbor_pull_into_out_and_its_checks():
@@ -132,10 +131,8 @@ class _FakeLib:
 def kernel_path(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(trc, "_kernel_path", lambda b: True)
-    monkeypatch.setattr(_build, "load", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
+    monkeypatch.setattr(_build, "_on_device",
+                        lambda symbol, device: contextlib.nullcontext((lib, 77)))
     return lib
 
 
@@ -146,24 +143,24 @@ def kernel_path(monkeypatch):
 def test_kernel_branch_launches_once(kernel_path, n, shape, dtype):
     np_dt, t_dt = DTYPES[dtype]
     x = torch.from_numpy(_stack(n, shape, np_dt, seed=5).view(np.uint8)).view(t_dt)
-    trc.reset_launch_counts()
+    _build.reset_launch_counts()
     got = trc.neighbor_pull(x)
     (call,) = kernel_path.calls
     assert call == (n, x[0].numel() * x.element_size(), 77)
     assert torch.equal(got.view(torch.uint8), torch.roll(x, -1, 0).view(torch.uint8))
-    assert trc.neighbor_pull_launches == 1
+    assert _build.launches["srt_neighbor_pull"] == 1
 
 
 def test_kernel_branch_errors_propagate(kernel_path):
     kernel_path.rc = 9
-    trc.reset_launch_counts()
+    _build.reset_launch_counts()
     with pytest.raises(RuntimeError, match="srt_neighbor_pull launch failed"):
         trc.neighbor_pull(torch.zeros(2, 4))
     prog = ExchangeProgram(tmesh.make_mesh(CPU8))
     send, counts = _dryrun_send(8)
     with pytest.raises(RuntimeError, match="launch failed"):
         prog.ring_exchange(send, counts)
-    assert trc.neighbor_pull_launches == 0
+    assert _build.launches["srt_neighbor_pull"] == 0
 
 
 def test_ring_through_the_kernel_branch(kernel_path):
@@ -171,34 +168,19 @@ def test_ring_through_the_kernel_branch(kernel_path):
     send, counts = _dryrun_send(e)
     want = JaxProgram(jmesh.make_mesh()).ring_exchange(send, counts)
     prog = ExchangeProgram(tmesh.make_mesh(CPU8))
-    trc.reset_launch_counts()
+    _build.reset_launch_counts()
     recv, rcounts = prog.ring_exchange(send, counts)
-    assert trc.neighbor_pull_launches == 2 * (e - 1)
+    assert _build.launches["srt_neighbor_pull"] == 2 * (e - 1)
     np.testing.assert_array_equal(recv.numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(rcounts.numpy(), np.asarray(want[1]))
     prog.ring_exchange(send, counts)
-    assert trc.neighbor_pull_launches == 4 * (e - 1)
+    assert _build.launches["srt_neighbor_pull"] == 4 * (e - 1)
 
 
 def test_zero_byte_shards_launch_nothing(kernel_path):
-    trc.reset_launch_counts()
+    _build.reset_launch_counts()
     assert trc.neighbor_pull(torch.zeros(4, 0)).shape == (4, 0)
-    assert kernel_path.calls == [] and trc.neighbor_pull_launches == 0
-
-
-def test_binding_declares_neighbor_pull():
-    fns = ("srt_wave_pull", "srt_pipelined_wave_pull", "srt_neighbor_pull",
-           "srt_flash_attn_fwd", "srt_flash_attn_fwd_sm90", "srt_flash_attn_fwd_tf32x3",
-           "srt_flash_attn_bwd_dq", "srt_flash_attn_bwd_dkv",
-           "srt_flash_attn_bwd_dq_sm90", "srt_flash_attn_bwd_dkv_sm90",
-           "srt_flash_attn_bwd_dq_tf32x3", "srt_flash_attn_bwd_dkv_tf32x3",
-           "srt_error_string")
-    lib = _build._bind(types.SimpleNamespace(
-        **{f: types.SimpleNamespace() for f in fns}))
-    fn = lib.srt_neighbor_pull
-    assert fn.argtypes == [ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_longlong, ctypes.c_void_p]
-    assert fn.restype is ctypes.c_int
+    assert kernel_path.calls == [] and _build.launches["srt_neighbor_pull"] == 0
 
 
 # ----------------------------------------------------------------------

@@ -30,7 +30,6 @@ import socket
 import subprocess
 import sys
 import textwrap
-import types
 from unittest import mock
 
 import jax
@@ -186,7 +185,7 @@ def _payloads(e: int):
 
 _WORKER = textwrap.dedent(
     """
-    import contextlib, ctypes, json, sys, types
+    import contextlib, ctypes, json, sys
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -267,13 +266,11 @@ _WORKER = textwrap.dedent(
             return 0
 
     rc._kernel_path = lambda b: True
-    _build.load = lambda: FakeLib()
-    torch.cuda.device = lambda d: contextlib.nullcontext()
-    torch.cuda.current_stream = lambda d=None: types.SimpleNamespace(cuda_stream=0)
-    rc.reset_launch_counts()
+    _build._on_device = lambda symbol, device: contextlib.nullcontext((FakeLib(), 0))
+    _build.reset_launch_counts()
     arrays["kernel_ring"], arrays["kernel_ring_counts"] = [
         t.numpy() for t in ExchangeProgram(mesh).ring_exchange(send[mine], counts[mine])]
-    res["kernel_ring_launches"] = rc.neighbor_pull_launches
+    res["kernel_ring_launches"] = _build.launches["srt_neighbor_pull"]
     np.savez(f"{out}/rank{rank}.npz", **arrays)
     dist.destroy_process_group()
     print("RESULT " + json.dumps(res))
@@ -469,10 +466,8 @@ class _FakeLib:
 def kernel_path(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(trc, "_kernel_path", lambda b: True)
-    monkeypatch.setattr(_build, "load", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(_build, "_on_device",
+                        lambda symbol, device: contextlib.nullcontext((lib, 0)))
     return lib
 
 
@@ -506,10 +501,10 @@ def test_boundary_row_through_the_kernel_branch(kernel_path, n, shape, dtype):
     table; equal to the plain version byte for byte."""
     blocks, last = _stack_and_last(n, shape, dtype, seed=10 + n)
     out = torch.zeros_like(blocks)
-    trc.reset_launch_counts()
+    _build.reset_launch_counts()
     got = trc.neighbor_pull(blocks, out=out, last=last)
     assert got.data_ptr() == out.data_ptr()
-    assert kernel_path.calls == 1 and trc.neighbor_pull_launches == 1
+    assert kernel_path.calls == 1 and _build.launches["srt_neighbor_pull"] == 1
     want = trc.neighbor_pull_reference(blocks, last)
     assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
 

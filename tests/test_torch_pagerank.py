@@ -14,7 +14,6 @@ kernels' split."""
 
 import contextlib
 import ctypes
-import types
 
 import jax
 import numpy as np
@@ -28,7 +27,7 @@ from shufflebench import generator
 from shufflebench.generators import graph as kronecker
 from sparkrdma_tpu_torch.models import pagerank as tpagerank
 from sparkrdma_tpu_torch.models.pagerank import PageRank, reference_pagerank
-from sparkrdma_tpu_torch.ops import csr
+from sparkrdma_tpu_torch.ops import _build, csr
 from sparkrdma_tpu_torch.ops import sort as tsort
 from sparkrdma_tpu_torch.parallel import make_mesh
 
@@ -194,14 +193,10 @@ def test_blocks_through_the_kernel_branch(monkeypatch):
     ``[1, m]`` stack: P 64 and 29-bit keys for 8 shards of 2^23 vertices'
     share (here 2^10 vertices: 7 bits of local index, 13 bits of key),
     fills -1 and 0xFFFFFFFF, and ``prepare`` byte for byte as before."""
-    from sparkrdma_tpu_torch.ops import _build
-
     lib = _FakePackLib()
     monkeypatch.setattr(tsort, "_pack_kernel_path", lambda keys: True)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
-    monkeypatch.setattr(_build, "load_radix_pack", lambda: lib)
+    monkeypatch.setattr(_build, "_on_device",
+                        lambda symbol, device: contextlib.nullcontext((lib, 77)))
     edges = _kronecker(10, 11)
     pr = PageRank(make_mesh(["cpu"] * 8))
     got = pr.prepare(edges, 1 << 10)
@@ -413,15 +408,11 @@ class _FakeCsrLib:
 
 @pytest.fixture
 def fake_csr(monkeypatch):
-    from sparkrdma_tpu_torch.ops import _build
-
     lib = _FakeCsrLib()
     monkeypatch.setattr(csr, "_kernel_path", lambda t: True)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
-    monkeypatch.setattr(_build, "load_csr_pull", lambda: lib)
-    csr.reset_launch_counts()
+    monkeypatch.setattr(_build, "_on_device",
+                        lambda symbol, device: contextlib.nullcontext((lib, 77)))
+    _build.reset_launch_counts()
     return lib
 
 
@@ -449,10 +440,10 @@ def test_csr_kernel_branch_split_and_launches(wide, fake_csr, monkeypatch):
     assert [k for k, _, _ in fake_csr.calls] == ["build", "pull"]
     assert all(w == int(wide) and s == 77 for _, w, s in fake_csr.calls)
 
-    csr.reset_launch_counts()
+    _build.reset_launch_counts()
     rank0, valid = pr.initial(n_local, n)
     got = pr.step(n_local, packed.shape[2], 10, n)(rank0, deg, valid, packed)
-    assert (csr.csr_build_launches, csr.csr_pull_launches) == (1, 10)
+    assert (_build.launches["srt_csr_build"], _build.launches["srt_csr_pull"]) == (1, 10)
     monkeypatch.setattr(csr, "_kernel_path", lambda t: False)
     want = pr.step(n_local, packed.shape[2], 10, n)(rank0, deg, valid, packed)
     # the hub's ~3,400-term float32 sum in two orders, over ten iterations
@@ -477,22 +468,3 @@ def test_csr_checks_its_arguments():
         csr.csr_build(packed, 2**30 + 1)
     assert csr.index_dtype(2**30, 2**31 - 2**30 - 1) == torch.int32
     assert csr.index_dtype(2**30, 2**31 - 2**30) == torch.int64
-
-
-def test_csr_binding_takes_pointers_and_the_stream():
-    from sparkrdma_tpu_torch.ops import _build
-
-    fns = ("srt_csr_tile_steps", "srt_csr_scratch_bytes", "srt_csr_build", "srt_csr_pull",
-           "srt_error_string")
-    lib = _build._bind_csr_pull(types.SimpleNamespace(
-        **{f: types.SimpleNamespace() for f in fns}))
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    assert lib.srt_csr_build.argtypes == [vp] * 5 + [ll] * 5 + [vp]
-    assert lib.srt_csr_pull.argtypes == [vp] * 6 + [ll] * 3 + [vp]
-    assert lib.srt_csr_scratch_bytes.argtypes == [ll] * 4
-    assert lib.srt_csr_tile_steps.restype is ll and lib.srt_csr_scratch_bytes.restype is ll
-    assert all(getattr(lib, f).restype is ctypes.c_int
-               for f in ("srt_csr_build", "srt_csr_pull"))
-    # a library of its own, left out of the main one
-    assert [p.name for p in _build._sources("libsrt_csr_pull.so")] == ["csr_pull.cu"]
-    assert "csr_pull.cu" not in [p.name for p in _build._sources()]

@@ -10,7 +10,6 @@ table that encodes the permutation is itself under test."""
 
 import contextlib
 import ctypes
-import types
 
 import numpy as np
 import pytest
@@ -62,10 +61,8 @@ class _FakeLib:
 def kernel_path(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(trc, "_kernel_path", lambda b: True)
-    monkeypatch.setattr(_build, "load", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=5))
+    monkeypatch.setattr(_build, "_on_device",
+                        lambda symbol, device: contextlib.nullcontext((lib, 5)))
     return lib
 
 
@@ -96,10 +93,10 @@ def test_one_axis_hop_is_the_jax_ring_perm(n):
 def test_kernel_branch_hop_is_one_launch(kernel_path, axis, shift):
     mesh = (2, 3, 4)
     x = _stack(shape=mesh, local=(4, 33), dtype=torch.bfloat16, seed=3 + axis)
-    trc.reset_launch_counts()
+    _build.reset_launch_counts()
     got = _hop(x, axis, shift, mesh)
     assert kernel_path.calls == [(24, 4 * 33 * 2, 5)]
-    assert trc.neighbor_pull_launches == 1
+    assert _build.launches["srt_neighbor_pull"] == 1
     assert torch.equal(got.view(torch.uint8),
                        torch.roll(x, shift, dims=axis).view(torch.uint8))
 
@@ -118,11 +115,11 @@ def test_kernel_branch_left_rotation_table(kernel_path):
     """``neighbor_pull`` and the same rotation as a ``perm`` hand the
     kernel the same table and get the same bytes."""
     x = torch.arange(5 * 12, dtype=torch.int32).reshape(5, 12)
-    trc.reset_launch_counts()
+    _build.reset_launch_counts()
     a = trc.neighbor_pull(x)
     b = trc.ppermute(x, [(i, (i - 1) % 5) for i in range(5)])
     assert torch.equal(a, trc.neighbor_pull_reference(x)) and torch.equal(a, b)
-    assert trc.neighbor_pull_launches == 2
+    assert _build.launches["srt_neighbor_pull"] == 2
 
 
 @pytest.mark.parametrize("perm", [
@@ -167,10 +164,10 @@ def test_kernel_branch_backward_is_the_inverse(kernel_path):
     x = _stack((2, 3, 4), local=(6,), seed=9).reshape(24, 6).requires_grad_(True)
     ct = _stack((2, 3, 4), local=(6,), seed=10).reshape(24, 6)
     perm = trc.axis_shift_perm((2, 3, 4), 2, 1)
-    trc.reset_launch_counts()
+    _build.reset_launch_counts()
     y = trc.PPermute.apply(x, perm)
     y.backward(ct)
-    assert trc.neighbor_pull_launches == 2
+    assert _build.launches["srt_neighbor_pull"] == 2
     inv = trc.ppermute_reference(ct, trc.inverse_perm(perm))
     assert torch.equal(x.grad, inv)
     assert torch.equal(trc.ppermute_reference(x.grad, perm), ct)

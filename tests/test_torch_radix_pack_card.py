@@ -18,6 +18,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from sparkrdma_tpu_torch.ops import _build
 from sparkrdma_tpu_torch.ops import sort as tsort
 
 pytestmark = pytest.mark.card
@@ -65,11 +66,11 @@ def _stack(dev, e, n, p, hot, seed):
 def test_kernel_matches_plain_version(shape, card):
     e, n, p, cap, hot, overflows = SHAPES[shape]
     keys, vals = _stack(card, e, n, p, hot, seed=4_200_000_001 + len(shape))
-    launches = tsort.radix_pack_launches
+    launches = _build.launches["srt_radix_pack"]
     got = tsort.radix_pack_pairs(keys, vals, p, cap, key_fill=SENTINEL,
                                  val_fill=VAL_FILL)
     torch.cuda.synchronize()
-    assert tsort.radix_pack_launches == launches + 1
+    assert _build.launches["srt_radix_pack"] == launches + 1
     want = tsort.radix_pack_pairs_reference(keys, vals, p, cap, 32, SENTINEL, VAL_FILL)
     for name, a, b in zip(("kslab", "vslab", "counts", "overflowed"), want, got):
         assert a.dtype == b.dtype and a.shape == b.shape, name
@@ -91,11 +92,11 @@ def test_hashjoin_pack_never_syncs(card):
     fn = join.step(nb, npl, 2 * nb // e, 2 * npl // e)
     fn(*args)  # builds the library and warms the allocator
     torch.cuda.synchronize()
-    launches = tsort.radix_pack_launches
+    launches = _build.launches["srt_radix_pack"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = fn(*args)
         torch.cuda.synchronize()
-    assert tsort.radix_pack_launches == launches + 2
+    assert _build.launches["srt_radix_pack"] == launches + 2
     assert not bool(out[4])
     events = list(prof.profiler.kineto_results.events())
     packs = [(x.start_thread_id(), x.start_ns(), x.end_ns()) for x in events

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from sparkrdma_tpu.ops import remote_copy as jrc
+from sparkrdma_tpu_torch.ops import _build
 from sparkrdma_tpu_torch.ops import remote_copy as trc
 
 torch.set_num_threads(1)
@@ -58,10 +59,10 @@ def test_single_wave_matches_jax(dtype, rows_b, live, bucket_elems):
     ref = trc.wave_pull_reference(srcs, offs, nbs, rows_b, bucket_elems, dtype)
     assert ref.shape == (1, rows_b, bucket_elems)
     np.testing.assert_array_equal(ref[0].numpy(), want)
-    trc.reset_launch_counts()
+    _build.reset_launch_counts()
     got = trc.wave_pull(srcs, offs, nbs, rows_b, bucket_elems, dtype)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert trc.wave_pull_launches == 0
+    assert _build.launches["srt_wave_pull"] == 0
 
 
 @pytest.mark.parametrize("rows_b,live,bucket_elems", CASES[:3])
@@ -76,12 +77,12 @@ def test_two_pipelined_waves_match_jax(dtype, rows_b, live, bucket_elems):
         srcs += s + [None] * pad
         offs += o + [0] * pad
         nbs += n + [0] * pad
-    trc.reset_launch_counts()
+    _build.reset_launch_counts()
     got = trc.pipelined_wave_pull(srcs, offs, nbs, rows_b, bucket_elems,
                                   dtype, 2)
     assert got.shape == (2, rows_b, bucket_elems)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert trc.pipelined_wave_pull_launches == 0
+    assert _build.launches["srt_pipelined_wave_pull"] == 0
 
 
 def test_unaligned_byte_offsets():

@@ -2,6 +2,7 @@
 inputs: uint32 keys at and above 2^31, the 0xFFFFFFFF sentinel, and
 overflowing capacities. Every comparison is exact."""
 
+import contextlib
 import ctypes
 
 import jax.numpy as jnp
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from sparkrdma_tpu.ops import sort as jsort
+from sparkrdma_tpu_torch.ops import _build
 from sparkrdma_tpu_torch.ops import sort as tsort
 
 torch.set_num_threads(1)
@@ -249,37 +251,12 @@ class _FakePackLib:
 
 @pytest.fixture
 def fake_pack(monkeypatch):
-    import contextlib
-    import types
-
-    from sparkrdma_tpu_torch.ops import _build
-
     lib = _FakePackLib()
     monkeypatch.setattr(tsort, "_pack_kernel_path", lambda keys: True)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
-    monkeypatch.setattr(_build, "load_radix_pack", lambda: lib)
-    tsort.reset_launch_counts()
+    monkeypatch.setattr(_build, "_on_device",
+                        lambda symbol, device: contextlib.nullcontext((lib, 77)))
+    _build.reset_launch_counts()
     return lib
-
-
-def test_radix_pack_binding_takes_pointers_and_the_stream():
-    import types
-
-    from sparkrdma_tpu_torch.ops import _build
-
-    fns = ("srt_radix_pack", "srt_radix_pack_scratch", "srt_error_string")
-    lib = _build._bind_radix_pack(types.SimpleNamespace(
-        **{f: types.SimpleNamespace() for f in fns}))
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    assert lib.srt_radix_pack.argtypes == [vp] * 7 + [ll] * 7 + [vp]
-    assert lib.srt_radix_pack.restype is ctypes.c_int
-    assert lib.srt_radix_pack_scratch.argtypes == [ll] * 3
-    assert lib.srt_radix_pack_scratch.restype is ll
-    # the pack is a library of its own, left out of the main one
-    assert [p.name for p in _build._sources("libsrt_radix_pack.so")] == ["radix_pack.cu"]
-    assert "radix_pack.cu" not in [p.name for p in _build._sources()]
 
 
 def test_radix_pack_launch_arguments(fake_pack):
@@ -297,7 +274,7 @@ def test_radix_pack_launch_arguments(fake_pack):
     want = tsort.radix_pack_pairs_reference(k, v, p, cap, 32, SENTINEL, PACK_VAL_FILL)
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    assert tsort.radix_pack_launches == 1
+    assert _build.launches["srt_radix_pack"] == 1
 
 
 def test_radix_pack_nonzero_return_raises(fake_pack):
@@ -305,7 +282,7 @@ def test_radix_pack_nonzero_return_raises(fake_pack):
     keys, vals = _pack_stack(2, 8, seed=41, n=50)
     with pytest.raises(RuntimeError, match="srt_radix_pack launch failed: invalid argument"):
         tsort.radix_pack_pairs(torch.from_numpy(keys), torch.from_numpy(vals), 8, 20)
-    assert tsort.radix_pack_launches == 0
+    assert _build.launches["srt_radix_pack"] == 0
 
 
 BAD_PACKS = {
@@ -326,7 +303,7 @@ def test_radix_pack_rejects_before_launch(bad, fake_pack):
     args = BAD_PACKS[bad](torch.from_numpy(keys), torch.from_numpy(vals))
     with pytest.raises(ValueError):
         tsort.radix_pack_pairs(*args)
-    assert fake_pack.calls == [] and tsort.radix_pack_launches == 0
+    assert fake_pack.calls == [] and _build.launches["srt_radix_pack"] == 0
 
 
 def test_hashjoin_step_packs_once_a_side(fake_pack, monkeypatch):
@@ -344,7 +321,7 @@ def test_hashjoin_step_packs_once_a_side(fake_pack, monkeypatch):
                                pk, np.arange(len(pk), dtype=np.int32))
     fn = join.step(nb, npl, 2 * nb // e, 2 * npl // e)
     got = fn(*args)
-    assert tsort.radix_pack_launches == 2 and len(fake_pack.calls) == 2
+    assert _build.launches["srt_radix_pack"] == 2 and len(fake_pack.calls) == 2
     assert [c[7:12] for c in fake_pack.calls] == [(e, nb, e, 32, 2 * nb // e),
                                                   (e, npl, e, 32, 2 * npl // e)]
     monkeypatch.setattr(tsort, "_pack_kernel_path", lambda keys: False)

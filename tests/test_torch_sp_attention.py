@@ -15,8 +15,7 @@ from sparkrdma_tpu.ops.ring_attention import RingAttention as JaxRing
 from sparkrdma_tpu.ops.ring_attention import reference_attention as jax_reference
 from sparkrdma_tpu.ops.ulysses_attention import UlyssesAttention as JaxUlysses
 from sparkrdma_tpu.parallel.mesh import make_mesh
-from sparkrdma_tpu_torch.ops import RingAttention, UlyssesAttention
-from sparkrdma_tpu_torch.ops import pallas_attention as tpa
+from sparkrdma_tpu_torch.ops import RingAttention, UlyssesAttention, _build
 from sparkrdma_tpu_torch.ops.ring_attention import reference_attention
 from sparkrdma_tpu_torch.ops.ulysses_attention import ulysses_shard_attention
 from sparkrdma_tpu_torch.parallel import make_mesh as torch_mesh
@@ -46,12 +45,12 @@ def test_ulysses_matches_jax(causal, use_flash):
     arrays = _inputs(seed=1)
     want = JaxUlysses(_mesh1())(*(jnp.asarray(x) for x in arrays),
                                 causal=causal, use_flash=use_flash)
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     got = UlyssesAttention(device="cpu")(*_torch(arrays), causal=causal,
                                             use_flash=use_flash)
     assert got.shape == arrays[0].shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
-    assert tpa.flash_fwd_launches == 0  # CPU: the plain version
+    assert not _build.launches  # CPU: the plain version
 
 
 @pytest.mark.parametrize("causal", [False, True])

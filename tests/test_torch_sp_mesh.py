@@ -13,7 +13,6 @@ versions."""
 import contextlib
 import ctypes
 import math
-import types
 
 import jax
 import jax.numpy as jnp
@@ -188,33 +187,31 @@ def kernel_path(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(trc, "_kernel_path", lambda b: True)
     monkeypatch.setattr(tpa, "_kernel_path", lambda q: True)
-    monkeypatch.setattr(_build, "load", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
+    monkeypatch.setattr(_build, "_on_device",
+                        lambda symbol, device: contextlib.nullcontext((lib, 77)))
     return lib
 
 
 def test_kernel_branch_ring_is_14_launches_at_8_shards(kernel_path):
     arrays = _inputs(8, seed=50)
     want = np.asarray(JaxRing(jax_mesh(jax.devices()[:8]))(*_jax(arrays), causal=True))
-    trc.reset_launch_counts()
+    _build.reset_launch_counts()
     got = RingAttention(make_mesh(["cpu"] * 8))(*_torch(arrays), causal=True)
-    assert trc.neighbor_pull_launches == 14
+    assert _build.launches["srt_neighbor_pull"] == 14
     assert kernel_path.calls == ["srt_neighbor_pull"] * 14
     np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
     # the backward runs each hop's inverse through the kernel too
     q, k, v = (t.requires_grad_(True) for t in _torch(arrays))
     RingAttention(make_mesh(["cpu"] * 8))(q, k, v).sum().backward()
-    assert trc.neighbor_pull_launches == 14 + 28
+    assert _build.launches["srt_neighbor_pull"] == 14 + 28
 
 
 def test_kernel_branch_ulysses_is_one_flash_launch(kernel_path):
     arrays = _inputs(8, s_per=4, h=8, d=64, seed=51)
     want = np.asarray(JaxUlysses(jax_mesh(jax.devices()[:8]))(*_jax(arrays)))
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     got = UlyssesAttention(make_mesh(["cpu"] * 8))(*_torch(arrays))
     # f32, D 64, aligned: the 3xTF32 forward, with the 8 shards in its batch
     assert kernel_path.calls == ["srt_flash_attn_fwd_tf32x3"]
-    assert (tpa.flash_fwd_launches, tpa.flash_fwd_tf32x3_launches) == (1, 1)
+    assert _build.launches == {"srt_flash_attn_fwd_tf32x3": 1}
     np.testing.assert_allclose(got.numpy(), want, **F32_TOL)

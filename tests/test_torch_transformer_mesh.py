@@ -12,10 +12,10 @@ Then the CUDA branch on the CPU through a fake library: a Ulysses step
 launches one flash forward, one dq and one dk/dv kernel, a ring step on
 (2, 2, 2) four ``srt_neighbor_pull`` (k and v, forward and backward)."""
 
+import collections
 import contextlib
 import ctypes
 import math
-import types
 
 import jax
 import jax.numpy as jnp
@@ -261,10 +261,8 @@ def kernel_path(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(trc, "_kernel_path", lambda b: True)
     monkeypatch.setattr(tpa, "_kernel_path", lambda q: True)
-    monkeypatch.setattr(_build, "load", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: types.SimpleNamespace(cuda_stream=77))
+    monkeypatch.setattr(_build, "_on_device",
+                        lambda symbol, device: contextlib.nullcontext((lib, 77)))
     return lib
 
 
@@ -282,17 +280,15 @@ def test_kernel_branch_step_launches(kernel_path, attn):
     want_loss, want = jstep.step(*jstep.place(params, jnp.asarray(x), jnp.asarray(y)))
     step = tts.TransformerStep(tts.make_training_mesh(["cpu"] * 8), n_heads=heads,
                                lr=0.1, attn=attn)
-    trc.reset_launch_counts()
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     loss, new = step.step(params, x, y)
+    assert _build.launches == collections.Counter(kernel_path.calls)
     if attn == "ring":
         assert kernel_path.calls == ["srt_neighbor_pull"] * 4
     else:
         assert kernel_path.calls == ["srt_flash_attn_fwd_tf32x3",
                                      "srt_flash_attn_bwd_dq_tf32x3",
                                      "srt_flash_attn_bwd_dkv_tf32x3"]
-        assert (tpa.flash_fwd_tf32x3_launches, tpa.flash_bwd_dq_tf32x3_launches,
-                tpa.flash_bwd_dkv_tf32x3_launches) == (1, 1, 1)
     np.testing.assert_allclose(float(loss), float(want_loss), rtol=LOSS_RTOL)
     for k in want:
         np.testing.assert_allclose(new[k].numpy(), np.asarray(want[k]),

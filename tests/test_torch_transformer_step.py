@@ -15,7 +15,7 @@ import torch
 from sparkrdma_tpu.models import transformer_step as jts
 from sparkrdma_tpu_torch.convert import params_from_jax, params_to_jax
 from sparkrdma_tpu_torch.models import transformer_step as tts
-from sparkrdma_tpu_torch.ops import pallas_attention as tpa
+from sparkrdma_tpu_torch.ops import _build
 from sparkrdma_tpu_torch.parallel import mesh as tmesh
 
 torch.set_num_threads(1)
@@ -80,15 +80,14 @@ def test_step_matches_jax(attn):
     jstep = jts.TransformerStep(mesh, n_heads=HEADS, lr=0.1, attn=attn)
     want_loss, want = jstep.step(*jstep.place(params, x, y))
 
-    tpa.reset_launch_counts()
+    _build.reset_launch_counts()
     step = tts.TransformerStep(n_heads=HEADS, lr=0.1, attn=attn, device="cpu")
     loss, new = step.step(params_from_jax(params, device="cpu"), x, y)
     assert loss.shape == () and loss.dtype == torch.float32
     np.testing.assert_allclose(float(loss), float(want_loss), rtol=LOSS_RTOL)
     _assert_params_close(params_to_jax(new), want)
     # on the CPU the flash wrappers run their plain versions
-    assert (tpa.flash_fwd_launches, tpa.flash_bwd_dq_launches,
-            tpa.flash_bwd_dkv_launches) == (0, 0, 0)
+    assert not _build.launches
 
 
 def test_schedules_agree_with_reference_step():
