@@ -94,7 +94,7 @@ exits nonzero and prints no result. Phases, each one JSON line:
    other, equal stats, 14 neighbor-pull launches a ring call; (c)
    ``TeraSorter(mesh).sort`` of phase 2's 2^28 keys against one
    ``torch.sort`` on the card and the input's count, sum and xor, then
-   the warm step; (d) at 2^24 keys the all-zero skew with
+   the warm step, one ``srt_merge_runs`` launch a step; (d) at 2^24 keys the all-zero skew with
    ``capacity_factor=1.25`` (3 capacity doublings), ``adaptive=True``
    on it (one run) and a ``(dcn 2, exec 4)`` mesh;
 10. ``host_plane_path``: the host plane on the card over the python
@@ -166,7 +166,11 @@ exits nonzero and prints no result. Phases, each one JSON line:
    ``MapShardSorter.warm`` once; ``timing_csr_pull`` then checks the
    CSR build block by block against its plain version at the PageRank
    cell's shapes and times the pull beside its byte bound and cuSPARSE's
-   SpMV over the same CSR;
+   SpMV over the same CSR; ``timing_merge_runs`` checks ``srt_merge_runs``
+   bit for bit against its plain version at the sort cell's merge
+   (``[8, 8, 2^23]``) and times it beside its byte bound, the plain
+   version, ``torch.sort`` of the same masked slab and the per-shard
+   path it replaced;
 13. ``data_planes``: the host plane's record writers and readers over the
    python transport at HiBench TeraSort's small profile (3,200,000
    records of a uint32 key and 12 uint64 payload words, word j = key *
@@ -2023,10 +2027,15 @@ def phase_spmd_path(torch, dev):
     report["small"] = {"keys": SPMD_SMALL_KEYS, "all_zero": skew,
                        "mesh_2d": {"shape": mesh2.shape, "sort_s": wall2,
                                    "equal": True}}
-    launches = _launched("srt_neighbor_pull")
-    if launches <= 0:
+    launches = {"srt_neighbor_pull": _launched("srt_neighbor_pull"),
+                "srt_merge_runs": _launched("srt_merge_runs")}
+    if launches["srt_neighbor_pull"] <= 0:
         raise AssertionError("srt_neighbor_pull never launched on the SPMD path")
-    emit(9, name="spmd_path", launches={"srt_neighbor_pull": launches}, **report)
+    # a step a launch: (c) one sort and four steps; (d) 4 + 1 + 1 sorts
+    if launches["srt_merge_runs"] != 11:
+        raise AssertionError(f"the SPMD path launched srt_merge_runs "
+                             f"{launches['srt_merge_runs']} times, not 11")
+    emit(9, name="spmd_path", launches=launches, **report)
     return launches
 
 
@@ -3397,6 +3406,144 @@ def time_csr_pull(torch, dev):
                   "capacity": packed.shape[2], "tiles": tiles, "need_bytes": need},
     }
     emit("timing_csr_pull", kernels=[entry])
+    return entry
+
+
+# the sort cell's merge (shufflebench sort.u32.spmd): 8 shards, each
+# receiving 8 sorted runs of capacity 2^23 with about 2^22 keys each
+MR_SHARDS = 8
+MR_CAP = 1 << 23
+MR_SEED = 4_270_000_777
+
+
+def time_merge_runs(torch, dev):
+    """srt_merge_runs at the sort cell's merge: checked bit for bit
+    against its plain version (``merge_sorted_runs_reference``, the
+    parent's ``merge_received`` shard by shard), then timed by CUDA
+    events, the slab restored before each call (it is the kernel's
+    scratch), beside its byte bound, the plain version, the one PyTorch
+    call it replaces (``torch.sort`` of the same masked slab, ordered as
+    int32, all shards in one call) and the replaced path (the mask and
+    sort of each shard and its copy into ``merged``)."""
+    from sparkrdma_tpu_torch.models.terasort import SENTINEL
+    from sparkrdma_tpu_torch.ops import _build
+    from sparkrdma_tpu_torch.ops import sort as so
+
+    e = r = MR_SHARDS
+    cap = MR_CAP
+    g = torch.Generator(device=dev)
+    g.manual_seed(MR_SEED)
+    counts = (cap // 2 + torch.randint(-(cap >> 6), (cap >> 6) + 1, (e, r), device=dev,
+                                       generator=g)).to(torch.int32)
+    # shard i's keys in key range i, as the cell's static split sends them
+    keys = torch.randint(0, 1 << 29, (e, r, cap), device=dev, generator=g)
+    keys += (torch.arange(e, device=dev) << 29).view(e, 1, 1)
+    valid = torch.arange(cap, device=dev) < counts.unsqueeze(-1)
+    keys = torch.sort(torch.where(valid, keys, SENTINEL), dim=-1).values
+    keys = torch.where(valid, keys, 0)  # no sentinel padding: the kernel reads counts
+    pristine = (keys - (keys >= 1 << 31).to(torch.int64) * (1 << 32)).to(torch.int32)
+    del keys, valid
+    pristine = pristine.view(torch.uint32).contiguous()
+    slab = pristine.clone()
+    t = time.perf_counter()
+    lib = _build._load("libsrt_merge_runs.so")
+    load_s = time.perf_counter() - t
+    built = _build.builds.get("libsrt_merge_runs.so")
+    want = so.merge_sorted_runs_reference(pristine, counts, SENTINEL)
+    got = so.merge_sorted_runs(slab, counts, SENTINEL)
+    for name, a, b in zip(("merged", "totals"), want, got):
+        if not torch.equal(a, b):
+            raise AssertionError(f"srt_merge_runs's {name} differs from the plain version's")
+    del want
+    merged, totals = got
+    scratch = torch.empty((lib.srt_merge_runs_scratch(e, r, cap),), dtype=torch.int32,
+                          device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        code = lib.srt_merge_runs(slab.data_ptr(), counts.data_ptr(), merged.data_ptr(),
+                                  totals.data_ptr(), scratch.data_ptr(), e, r, cap,
+                                  SENTINEL, stream)
+        if code:
+            raise RuntimeError(f"srt_merge_runs launch failed ({code})")
+
+    def restored_ms(fn, n):
+        """CUDA-event ms a call of ``fn`` on a freshly restored slab."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        total = 0.0
+        for i in range(n + 1):
+            slab.copy_(pristine)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            if i:  # the first call warms up
+                total += a.elapsed_time(b)
+        return total / n
+
+    def plain():
+        return so.merge_sorted_runs_reference(pristine, counts, SENTINEL)
+
+    col = torch.arange(cap, dtype=torch.int32, device=dev)
+    masked = torch.where(col < counts.unsqueeze(-1), pristine.view(torch.int32),
+                         -1).view(e, r * cap) ^ (-(1 << 31))
+    out = torch.empty((e, r * cap), dtype=torch.int32, device=dev)
+    out_totals = torch.empty((e,), dtype=torch.int32, device=dev)
+
+    def library():
+        return torch.sort(masked, dim=-1)
+
+    def replaced():
+        for i in range(e):
+            m, out_totals[i] = so.merge_received(pristine[i], counts[i], SENTINEL)
+            out[i] = m.view(torch.int32)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            slab.copy_(pristine)
+            raw()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    by_kernel = {k: ev.self_device_time_total / 1e3 / 5
+                 for ev in prof.key_averages()
+                 if getattr(ev, "device_type", None) == cuda
+                 for k in ("run_prefix", "merge_partition", "merge_tile") if k in ev.key}
+    total_keys = int(counts.sum())
+    read = total_keys * 4  # what the merge needs: the valid keys once
+    written = e * r * cap * 4  # merged, the sentinel tail included
+    passes = 3  # log2(8) pairwise passes, each reading and writing the valid keys
+    design = passes * 2 * read + (written - read)
+    kernel_ms = restored_ms(raw, 20)
+    entry = {
+        "name": "srt_merge_runs", "route": "cuda",
+        "source": "sparkrdma_tpu_torch/ops/csrc/merge_runs.cu",
+        "replaces": "none (the JAX merge is plain jnp: sparkrdma_tpu/ops/sort.py "
+                    "merge_received)",
+        "max_abs_err": 0,
+        "ms": kernel_ms,
+        "plain_ms": event_ms_per_call(torch, plain, 3),
+        "library_ms": event_ms_per_call(torch, library, 5),
+        "library": "torch.sort of the masked [8, 2^26] int32 slab along the last axis",
+        "replaced_path_ms": event_ms_per_call(torch, replaced, 3),
+        "bound_ms": (read + written) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_share": (read + written) / HBM_BYTES_PER_S * 1e3 / kernel_ms,
+        "design_bound_ms": design / HBM_BYTES_PER_S * 1e3,
+        "design_bound_share": design / HBM_BYTES_PER_S * 1e3 / kernel_ms,
+        "wrapper_event_ms": restored_ms(
+            lambda: so.merge_sorted_runs(slab, counts, SENTINEL), 10),
+        "by_kernel_profiler_ms": by_kernel,
+        "kernel_gbps": (read + written) / (kernel_ms / 1e3) / 1e9,
+        "build_s": built[0] if built else None, "load_s": load_s,
+        "ptxas": [ln.strip() for ln in (built[1] if built else "").splitlines()
+                  if "registers" in ln or "spill" in ln or "smem" in ln],
+        "timer": "cuda_events",
+        "shape": {"shards": e, "runs": r, "capacity": cap, "valid_keys": total_keys,
+                  "read_bytes": read, "written_bytes": written, "design_bytes": design},
+    }
+    emit("timing_merge_runs", kernels=[entry])
     return entry
 
 
@@ -6016,6 +6163,7 @@ def _main(torch, dev):
     join_launches = phase_spmd_models(torch, dev)
     kernels.append(time_radix_pack(torch, dev))
     kernels.append(time_csr_pull(torch, dev))
+    kernels.append(time_merge_runs(torch, dev))
     phase_data_planes(torch, dev)
     phase_engine(torch, dev)
     native_plane = phase_native_plane(torch, dev, data)
@@ -6026,7 +6174,7 @@ def _main(torch, dev):
     launches.update(training)
     for k, n in serving.items():
         launches[k] += n
-    launches["srt_neighbor_pull"] = spmd
+    launches.update(spmd)
     launches.update(join_launches)
     for k, n in host_plane.items():
         launches[k] += n

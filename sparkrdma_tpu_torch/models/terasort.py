@@ -10,7 +10,8 @@ The PyTorch counterpart of the JAX package's ``models/terasort.py``:
   one such sort ahead of the timed path;
 - ``TeraSorter``: the global SPMD sorter over a mesh of E shards: local
   sort, range split into a bucketed send slab, the all-to-all of
-  ``ExchangeProgram``, merge of the received slab; overflow retry with
+  ``ExchangeProgram``, one merge of the received sorted runs
+  (``merge_sorted_runs``) for every shard; overflow retry with
   doubled capacity and sampled (adaptive) range edges. One shard sorts
   locally, no split and no exchange (the JAX step's ``e == 1`` branch);
 - ``merge_blocks``: the reduce side's merge of one partition's landed
@@ -19,10 +20,10 @@ The PyTorch counterpart of the JAX package's ``models/terasort.py``:
 A ``TeraSorter`` step opens spans (``obs/trace.py`` ``span``), per stage
 of E shards: ``terasort.step`` once around ``_build_step``'s ``fn`` (and
 ``short`` on one shard), the whole step; directly in it, per shard,
-``terasort.local_sort`` (``device_sort``), ``terasort.split``
-(``split_sorted`` / ``split_sorted_edges`` and its send copy) and
-``terasort.merge`` (``merge_received`` and its copy into ``merged``),
-and the exchange's ``exchange.a2a`` once.
+``terasort.local_sort`` (``device_sort``) and ``terasort.split``
+(``split_sorted`` / ``split_sorted_edges`` and its send copy), then the
+exchange's ``exchange.a2a`` once and ``terasort.merge``
+(``merge_sorted_runs``) once.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from sparkrdma_tpu_torch.ops.exchange import ExchangeProgram
 from sparkrdma_tpu_torch.ops.sort import (
     device_sort,
     merge_received,
+    merge_sorted_runs,
     searchsorted,
     split_sorted,
     split_sorted_edges,
@@ -217,17 +219,16 @@ class TeraSorter:
                 recv, rcounts = all_to_all(send.view(e * e, capacity),
                                            counts.view(-1))
                 del send
-                recv = recv.view(e, e, capacity).view(torch.uint32)
-                rcounts = rcounts.view(e, e)
-                merged = torch.empty((e, e * capacity), dtype=torch.int32, device=dev)
-                totals = torch.empty((e,), dtype=torch.int32, device=dev)
-                for i in range(e):
-                    with span("terasort.merge"):
-                        m, totals[i] = merge_received(recv[i], rcounts[i], SENTINEL)
-                        merged[i] = m.view(torch.int32)
+                # every received row is a slice of one sender's sorted
+                # keys: one merge of the runs for all shards (recv is its
+                # scratch)
+                with span("terasort.merge"):
+                    merged, totals = merge_sorted_runs(
+                        recv.view(e, e, capacity).view(torch.uint32),
+                        rcounts.view(e, e), SENTINEL)
                 # any shard overflowing aborts the round everywhere
                 overflowed = flags.any().to(torch.int32)
-                return merged.view(-1).view(torch.uint32), totals, overflowed
+                return merged.view(-1), totals, overflowed
 
         return fn
 

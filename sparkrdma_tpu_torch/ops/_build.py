@@ -6,10 +6,10 @@ under ``csrc/`` by name, and every C function it exports with its ctypes
 ``(argtypes, restype)``. Each source is compiled by its own ``nvcc`` for
 ``sm_90a`` (all started together; ``csrc/*.cuh`` are their shared
 headers), and the objects are linked into the library, which has a
-plain C interface and is loaded with ``ctypes``. The hash join's pack
-and PageRank's CSR kernels are libraries of their own, so that a path
-that needs only them builds one file, in seconds, and not every
-attention kernel. Nothing links ``-lcuda``: the one driver function a
+plain C interface and is loaded with ``ctypes``. The hash join's pack,
+the sort's merge and PageRank's CSR kernels are libraries of their own,
+so that a path that needs only them builds one file, in seconds, and
+not every attention kernel. Nothing links ``-lcuda``: the one driver function a
 kernel needs (``cuTensorMapEncodeTiled``, for the tensor-core kernels'
 TMA maps, ``flash_attn_sm90_common.cuh``) is reached through the
 runtime's ``cudaGetDriverEntryPoint``. Each library goes to
@@ -95,6 +95,11 @@ LIBRARIES: Dict[str, Library] = {
         ("radix_pack.cu",),
         {"srt_radix_pack": ((_vp,) * 7 + (_ll,) * 7 + (_vp,), _int),
          "srt_radix_pack_scratch": ((_ll,) * 3, _ll),
+         "srt_error_string": _ERROR_STRING}),
+    "libsrt_merge_runs.so": Library(
+        ("merge_runs.cu",),
+        {"srt_merge_runs": ((_vp,) * 5 + (_ll,) * 4 + (_vp,), _int),
+         "srt_merge_runs_scratch": ((_ll,) * 3, _ll),
          "srt_error_string": _ERROR_STRING}),
     "libsrt_csr_pull.so": Library(
         ("csr_pull.cu",),

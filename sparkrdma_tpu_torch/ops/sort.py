@@ -22,7 +22,14 @@ same arguments, results and overflow contract:
   ``_build.launches``. PageRank's bucketing packs by it too;
   ``pack_by_partition`` stays the plain op of any ``dest`` (ALS, and
   PageRank's meshes beyond the kernel),
-- ``merge_received``: mask + sort of a received slab,
+- ``merge_received``: mask + sort of a received slab, any slab,
+- ``merge_sorted_runs``: the SPMD sort's merge of ``[E, R, cap]``
+  received runs, each already sorted in its valid prefix, for every
+  shard at once. On CUDA it launches the hand-written ``srt_merge_runs``
+  (``csrc/merge_runs.cu``, a library of its own: pairwise merge-path
+  passes that use the slab as their scratch); on the CPU it runs
+  :func:`merge_sorted_runs_reference`, ``merge_received`` shard by
+  shard; nothing falls back,
 - ``device_put_columns``: the columns of one columnar block (DESIGN.md
   §25), each staged to the device by one host-to-device copy.
 
@@ -49,6 +56,8 @@ from sparkrdma_tpu_torch.utils.torch_compat import resolve_device, torch_dtype
 
 _SIGN = -(1 << 31)  # the int32 bit pattern 0x80000000
 RADIX_PACK_MAX_PARTITIONS = 256  # the kernel's per-block histogram
+MERGE_RUNS_MAX_RUNS = 1024  # srt_merge_runs: a shard's runs summed in one block
+MERGE_RUNS_MAX_SLOTS = 2**31 - 1  # R * cap: int32 places in a shard's row
 
 
 def _ordered(x: torch.Tensor) -> torch.Tensor:
@@ -364,3 +373,82 @@ def merge_received(
     sent = torch.full_like(bits, _bits_scalar(sentinel, slab.dtype))
     flat = _from_bits(torch.where(valid, bits, sent), slab.dtype).reshape(-1)
     return device_sort(flat), counts.sum(dtype=torch.int32)
+
+
+def merge_sorted_runs_reference(
+    slab: torch.Tensor, counts: torch.Tensor, sentinel: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`merge_sorted_runs`: ``merge_received``
+    of each shard's rows, stacked."""
+    merged = [merge_received(rows, cnt, sentinel) for rows, cnt in zip(slab, counts)]
+    return tuple(torch.stack(col) for col in zip(*merged))
+
+
+def _merge_kernel_path(slab: torch.Tensor) -> bool:
+    return slab.device.type == "cuda"
+
+
+def _check_merge_runs(slab, counts, sentinel):
+    if slab.dtype != torch.uint32 or slab.dim() != 3 or min(slab.shape) < 1:
+        raise ValueError(f"merge_sorted_runs takes a uint32 [E, R, cap] slab, not "
+                         f"{list(slab.shape)} {slab.dtype}")
+    if counts.dtype != torch.int32 or counts.shape != slab.shape[:2]:
+        raise ValueError(f"merge_sorted_runs takes int32 [E, R] counts, not "
+                         f"{list(counts.shape)} {counts.dtype}")
+    if counts.device != slab.device:
+        raise ValueError("slab and counts lie on different devices")
+    if not (slab.is_contiguous() and counts.is_contiguous()):
+        raise ValueError("merge_sorted_runs takes a contiguous slab and counts")
+    if sentinel != 0xFFFFFFFF:
+        raise ValueError(f"the sentinel must sort last (0xFFFFFFFF), not {sentinel:#x}")
+
+
+def _check_merge_limits(slab):
+    """The kernel's own limits: a grid dimension of shards, one block's
+    prefix of a shard's runs, and int32 places in a shard's row."""
+    e, r, cap = slab.shape
+    if e > 65535 or r > MERGE_RUNS_MAX_RUNS or r * cap > MERGE_RUNS_MAX_SLOTS:
+        raise ValueError(
+            f"srt_merge_runs takes at most 65535 shards, {MERGE_RUNS_MAX_RUNS} runs "
+            f"and {MERGE_RUNS_MAX_SLOTS} slots a shard, not {list(slab.shape)}")
+
+
+def merge_sorted_runs(
+    slab: torch.Tensor, counts: torch.Tensor, sentinel: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge each shard's sorted runs: ``slab`` is a contiguous uint32
+    ``[E, R, cap]`` stack whose row ``(i, j)`` is ascending in its first
+    ``counts[i, j]`` slots (int32 ``[E, R]``, each in ``[0, cap]``); the
+    slots past them are never read.
+
+    Returns ``(merged [E, R * cap] uint32, totals [E] int32)``: byte for
+    byte :func:`merge_received` of ``slab[i]`` and ``counts[i]`` stacked
+    over ``i``, so row ``i`` holds its valid keys ascending, then
+    ``sentinel``, which must be 0xFFFFFFFF.
+
+    CUDA slabs: one ``srt_merge_runs`` call on the current stream, not
+    waited on and with nothing read back; the outputs and a small scratch
+    come from ``torch.empty``, and ``slab`` is the merge's scratch: its
+    bytes are undefined after a call of more than two runs. CPU slabs:
+    the plain version, which leaves ``slab`` as it was."""
+    _check_merge_runs(slab, counts, sentinel)
+    if _merge_kernel_path(slab):
+        _check_merge_limits(slab)
+        return _launch_merge_runs(slab, counts, sentinel)
+    if slab.device.type == "cpu":
+        return merge_sorted_runs_reference(slab, counts, sentinel)
+    raise ValueError(f"merge_sorted_runs runs on cuda or cpu, not {slab.device}")
+
+
+def _launch_merge_runs(slab, counts, sentinel):
+    e, r, cap = slab.shape
+    dev = slab.device
+    with _build.launch("srt_merge_runs", dev) as k:
+        merged = torch.empty((e, r * cap), dtype=torch.uint32, device=dev)
+        totals = torch.empty((e,), dtype=torch.int32, device=dev)
+        scratch = torch.empty((k.lib.srt_merge_runs_scratch(e, r, cap),),
+                              dtype=torch.int32, device=dev)
+        k.check(k.fn(slab.data_ptr(), counts.data_ptr(), merged.data_ptr(),
+                     totals.data_ptr(), scratch.data_ptr(), e, r, cap, sentinel,
+                     k.stream))
+    return merged, totals

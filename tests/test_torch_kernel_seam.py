@@ -222,6 +222,9 @@ def _ops():
         "srt_radix_pack": ("sort.py", lambda: tsort.radix_pack_pairs(
             torch.zeros((1, 16), dtype=torch.uint32), torch.zeros((1, 16), dtype=torch.int32),
             4, 8)),
+        "srt_merge_runs": ("sort.py", lambda: tsort.merge_sorted_runs(
+            torch.zeros((2, 2, 8), dtype=torch.uint32), torch.zeros((2, 2), dtype=torch.int32),
+            0xFFFFFFFF)),
         "srt_csr_build": ("csr.py", lambda: csr.csr_build(packed(), 2)),
         "srt_csr_pull": ("csr.py", lambda: csr.csr_pull(
             torch.zeros(2), csr.csr_build(packed(), 2))),
@@ -235,7 +238,7 @@ def test_the_kernel_call_is_made_in_the_op_module(cuda, monkeypatch, symbol):
     innermost package frame open at its launch."""
     for mod, path in ((trc, "_kernel_path"), (trc, "_wave_kernel_path"),
                       (tpa, "_kernel_path"), (tsort, "_pack_kernel_path"),
-                      (csr, "_kernel_path")):
+                      (tsort, "_merge_kernel_path"), (csr, "_kernel_path")):
         monkeypatch.setattr(mod, path, lambda t: True)
     module, run = _ops()[symbol]
     run()

@@ -328,3 +328,252 @@ def test_hashjoin_step_packs_once_a_side(fake_pack, monkeypatch):
     want = fn(*args)
     for a, b in zip(want, got):
         assert torch.equal(a, b)
+
+
+# ----------------------------------------------------------------------
+# merge_sorted_runs: the SPMD sort's merge of [E, R, cap] sorted runs
+# ----------------------------------------------------------------------
+RUN_CAP = 40
+
+
+def _runs(e, r, kind, seed, cap=RUN_CAP):
+    """A uint32 ``[E, R, cap]`` slab whose rows are ascending in their
+    first ``counts`` slots, and those int32 ``[E, R]`` counts: ragged,
+    with 0 and ``cap`` among them; the slots past a count hold random
+    keys, not the sentinel. ``kind``: ``ragged`` (uniform keys, 0, 2^31
+    and the sentinel among them), ``equal`` (one key everywhere) or
+    ``extremes`` (only 0 and 0xFFFFFFFF)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, cap + 1, (e, r)).astype(np.int32)
+    counts.flat[0] = cap
+    if counts.size > 1:
+        counts.flat[1] = 0
+    slab = rng.integers(0, 1 << 32, (e, r, cap), dtype=np.uint32)
+    for i in range(e):
+        for j in range(r):
+            c = counts[i, j]
+            if kind == "ragged":
+                run = _keys(seed + i * r + j, c)
+            elif kind == "equal":
+                run = np.full(c, 0x9E3779B1, np.uint32)
+            else:
+                run = rng.choice(np.array([0, SENTINEL], np.uint32), c)
+            slab[i, j, :c] = np.sort(run)
+    return slab, counts
+
+
+def _jax_merge(slab, counts):
+    """The JAX package's merge_received, shard by shard."""
+    got = [jsort.merge_received(jnp.asarray(s), jnp.asarray(c), SENTINEL)
+           for s, c in zip(slab, counts)]
+    return (np.stack([np.asarray(m) for m, _ in got]),
+            np.array([int(t) for _, t in got], np.int32))
+
+
+@pytest.mark.parametrize("kind", ["ragged", "equal", "extremes"])
+@pytest.mark.parametrize("e,r", [(1, 1), (2, 2), (3, 5), (4, 4), (8, 8), (2, 16)])
+def test_merge_sorted_runs_matches_jax(e, r, kind):
+    slab, counts = _runs(e, r, kind, seed=60 + 7 * e + r)
+    want_merged, want_totals = _jax_merge(slab, counts)
+    before = slab.copy()
+    merged, totals = tsort.merge_sorted_runs(torch.from_numpy(slab),
+                                             torch.from_numpy(counts), SENTINEL)
+    assert merged.dtype == torch.uint32 and merged.shape == (e, r * RUN_CAP)
+    assert totals.dtype == torch.int32 and totals.shape == (e,)
+    np.testing.assert_array_equal(want_merged, merged.numpy())
+    np.testing.assert_array_equal(want_totals, totals.numpy())
+    np.testing.assert_array_equal(before, slab)  # the plain version reads only
+
+
+class _FakeMergeLib:
+    """``srt_merge_runs`` as ``csrc/merge_runs.cu`` computes it, through
+    the pointers it is given, at a small tile (``THREADS`` x ``ITEMS``
+    outputs): the clamped counts' prefix, then each pass's merge-path
+    split of every tile and every thread's merge, ping-ponging between
+    the slab and ``merged``. Records its arguments; returns ``rc``."""
+
+    THREADS, ITEMS = 4, 3
+    TILE = THREADS * ITEMS
+
+    def __init__(self, rc=0):
+        self.rc = rc
+        self.calls = []
+
+    @staticmethod
+    def passes(r):
+        p = max(0, (r - 1).bit_length())
+        return p if p % 2 else p + 1
+
+    def tiles(self, w, r, cap):
+        return -(-min(w, r) * cap // self.TILE)
+
+    def srt_merge_runs_scratch(self, e, r, cap):
+        parts = max(-(-r // 2**p) * (self.tiles(2**p, r, cap) + 1)
+                    for p in range(1, self.passes(r) + 1))
+        return e * (r + 1) + e * parts
+
+    def srt_error_string(self, rc):
+        return b"invalid argument"
+
+    @staticmethod
+    def _path(a, b, diag):
+        lo, hi = max(0, diag - len(b)), min(diag, len(a))
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if a[mid] <= b[diag - 1 - mid]:
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo
+
+    def _tile(self, keys, na):
+        n = len(keys)
+        out = np.empty_like(keys)
+        for t in range(self.THREADS):
+            diag = min(t * self.ITEMS, n)
+            ai = self._path(keys[:na], keys[na:], diag)
+            bi = na + diag - ai
+            for j in range(min(self.ITEMS, n - diag)):
+                take_a = bi >= n or (ai < na and keys[ai] <= keys[bi])
+                out[diag + j] = keys[ai] if take_a else keys[bi]
+                ai, bi = (ai + 1, bi) if take_a else (ai, bi + 1)
+        return out
+
+    def srt_merge_runs(self, *args):
+        self.calls.append(args)
+        if self.rc:
+            return self.rc
+        slab_p, counts_p, merged_p, totals_p, _scratch, e, r, cap, sentinel, _ = args
+
+        def at(ptr, n, ctype):
+            return np.ctypeslib.as_array((ctype * n).from_address(ptr))
+
+        row = r * cap
+        bufs = [at(slab_p, e * row, ctypes.c_uint32).reshape(e, row),
+                at(merged_p, e * row, ctypes.c_uint32).reshape(e, row)]
+        counts = np.clip(at(counts_p, e * r, ctypes.c_int32).reshape(e, r), 0, cap)
+        pre = np.concatenate([np.zeros((e, 1), np.int64), np.cumsum(counts, 1)], 1)
+        totals = at(totals_p, e, ctypes.c_int32)
+        tile = self.TILE
+        for p in range(1, self.passes(r) + 1):
+            src, dst = bufs[(p + 1) % 2], bufs[p % 2]
+            w, last = 2**p, p == self.passes(r)
+            for s in range(e):
+                for g in range(-(-r // w)):
+                    lo, mid, hi = g * w, min(r, g * w + w // 2), min(r, g * w + w)
+                    na, nb = pre[s, mid] - pre[s, lo], pre[s, hi] - pre[s, mid]
+                    a = src[s, lo * cap:lo * cap + na].copy()
+                    b = src[s, mid * cap:mid * cap + nb].copy()
+                    n = na + nb
+                    tiles = self.tiles(w, r, cap)
+                    parts = [self._path(a, b, min(k * tile, n)) for k in range(tiles + 1)]
+                    out = dst[s, lo * cap:]
+                    for k in range(tiles):
+                        d0 = k * tile
+                        end = min(d0 + tile, row) if last else d0
+                        if d0 < n:
+                            size = min(tile, n - d0)
+                            a0, a1 = parts[k], parts[k + 1]
+                            keys = np.concatenate([a[a0:a1], b[d0 - a0:d0 - a0 + size - (a1 - a0)]])
+                            out[d0:d0 + size] = self._tile(keys, a1 - a0)
+                            d0 += size
+                        out[d0:end] = sentinel
+                    if last:
+                        totals[s] = n
+        return 0
+
+
+@pytest.fixture
+def fake_merge(monkeypatch):
+    lib = _FakeMergeLib()
+    monkeypatch.setattr(tsort, "_merge_kernel_path", lambda slab: True)
+    monkeypatch.setattr(_build, "_on_device",
+                        lambda symbol, device: contextlib.nullcontext((lib, 78)))
+    _build.reset_launch_counts()
+    return lib
+
+
+@pytest.mark.parametrize("e,r", [(1, 1), (2, 2), (3, 5), (4, 4), (8, 8), (2, 16)])
+def test_merge_runs_kernel_design_matches_plain_version(e, r, fake_merge):
+    """The kernel's passes, tiles and per-thread merges (emulated through
+    the launch's pointers) give the plain version's bytes; the slab is
+    the scratch of more than two runs."""
+    slab, counts = _runs(e, r, "ragged", seed=70 + e + r)
+    want = tsort.merge_sorted_runs_reference(torch.from_numpy(slab.copy()),
+                                             torch.from_numpy(counts), SENTINEL)
+    s, c = torch.from_numpy(slab), torch.from_numpy(counts)
+    got = tsort.merge_sorted_runs(s, c, SENTINEL)
+    (args,) = fake_merge.calls
+    assert args[0] == s.data_ptr() and args[1] == c.data_ptr()
+    assert args[2] == got[0].data_ptr() and args[3] == got[1].data_ptr()
+    assert all(isinstance(a, int) and a > 0 for a in args[:5])
+    assert args[5:] == (e, r, RUN_CAP, SENTINEL, 78)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert _build.launches["srt_merge_runs"] == 1
+
+
+def test_merge_runs_nonzero_return_raises(fake_merge):
+    fake_merge.rc = 1
+    slab, counts = _runs(2, 2, "ragged", seed=80)
+    with pytest.raises(RuntimeError, match="srt_merge_runs launch failed: invalid argument"):
+        tsort.merge_sorted_runs(torch.from_numpy(slab), torch.from_numpy(counts), SENTINEL)
+    assert _build.launches["srt_merge_runs"] == 0
+
+
+BAD_MERGES = {
+    "int32_slab": lambda s, c: (s.view(torch.int32), c, SENTINEL),
+    "two_dim": lambda s, c: (s[0], c, SENTINEL),
+    "int64_counts": lambda s, c: (s, c.to(torch.int64), SENTINEL),
+    "counts_shape": lambda s, c: (s, c[:, :-1].contiguous(), SENTINEL),
+    "non_contiguous": lambda s, c: (s.transpose(0, 1).contiguous().transpose(0, 1), c,
+                                    SENTINEL),
+    "sentinel_not_max": lambda s, c: (s, c, 0),
+    "empty": lambda s, c: (s[:, :, :0], c, SENTINEL),
+    "runs_above_1024": lambda s, c: (torch.zeros((1, 1025, 1), dtype=torch.uint32),
+                                     torch.zeros((1, 1025), dtype=torch.int32), SENTINEL),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_MERGES))
+def test_merge_runs_rejects_before_launch(bad, fake_merge):
+    slab, counts = _runs(2, 3, "ragged", seed=81)
+    args = BAD_MERGES[bad](torch.from_numpy(slab), torch.from_numpy(counts))
+    with pytest.raises(ValueError):
+        tsort.merge_sorted_runs(*args)
+    assert fake_merge.calls == [] and _build.launches["srt_merge_runs"] == 0
+
+
+def test_merge_runs_plain_version_takes_more_than_1024_runs():
+    """The kernel's limit of 1024 runs a shard does not bind the plain
+    version."""
+    slab, counts = _runs(1, 1030, "ragged", seed=82, cap=2)
+    want_merged, want_totals = _jax_merge(slab, counts)
+    merged, totals = tsort.merge_sorted_runs(torch.from_numpy(slab),
+                                             torch.from_numpy(counts), SENTINEL)
+    np.testing.assert_array_equal(want_merged, merged.numpy())
+    np.testing.assert_array_equal(want_totals, totals.numpy())
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_terasorter_step_merges_once_a_stage(adaptive, fake_merge, monkeypatch):
+    """TeraSorter.step's CUDA branch: one srt_merge_runs call a stage over
+    all shards' received runs, and the step's outputs those of the plain
+    path."""
+    from sparkrdma_tpu_torch.models.terasort import TeraSorter
+    from sparkrdma_tpu_torch.parallel.mesh import make_mesh
+
+    e, n_local = 4, 300
+    keys = torch.from_numpy(_keys(83, e * n_local))
+    edges = torch.from_numpy(np.sort(_keys(84, e - 1, high=False)))
+    sorter = TeraSorter(make_mesh(["cpu"] * e))
+    fn = sorter.step(n_local, adaptive=adaptive)
+    args = (keys, edges) if adaptive else (keys,)
+    got = [fn(*args) for _ in range(2)]
+    assert _build.launches["srt_merge_runs"] == 2
+    assert [c[5:8] for c in fake_merge.calls] == [(e, e, sorter.default_capacity(n_local))] * 2
+    monkeypatch.setattr(tsort, "_merge_kernel_path", lambda slab: False)
+    want = fn(*args)
+    for g in got:
+        for a, b in zip(want, g):
+            assert a.dtype == b.dtype and torch.equal(a, b)

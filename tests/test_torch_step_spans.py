@@ -79,7 +79,7 @@ STEPS = {
 # per step: each span's number a stage, and the span it nests in
 SPANS = {
     "sort": ({"terasort.step": 1, "terasort.local_sort": E, "terasort.split": E,
-              "exchange.a2a": 1, "terasort.merge": E},
+              "exchange.a2a": 1, "terasort.merge": 1},
              {"terasort.local_sort": "terasort.step", "terasort.split": "terasort.step",
               "exchange.a2a": "terasort.step", "terasort.merge": "terasort.step",
               "terasort.step": None}),
