@@ -2795,6 +2795,11 @@ SPMD_MODEL_SHARDS = 8
 HJ_BUILD = 204_000
 HJ_PROBE = 143_997_065
 HJ_MIX = 0x9E3779B1  # Fibonacci hashing: a bijection on 32-bit keys
+# (a2) the join at 8-byte rows: 4,194,304 x 67,108,864 tuples of uint64
+# keys (i * 0x9E3779B97F4A7C15 mod 2^64, a bijection) and int64 payloads
+HJW_BUILD = 1 << 22
+HJW_PROBE = 1 << 26
+HJW_MIX = 0x9E3779B97F4A7C15
 # (b) a tenth of twitter-2010 (41,652,230 vertices, 1,468,365,182 edges)
 PR_VERTICES = 4_165_223
 PR_EDGES = 146_836_518
@@ -2900,6 +2905,56 @@ def _models_hashjoin(torch, dev, mesh):
     run["readback_gbps"] = rows_dev.numel() * 8 / run["readback_s"] / 1e9
     del rows_dev
     run["profiled_step"] = _profiled(torch, lambda: fn(*args))
+    del args
+    return run
+
+
+def _models_hashjoin_wide(torch, dev, mesh):
+    """(a2) The join at 8-byte rows, uint64 keys at and above 2^63 with
+    int64 payloads; exact against a lookup in the sorted build keys on
+    the card."""
+    from sparkrdma_tpu_torch.models import HashJoin
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(37)
+    bk = np.arange(1, HJW_BUILD + 1, dtype=np.uint64) * np.uint64(HJW_MIX)
+    bv = rng.integers(-(1 << 62), 1 << 62, HJW_BUILD, dtype=np.int64)
+    pk = bk[rng.integers(0, HJW_BUILD, HJW_PROBE)]
+    pv = np.arange(HJW_PROBE, dtype=np.int64)
+    gen_s = time.perf_counter() - t
+
+    hj = HashJoin(mesh)
+    out, join_s, peak = _peak_run(torch, lambda: hj.join(bk, bv, pk, pv))
+    run = {"build_rows": HJW_BUILD, "probe_rows": HJW_PROBE, "data_s": gen_s,
+           "join_s": join_s, "walls": hj.last_walls,
+           "capacities": hj.last_capacities, "tries": len(hj.last_capacities),
+           "peak_above_baseline_bytes": peak}
+    got = torch.from_numpy(out).to(dev)  # the key column: the uint64 key's int64 bits
+    del out
+    if tuple(got.shape) != (HJW_PROBE, 3):
+        raise AssertionError(f"wide join output {tuple(got.shape)}, not ({HJW_PROBE}, 3)")
+    rows = got[:, 1]
+    if not torch.equal(torch.sort(rows).values,
+                       torch.arange(HJW_PROBE, dtype=torch.int64, device=dev)):
+        raise AssertionError("wide probe values are not a permutation of arange")
+    pk_dev = torch.from_numpy(pk.view(np.int64)).to(dev)
+    if not torch.equal(pk_dev[rows], got[:, 0]):
+        raise AssertionError("a wide joined row carries another row's probe key")
+    del pk_dev, rows
+    sign = -(1 << 63)  # uint64 order as int64 order: XOR the sign bit
+    keys, order = torch.sort(torch.from_numpy(bk.view(np.int64)).to(dev) ^ sign)
+    probe = got[:, 0].contiguous() ^ sign
+    pos = torch.searchsorted(keys, probe).clamp_(max=HJW_BUILD - 1)
+    if not torch.equal(keys[pos], probe):
+        raise AssertionError("a wide probe key missed the build side")
+    want = torch.from_numpy(bv).to(dev)[order[pos]]
+    if not torch.equal(want, got[:, 2]):
+        raise AssertionError("a wide joined value differs from the lookup's")
+    del got, keys, order, pos, want, probe
+    run["exact"] = True
+    args, nb, npl = hj.place(bk, bv, pk, pv)
+    fn = hj.step(nb, npl, *hj.last_capacities[-1])
+    _, run["step_warm_s"] = _synced_s(torch, lambda: fn(*args))
     del args
     return run
 
@@ -3052,8 +3107,10 @@ def phase_spmd_models(torch, dev):
     their users' sizes, each checked against an independent version on
     the card. The join's packs launch ``srt_radix_pack``, one a side a
     step, and PageRank's bucketing one a ``blocks`` call (two: ``run``'s
-    and the warm step's); PageRank's step builds its CSR once a call and
-    launches ``srt_csr_pull`` once an iteration; nothing else launches a
+    and the warm step's); the join at 8-byte rows (a2) launches
+    ``srt_radix_pack64`` in its place, one a side a step; PageRank's
+    step builds its CSR once a call and launches ``srt_csr_pull`` once
+    an iteration; nothing else launches a
     hand-written kernel (the exchanges are the dense all-to-all's
     transpose). Returns the pack's and the CSR kernels' launches."""
     from sparkrdma_tpu_torch.models import MapShardSorter
@@ -3071,6 +3128,13 @@ def phase_spmd_models(torch, dev):
     if _launched("srt_radix_pack") != want:
         raise AssertionError(
             f"the join launched srt_radix_pack {_launched('srt_radix_pack')} times, not {want}")
+    report["a2_hashjoin_wide"] = _models_hashjoin_wide(torch, dev, mesh)
+    # join()'s tries and the warm step: two 8-byte packs each, no 4-byte one
+    wide = 2 * (report["a2_hashjoin_wide"]["tries"] + 1)
+    if (_launched("srt_radix_pack64"), _launched("srt_radix_pack")) != (wide, want):
+        raise AssertionError(
+            f"the wide join launched srt_radix_pack64 {_launched('srt_radix_pack64')} and "
+            f"srt_radix_pack {_launched('srt_radix_pack') - want} times, not {wide} and 0")
     report["b_pagerank"] = _models_pagerank(torch, dev, mesh)
     by_model = {"a_hashjoin": want, "b_pagerank": _launched("srt_radix_pack") - want}
     if by_model["b_pagerank"] != 2:  # its two ``blocks`` calls, one pack each
@@ -3092,7 +3156,10 @@ def phase_spmd_models(torch, dev):
             f"the SPMD models launched kernels: {launched}, "
             f"srt_radix_pack {_launched('srt_radix_pack')}, CSR builds and pulls "
             f"{_launched('srt_csr_build')} and {_launched('srt_csr_pull')}")
+    if _launched("srt_radix_pack64") != wide:
+        raise AssertionError("a model past (a2) launched srt_radix_pack64")
     launches = {"srt_radix_pack": _launched("srt_radix_pack"),
+                "srt_radix_pack64": _launched("srt_radix_pack64"),
                 "srt_csr_build": _launched("srt_csr_build"),
                 "srt_csr_pull": _launched("srt_csr_pull")}
     emit(12, name="spmd_models", launches=launches, seconds=time.perf_counter() - t0,
@@ -3105,10 +3172,16 @@ def phase_spmd_models(torch, dev):
 RP_SHARDS = 8
 RP_ROWS = 16_000_000
 RP_CAP = 4_000_000
+# the wide join cell's probe side (shufflebench join.pkfk.u64.256m): 8
+# shards of 2^25 rows of 8-byte keys and payloads into 8 partitions of
+# 2^23 slots
+RP64_ROWS = 1 << 25
+RP64_CAP = 1 << 23
 
 
-def time_radix_pack(torch, dev):
-    """srt_radix_pack at the join cell's shape, one side: checked bit for
+def time_radix_pack(torch, dev, wide=False):
+    """srt_radix_pack at the join cell's shape, one side (``wide``:
+    srt_radix_pack64 at the wide join cell's probe side): checked bit for
     bit against the plain version, then timed as the C entry point alone
     on prebuilt outputs, the wrapper, the plain version
     (``radix_pack_pairs_reference``) and the path it replaced (per
@@ -3118,52 +3191,62 @@ def time_radix_pack(torch, dev):
     from sparkrdma_tpu_torch.ops import _build
     from sparkrdma_tpu_torch.ops import sort as so
 
-    e, n, p, cap = RP_SHARDS, RP_ROWS, RP_SHARDS, RP_CAP
+    e, p = RP_SHARDS, RP_SHARDS
+    n, cap = (RP64_ROWS, RP64_CAP) if wide else (RP_ROWS, RP_CAP)
+    symbol = "srt_radix_pack64" if wide else "srt_radix_pack"
+    bits = torch.int64 if wide else torch.int32
+    key_bits, key_fill = (64, (1 << 64) - 1) if wide else (KEY_BITS, SENTINEL)
+    row = 2 * (8 if wide else 4)  # a key and a payload
     g = torch.Generator(device=dev)
     g.manual_seed(4_230_000_001)
-    keys = torch.randint(-(1 << 31), 1 << 31, (e, n), dtype=torch.int64, device=dev,
-                         generator=g).to(torch.int32).view(torch.uint32)
-    vals = torch.arange(e * n, dtype=torch.int32, device=dev).view(e, n)
+    if wide:
+        keys = torch.randint(-(1 << 63), (1 << 63) - 1, (e, n), dtype=torch.int64,
+                             device=dev, generator=g).view(torch.uint64)
+    else:
+        keys = torch.randint(-(1 << 31), 1 << 31, (e, n), dtype=torch.int64, device=dev,
+                             generator=g).to(torch.int32).view(torch.uint32)
+    vals = torch.arange(e * n, dtype=bits, device=dev).view(e, n)
     t = time.perf_counter()
     lib = _build._load("libsrt_radix_pack.so")
     load_s = time.perf_counter() - t
     built = _build.builds.get("libsrt_radix_pack.so")
-    got = so.radix_pack_pairs(keys, vals, p, cap, KEY_BITS, SENTINEL, -1)
-    want = so.radix_pack_pairs_reference(keys, vals, p, cap, KEY_BITS, SENTINEL, -1)
+    got = so.radix_pack_pairs(keys, vals, p, cap, key_bits, key_fill, -1)
+    want = so.radix_pack_pairs_reference(keys, vals, p, cap, key_bits, key_fill, -1)
     for name, a, b in zip(("kslab", "vslab", "counts", "overflowed"), want, got):
-        if not torch.equal(a, b):
-            raise AssertionError(f"srt_radix_pack's {name} differs from the plain version's")
+        if not torch.equal(so._bits(a), so._bits(b)):
+            raise AssertionError(f"{symbol}'s {name} differs from the plain version's")
     del want
     kslab, vslab, counts, flags = got
     scratch = torch.empty((lib.srt_radix_pack_scratch(e, n, p),), dtype=torch.int32,
                           device=dev)
     stream = torch.cuda.current_stream().cuda_stream
+    fn = getattr(lib, symbol)
 
     def raw():
-        code = lib.srt_radix_pack(
+        code = fn(
             keys.data_ptr(), vals.data_ptr(), kslab.data_ptr(), vslab.data_ptr(),
-            counts.data_ptr(), flags.data_ptr(), scratch.data_ptr(), e, n, p, KEY_BITS,
+            counts.data_ptr(), flags.data_ptr(), scratch.data_ptr(), e, n, p, key_bits,
             cap, -1, -1, stream)
         if code:
-            raise RuntimeError(f"srt_radix_pack launch failed ({code})")
+            raise RuntimeError(f"{symbol} launch failed ({code})")
 
     def wrapper():
-        return so.radix_pack_pairs(keys, vals, p, cap, KEY_BITS, SENTINEL, -1)
+        return so.radix_pack_pairs(keys, vals, p, cap, key_bits, key_fill, -1)
 
     def plain():
-        return so.radix_pack_pairs_reference(keys, vals, p, cap, KEY_BITS, SENTINEL, -1)
+        return so.radix_pack_pairs_reference(keys, vals, p, cap, key_bits, key_fill, -1)
 
-    ks = torch.empty((e, p, cap), dtype=torch.int32, device=dev)
+    ks = torch.empty((e, p, cap), dtype=bits, device=dev)
     vs = torch.empty_like(ks)
     cs = torch.empty((e, p), dtype=torch.int32, device=dev)
     fs = torch.empty((e,), dtype=torch.bool, device=dev)
 
     def replaced():
         for i in range(e):
-            dest = so.radix_partition(keys[i], p, KEY_BITS)
-            k, cs[i], fs[i] = so.pack_by_partition(keys[i], dest, p, cap, fill=SENTINEL)
+            dest = so.radix_partition(keys[i], p, key_bits)
+            k, cs[i], fs[i] = so.pack_by_partition(keys[i], dest, p, cap, fill=key_fill)
             vs[i], _, _ = so.pack_by_partition(vals[i], dest, p, cap, fill=-1)
-            ks[i] = k.view(torch.int32)
+            ks[i] = so._bits(k)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -3176,12 +3259,12 @@ def time_radix_pack(torch, dev):
                  for ev in prof.key_averages()
                  if getattr(ev, "device_type", None) == cuda
                  for k in ("radix_hist", "radix_scan", "radix_scatter") if k in ev.key}
-    read = 2 * e * n * 4  # what the pack needs: keys and payloads once
-    written = 2 * e * p * cap * 4  # both slabs, padding included
-    hist_read = e * n * 4  # this design's second read of the keys
+    read = e * n * row  # what the pack needs: keys and payloads once
+    written = e * p * cap * row  # both slabs, padding included
+    hist_read = e * n * row // 2  # this design's second read of the keys
     kernel_ms = event_ms_per_call(torch, raw, 20)
     entry = {
-        "name": "srt_radix_pack", "route": "cuda",
+        "name": symbol, "route": "cuda",
         "source": "sparkrdma_tpu_torch/ops/csrc/radix_pack.cu",
         "replaces": "none (the JAX pack is plain jnp: sparkrdma_tpu/ops/sort.py "
                     "radix_partition + pack_by_partition)",
@@ -3205,7 +3288,7 @@ def time_radix_pack(torch, dev):
                   "written_bytes": written,
                   "overflowed": bool(flags.any())},
     }
-    emit("timing_radix_pack", kernels=[entry])
+    emit("timing_radix_pack64" if wide else "timing_radix_pack", kernels=[entry])
     return entry
 
 
@@ -6162,6 +6245,7 @@ def _main(torch, dev):
     sp_training = phase_sp_training_path(torch, dev, step7_s)
     join_launches = phase_spmd_models(torch, dev)
     kernels.append(time_radix_pack(torch, dev))
+    kernels.append(time_radix_pack(torch, dev, wide=True))
     kernels.append(time_csr_pull(torch, dev))
     kernels.append(time_merge_runs(torch, dev))
     phase_data_planes(torch, dev)

@@ -1,0 +1,10 @@
+"""phase.pack_ms.join_u64 (ms, program span), in join.pkfk.u64.256m
+(HashJoin.step at 8-byte rows): device time a stage launched under the
+program's ``hashjoin.pack`` span, innermost (the two 64-bit packs), in
+the stretch traced without frame annotations."""
+
+from shufflebench.spans import phase_ms
+
+
+def read(run):
+    return phase_ms(run, "hashjoin.pack")

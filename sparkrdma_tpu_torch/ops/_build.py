@@ -64,6 +64,7 @@ _vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _FWD = ((_vp,) * 5 + (_ll,) * 6 + (_vp,), _int)  # q k v out lse
 _BWD_DQ = ((_vp,) * 7 + (_ll,) * 6 + (_vp,), _int)  # q k v do lse delta dq
 _BWD_DKV = ((_vp,) * 8 + (_ll,) * 6 + (_vp,), _int)  # ... dk dv
+_PACK = ((_vp,) * 7 + (_ll,) * 7 + (_vp,), _int)  # keys vals kslab vslab counts flags scratch
 _ERROR_STRING = ((_int,), ctypes.c_char_p)
 
 
@@ -93,7 +94,8 @@ LIBRARIES: Dict[str, Library] = {
          "srt_error_string": _ERROR_STRING}),
     "libsrt_radix_pack.so": Library(
         ("radix_pack.cu",),
-        {"srt_radix_pack": ((_vp,) * 7 + (_ll,) * 7 + (_vp,), _int),
+        {"srt_radix_pack": _PACK,
+         "srt_radix_pack64": _PACK,
          "srt_radix_pack_scratch": ((_ll,) * 3, _ll),
          "srt_error_string": _ERROR_STRING}),
     "libsrt_merge_runs.so": Library(

@@ -7,8 +7,15 @@
 // for every shard and column; this kernel is the one-pass partitioning
 // a GPU does instead.
 //
-// What it computes, for each shard i of an [E, n] stack of uint32 keys
-// (passed as their int32 bits) and an [E, n] int32 payload column:
+// Two row widths, one template (T, the keys' and payloads' type):
+//   srt_radix_pack:   4-byte rows, uint32 keys (as their int32 bits) and
+//                     int32 payloads, key_bits in [log2 P, 32];
+//   srt_radix_pack64: 8-byte rows, uint64 keys (as their int64 bits) and
+//                     int64 payloads, key_bits in [log2 P, 64].
+// Both take srt_radix_pack_scratch's scratch: the tile is the same.
+//
+// What it computes, for each shard i of an [E, n] stack of keys and an
+// [E, n] payload column:
 //   dest    = the key's top log2(P) bits below key_bits (radix_partition),
 //   kslab[i], counts[i], flags[i] = pack_by_partition(keys[i], dest, P, cap, key_fill),
 //   vslab[i]                      = pack_by_partition(vals[i], dest, P, cap, val_fill),
@@ -37,9 +44,12 @@
 //      then writes the fill into its share of every row's padding slots
 //      [count, cap), and only those: no slab is filled first.
 // Scratch (tile counts, totals) comes from the caller; the kernel
-// allocates nothing.
+// allocates nothing. The 8-byte scatter stages 32 KB of rows a block
+// (44 KB of static shared memory in all) and holds twice the registers
+// for its rows, so it runs fewer blocks an SM than the 4-byte one.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -50,11 +60,16 @@ constexpr int kRowsPerThread = 8;
 constexpr int kTile = kThreads * kRowsPerThread;  // rows a block
 constexpr int kMaxPartitions = 256;
 constexpr int kScanThreads = 1024;
-// radix_scatter's blocks an SM: at 64 registers a thread four fit the
-// registers (and eight the shared memory, 27 KB each); fewer blocks of
-// more registers, tiles of 4,096 rows, or loading the payloads only
-// after the ranking each measured slower at the join's shape
+// radix_scatter's blocks an SM at 4-byte rows: at 64 registers a thread
+// four fit the registers (and eight the shared memory, 27 KB each);
+// fewer blocks of more registers, tiles of 4,096 rows, or loading the
+// payloads only after the ranking each measured slower at the join's
+// shape
 constexpr int kScatterBlocksPerSM = 4;
+// at 8-byte rows: three blocks an SM leave a thread 85 registers (its
+// rows take 32 of them; ptxas uses 79, no spills) and 44 KB of shared
+// memory a block
+constexpr int kScatterBlocksPerSM64 = 3;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Shape {
@@ -66,9 +81,11 @@ struct Shape {
   long long cap;    // slots a partition
 };
 
-__device__ __forceinline__ int dest_of(int key, const Shape& s) {
-  return s.lg == 0 ? 0 : static_cast<int>((static_cast<unsigned>(key) >> s.shift) &
-                                          static_cast<unsigned>(s.p - 1));
+template <typename T>
+__device__ __forceinline__ int dest_of(T key, const Shape& s) {
+  using U = typename std::make_unsigned<T>::type;
+  return s.lg == 0 ? 0 : static_cast<int>((static_cast<U>(key) >> s.shift) &
+                                          static_cast<U>(s.p - 1));
 }
 
 // The lanes of this warp whose row is valid and has destination d
@@ -89,21 +106,22 @@ __device__ __forceinline__ long long tile_rows(long long tile, const Shape& s) {
 }
 
 // hist[(shard * p + d) * tiles + tile] = rows of the tile with destination d
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-radix_hist(const int* __restrict__ keys, int* __restrict__ hist, Shape s) {
+radix_hist(const T* __restrict__ keys, int* __restrict__ hist, Shape s) {
   __shared__ int h[kMaxPartitions];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long tile = blockIdx.x, shard = blockIdx.y;
   for (int d = tid; d < s.p; d += kThreads) h[d] = 0;
   __syncthreads();
   const long long rows = tile_rows(tile, s);
-  const int* src = keys + shard * s.n + tile * kTile;
+  const T* src = keys + shard * s.n + tile * kTile;
   const int first = warp * 32 * kRowsPerThread + lane;
-  int key[kRowsPerThread];
+  T key[kRowsPerThread];
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r) {
     const int i = first + r * 32;
-    key[r] = i < rows ? __ldg(src + i) : 0;
+    key[r] = i < rows ? __ldg(src + i) : T(0);
   }
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r) {
@@ -118,6 +136,9 @@ radix_hist(const int* __restrict__ keys, int* __restrict__ hist, Shape s) {
 
 // Exclusive scan of one (shard, d) row of hist over its tiles, in place;
 // totals[shard * p + d] = the partition's rows, counts = min(total, cap).
+// T names the row width in the kernel's name only (its device time then
+// goes to its width in a trace); the scan reads tile counts.
+template <typename T>
 __global__ void __launch_bounds__(kScanThreads)
 radix_scan(int* __restrict__ hist, int* __restrict__ totals, int* __restrict__ counts,
            Shape s) {
@@ -161,13 +182,14 @@ radix_scan(int* __restrict__ hist, int* __restrict__ totals, int* __restrict__ c
   }
 }
 
-__global__ void __launch_bounds__(kThreads, kScatterBlocksPerSM)
-radix_scatter(const int* __restrict__ keys, const int* __restrict__ vals,
+template <typename T, int kBlocksPerSM>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+radix_scatter(const T* __restrict__ keys, const T* __restrict__ vals,
               const int* __restrict__ hist, const int* __restrict__ totals,
-              int* __restrict__ kslab, int* __restrict__ vslab,
-              unsigned char* __restrict__ flags, Shape s, int key_fill, int val_fill) {
-  __shared__ int sk[kTile];
-  __shared__ int sv[kTile];
+              T* __restrict__ kslab, T* __restrict__ vslab,
+              unsigned char* __restrict__ flags, Shape s, T key_fill, T val_fill) {
+  __shared__ T sk[kTile];
+  __shared__ T sv[kTile];
   __shared__ int wcount[kWarps][kMaxPartitions];  // per-warp counts, then offsets
   __shared__ int tstart[kMaxPartitions];          // a destination's first slot in sk
   __shared__ int goff[kMaxPartitions];            // the tile's first rank in the partition
@@ -192,12 +214,13 @@ radix_scatter(const int* __restrict__ keys, const int* __restrict__ vals,
   // lanes walk the rows in order
   const long long at = shard * s.n + tile * kTile;
   const int first = warp * 32 * kRowsPerThread + lane;
-  int key[kRowsPerThread], val[kRowsPerThread], rank[kRowsPerThread];
+  T key[kRowsPerThread], val[kRowsPerThread];
+  int rank[kRowsPerThread];
 #pragma unroll
   for (int r = 0; r < kRowsPerThread; ++r) {
     const int i = first + r * 32;
-    key[r] = i < rows ? __ldg(keys + at + i) : 0;
-    val[r] = i < rows ? __ldg(vals + at + i) : 0;
+    key[r] = i < rows ? __ldg(keys + at + i) : T(0);
+    val[r] = i < rows ? __ldg(vals + at + i) : T(0);
   }
   const unsigned lower = (1u << lane) - 1;
 #pragma unroll
@@ -260,7 +283,7 @@ radix_scatter(const int* __restrict__ keys, const int* __restrict__ vals,
   // on neighbouring slots
   const long long last = s.cap - 1;
   for (int i = tid; i < rows; i += kThreads) {
-    const int k = sk[i];
+    const T k = sk[i];
     const int d = dest_of(k, s);
     const long long r = static_cast<long long>(goff[d]) + (i - tstart[d]);
     const long long slot = r < last ? r : (r == total[d] - 1 ? last : -1);
@@ -287,29 +310,18 @@ radix_scatter(const int* __restrict__ keys, const int* __restrict__ vals,
 
 long long tiles_of(long long n) { return (n + kTile - 1) / kTile; }
 
-}  // namespace
-
-extern "C" {
-
-// int32 elements of the scratch that srt_radix_pack takes for an [e, n]
-// stack into p partitions: the tile counts and the totals.
-long long srt_radix_pack_scratch(long long e, long long n, long long p) {
-  return e * p * (tiles_of(n) + 1);
-}
-
-// keys, vals: [e, n] int32 (the keys as their uint32 bits); kslab, vslab:
-// [e, p, cap] int32; counts: [e, p] int32; flags: [e] bytes (bool);
-// scratch: srt_radix_pack_scratch(e, n, p) int32. p a power of two in
-// [1, 256], key_bits in [log2 p, 32], cap >= 1, n < 2^31. Returns a
-// cudaError_t code.
-int srt_radix_pack(const void* keys, const void* vals, void* kslab, void* vslab,
-                   void* counts, void* flags, void* scratch, long long e, long long n,
-                   long long p, long long key_bits, long long cap, long long key_fill,
-                   long long val_fill, void* stream) {
+// One pack of T-wide rows: the three launches on the caller's stream.
+template <typename T, int kBlocksPerSM>
+int radix_pack(const void* keys, const void* vals, void* kslab, void* vslab,
+               void* counts, void* flags, void* scratch, long long e, long long n,
+               long long p, long long key_bits, long long cap, long long key_fill,
+               long long val_fill, void* stream) {
+  constexpr long long kKeyBits = 8 * sizeof(T);
   int lg = 0;
   while ((1ll << lg) < p) ++lg;
   if (e < 0 || e > 65535 || n < 0 || n > 0x7fffffffll || p < 1 || p > kMaxPartitions ||
-      (1ll << lg) != p || key_bits < lg || key_bits > 32 || cap < 1 || cap > 0x7fffffffll)
+      (1ll << lg) != p || key_bits < lg || key_bits > kKeyBits || cap < 1 ||
+      cap > 0x7fffffffll)
     return static_cast<int>(cudaErrorInvalidValue);
   if (e == 0) return 0;
   Shape s;
@@ -324,22 +336,60 @@ int srt_radix_pack(const void* keys, const void* vals, void* kslab, void* vslab,
   int* totals = hist + e * p * s.tiles;
   const unsigned ue = static_cast<unsigned>(e);
   if (s.tiles > 0) {
-    radix_hist<<<dim3(static_cast<unsigned>(s.tiles), ue), kThreads, 0, st>>>(
-        static_cast<const int*>(keys), hist, s);
+    radix_hist<T><<<dim3(static_cast<unsigned>(s.tiles), ue), kThreads, 0, st>>>(
+        static_cast<const T*>(keys), hist, s);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  radix_scan<<<dim3(static_cast<unsigned>(p), ue), kScanThreads, 0, st>>>(
+  radix_scan<T><<<dim3(static_cast<unsigned>(p), ue), kScanThreads, 0, st>>>(
       hist, totals, static_cast<int*>(counts), s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>(s.tiles > 0 ? s.tiles : 1);
-  radix_scatter<<<dim3(blocks, ue), kThreads, 0, st>>>(
-      static_cast<const int*>(keys), static_cast<const int*>(vals), hist, totals,
-      static_cast<int*>(kslab), static_cast<int*>(vslab),
-      static_cast<unsigned char*>(flags), s, static_cast<int>(key_fill),
-      static_cast<int>(val_fill));
+  radix_scatter<T, kBlocksPerSM><<<dim3(blocks, ue), kThreads, 0, st>>>(
+      static_cast<const T*>(keys), static_cast<const T*>(vals), hist, totals,
+      static_cast<T*>(kslab), static_cast<T*>(vslab),
+      static_cast<unsigned char*>(flags), s, static_cast<T>(key_fill),
+      static_cast<T>(val_fill));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// int32 elements of the scratch that srt_radix_pack and srt_radix_pack64
+// take for an [e, n] stack into p partitions: the tile counts and the
+// totals.
+long long srt_radix_pack_scratch(long long e, long long n, long long p) {
+  return e * p * (tiles_of(n) + 1);
+}
+
+// keys, vals: [e, n] int32 (the keys as their uint32 bits); kslab, vslab:
+// [e, p, cap] int32; counts: [e, p] int32; flags: [e] bytes (bool);
+// scratch: srt_radix_pack_scratch(e, n, p) int32. p a power of two in
+// [1, 256], key_bits in [log2 p, 32], cap >= 1, n < 2^31; key_fill and
+// val_fill as int32 values. Returns a cudaError_t code.
+int srt_radix_pack(const void* keys, const void* vals, void* kslab, void* vslab,
+                   void* counts, void* flags, void* scratch, long long e, long long n,
+                   long long p, long long key_bits, long long cap, long long key_fill,
+                   long long val_fill, void* stream) {
+  return radix_pack<int, kScatterBlocksPerSM>(keys, vals, kslab, vslab, counts, flags,
+                                               scratch, e, n, p, key_bits, cap, key_fill,
+                                               val_fill, stream);
+}
+
+// srt_radix_pack at 8-byte rows: keys, vals [e, n] int64 (the keys as
+// their uint64 bits); kslab, vslab [e, p, cap] int64; key_bits in
+// [log2 p, 64]; key_fill and val_fill as int64 values. Everything else
+// as srt_radix_pack.
+int srt_radix_pack64(const void* keys, const void* vals, void* kslab, void* vslab,
+                     void* counts, void* flags, void* scratch, long long e, long long n,
+                     long long p, long long key_bits, long long cap, long long key_fill,
+                     long long val_fill, void* stream) {
+  return radix_pack<long long, kScatterBlocksPerSM64>(
+      keys, vals, kslab, vslab, counts, flags, scratch, e, n, p, key_bits, cap, key_fill,
+      val_fill, stream);
 }
 
 const char* srt_error_string(int code) {

@@ -15,9 +15,11 @@ same arguments, results and overflow contract:
   (dest, value) pairs into the same slab shape,
 - ``radix_pack_pairs``: the hash join's pack, ``radix_partition`` and
   two ``pack_by_partition`` calls (keys and payloads) for every shard of
-  an ``[E, n]`` stack at once. On CUDA it launches the hand-written
-  ``srt_radix_pack`` (``csrc/radix_pack.cu``, a library of its own);
-  on the CPU it runs :func:`radix_pack_pairs_reference`, the plain
+  an ``[E, n]`` stack at once, at 4-byte rows (uint32 keys, int32
+  payloads) or 8-byte rows (uint64, int64). On CUDA it launches the
+  hand-written ``srt_radix_pack`` or ``srt_radix_pack64``
+  (``csrc/radix_pack.cu``, one template, a library of its own); on the
+  CPU it runs :func:`radix_pack_pairs_reference`, the plain
   version; nothing falls back. Each launch counts in
   ``_build.launches``. PageRank's bucketing packs by it too;
   ``pack_by_partition`` stays the plain op of any ``dest`` (ALS, and
@@ -33,14 +35,15 @@ same arguments, results and overflow contract:
 - ``device_put_columns``: the columns of one columnar block (DESIGN.md
   §25), each staged to the device by one host-to-device copy.
 
-uint32 keys. PyTorch implements few operators for ``torch.uint32``
-(no ``searchsorted``, ``>>``, ``minimum`` or comparisons), so this
-module converts at its own boundary: a uint32 tensor is reinterpreted
-as int32 and XORed with 0x80000000, which maps unsigned order onto
-signed order; the op runs in int32 and the result is mapped back.
-Data that only moves (slab fill, gathers) moves as its int32 bit
-pattern. Callers keep handing in and getting back uint32 bytes that are
-identical to the JAX package's.
+uint32 and uint64 keys. PyTorch implements few operators for
+``torch.uint32`` and ``torch.uint64`` (no ``searchsorted``, ``>>``,
+``minimum`` or comparisons), so this module converts at its own
+boundary: an unsigned tensor is reinterpreted as the signed type of its
+width and XORed with the sign bit (0x80000000, 2^63), which maps
+unsigned order onto signed order; the op runs in int32 or int64 and the
+result is mapped back. Data that only moves (slab fill, gathers) moves
+as its signed bit pattern. Callers keep handing in and getting back
+uint32 bytes that are identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -55,40 +58,51 @@ from sparkrdma_tpu_torch.ops import _build
 from sparkrdma_tpu_torch.utils.torch_compat import resolve_device, torch_dtype
 
 _SIGN = -(1 << 31)  # the int32 bit pattern 0x80000000
+# unsigned key dtype -> (the signed dtype of its bit pattern, its sign bit
+# there, its width in bits)
+_UNSIGNED = {torch.uint32: (torch.int32, _SIGN, 32),
+             torch.uint64: (torch.int64, -(1 << 63), 64)}
+# the pack's two row widths: key dtype -> payload dtype
+_PACK_ROWS = {torch.uint32: torch.int32, torch.uint64: torch.int64}
+_PACK_SYMBOL = {torch.uint32: "srt_radix_pack", torch.uint64: "srt_radix_pack64"}
 RADIX_PACK_MAX_PARTITIONS = 256  # the kernel's per-block histogram
 MERGE_RUNS_MAX_RUNS = 1024  # srt_merge_runs: a shard's runs summed in one block
 MERGE_RUNS_MAX_SLOTS = 2**31 - 1  # R * cap: int32 places in a shard's row
 
 
 def _ordered(x: torch.Tensor) -> torch.Tensor:
-    """uint32 -> order-preserving int32; other dtypes unchanged."""
-    if x.dtype == torch.uint32:
-        return x.view(torch.int32) ^ _SIGN
+    """uint32 / uint64 -> order-preserving int32 / int64; other dtypes
+    unchanged."""
+    if x.dtype in _UNSIGNED:
+        bits, sign, _ = _UNSIGNED[x.dtype]
+        return x.view(bits) ^ sign
     return x
 
 
 def _unordered(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Inverse of :func:`_ordered` for a result that should be ``dtype``."""
-    if dtype == torch.uint32:
-        return (y ^ _SIGN).view(torch.uint32)
+    if dtype in _UNSIGNED:
+        return (y ^ _UNSIGNED[dtype][1]).view(dtype)
     return y
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
-    """uint32 data as its int32 bit pattern (for moves, not compares)."""
-    return x.view(torch.int32) if x.dtype == torch.uint32 else x
+    """uint32 / uint64 data as its int32 / int64 bit pattern (for moves,
+    not compares)."""
+    return x.view(_UNSIGNED[x.dtype][0]) if x.dtype in _UNSIGNED else x
 
 
 def _bits_scalar(v: int, dtype: torch.dtype) -> int:
     """A fill value in the representation :func:`_bits` uses."""
-    if dtype == torch.uint32:
-        v &= 0xFFFFFFFF
-        return v - (1 << 32) if v >= (1 << 31) else v
+    if dtype in _UNSIGNED:
+        width = _UNSIGNED[dtype][2]
+        v &= (1 << width) - 1
+        return v - (1 << width) if v >= (1 << (width - 1)) else v
     return v
 
 
 def _from_bits(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return x.view(torch.uint32) if dtype == torch.uint32 else x
+    return x.view(dtype) if dtype in _UNSIGNED else x
 
 
 def _host_tensor(col: np.ndarray) -> torch.Tensor:
@@ -164,6 +178,9 @@ def radix_partition(keys: torch.Tensor, num_partitions: int,
         # a logical shift: arithmetic shift of the bit pattern, then
         # mask off the copies of the sign bit
         return (keys.view(torch.int32) >> shift) & ((1 << (32 - shift)) - 1)
+    if keys.dtype == torch.uint64:
+        top = keys.view(torch.int64) >> shift
+        return (top & ((1 << (64 - shift)) - 1) if shift else top).to(torch.int32)
     return (keys >> shift).to(torch.int32)
 
 
@@ -228,10 +245,10 @@ def radix_pack_pairs_reference(
 
 
 def _check_pack_pairs(keys, vals, num_partitions, capacity, key_bits, val_fill):
-    if keys.dtype != torch.uint32 or vals.dtype != torch.int32:
+    if _PACK_ROWS.get(keys.dtype) != vals.dtype:
         raise ValueError(
-            f"radix_pack_pairs takes uint32 keys and int32 payloads, not "
-            f"{keys.dtype} and {vals.dtype}")
+            f"radix_pack_pairs takes uint32 keys and int32 payloads or uint64 keys "
+            f"and int64 payloads, not {keys.dtype} and {vals.dtype}")
     if keys.dim() != 2 or keys.shape != vals.shape or keys.shape[0] < 1:
         raise ValueError(
             f"radix_pack_pairs takes two [E, n] stacks (E >= 1), not "
@@ -243,12 +260,13 @@ def _check_pack_pairs(keys, vals, num_partitions, capacity, key_bits, val_fill):
     p = num_partitions
     if p < 1 or p & (p - 1):
         raise ValueError(f"num_partitions must be a power of two, not {p}")
-    if not p.bit_length() - 1 <= key_bits <= 32:
-        raise ValueError(f"key_bits {key_bits} outside [log2 P, 32]")
+    width = _UNSIGNED[keys.dtype][2]
+    if not p.bit_length() - 1 <= key_bits <= width:
+        raise ValueError(f"key_bits {key_bits} outside [log2 P, {width}]")
     if capacity < 1:
         raise ValueError(f"capacity must be at least 1, not {capacity}")
-    if not -(1 << 31) <= val_fill < 1 << 31:
-        raise ValueError(f"val_fill {val_fill} is not an int32")
+    if not -(1 << (width - 1)) <= val_fill < 1 << (width - 1):
+        raise ValueError(f"val_fill {val_fill} is not an int{width}")
 
 
 def _check_kernel_limits(keys, num_partitions, capacity):
@@ -267,19 +285,23 @@ def radix_pack_pairs(
     key_bits: int = 32, key_fill: int = 0, val_fill: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pack each shard of a contiguous ``[E, n]`` stack of uint32 keys and
-    one of int32 payloads by the keys' top bits.
+    one of int32 payloads (4-byte rows), or of uint64 keys and int64
+    payloads (8-byte rows), by the keys' top bits.
 
-    Returns ``(kslab [E, P, capacity] uint32, vslab [E, P, capacity]
-    int32, counts [E, P] int32, overflowed [E] bool)``: for every shard
+    Returns ``(kslab [E, P, capacity] uint32 / uint64, vslab [E, P,
+    capacity] int32 / int64, counts [E, P] int32, overflowed [E] bool)``:
+    for every shard
     ``i``, byte for byte :func:`pack_by_partition` of ``keys[i]`` (fill
     ``key_fill``) and of ``vals[i]`` (fill ``val_fill``) by
     ``radix_partition(keys[i], P, key_bits)``. ``P`` is a power of two
-    (up to 256 on CUDA); keys lie below ``2^key_bits``.
+    (up to 256 on CUDA); keys lie below ``2^key_bits``, at most the key's
+    width.
 
-    CUDA stacks: one ``srt_radix_pack`` call on the current stream
-    (three kernels), not waited on and with nothing read back; the
-    outputs and the scratch come from ``torch.empty``. CPU stacks: the
-    plain version."""
+    CUDA stacks: one ``srt_radix_pack`` (4-byte rows) or
+    ``srt_radix_pack64`` (8-byte rows) call on the current stream (three
+    kernels), not waited on and with nothing read back; the outputs and
+    the scratch come from ``torch.empty``. CPU stacks: the plain
+    version."""
     _check_pack_pairs(keys, vals, num_partitions, capacity, key_bits, val_fill)
     args = (keys, vals, num_partitions, capacity, key_bits, key_fill, val_fill)
     if _pack_kernel_path(keys):
@@ -293,8 +315,8 @@ def radix_pack_pairs(
 def _launch_radix_pack(keys, vals, p, capacity, key_bits, key_fill, val_fill):
     e, n = keys.shape
     dev = keys.device
-    with _build.launch("srt_radix_pack", dev) as k:
-        kslab = torch.empty((e, p, capacity), dtype=torch.int32, device=dev)
+    with _build.launch(_PACK_SYMBOL[keys.dtype], dev) as k:
+        kslab = torch.empty((e, p, capacity), dtype=vals.dtype, device=dev)
         vslab = torch.empty_like(kslab)
         counts = torch.empty((e, p), dtype=torch.int32, device=dev)
         flags = torch.empty((e,), dtype=torch.bool, device=dev)
@@ -303,9 +325,9 @@ def _launch_radix_pack(keys, vals, p, capacity, key_bits, key_fill, val_fill):
         k.check(k.fn(
             keys.data_ptr(), vals.data_ptr(), kslab.data_ptr(), vslab.data_ptr(),
             counts.data_ptr(), flags.data_ptr(), scratch.data_ptr(), e, n, p,
-            key_bits, capacity, _bits_scalar(key_fill, torch.uint32), val_fill,
+            key_bits, capacity, _bits_scalar(key_fill, keys.dtype), val_fill,
             k.stream))
-    return kslab.view(torch.uint32), vslab, counts, flags
+    return kslab.view(keys.dtype), vslab, counts, flags
 
 
 def split_sorted(

@@ -222,6 +222,9 @@ def _ops():
         "srt_radix_pack": ("sort.py", lambda: tsort.radix_pack_pairs(
             torch.zeros((1, 16), dtype=torch.uint32), torch.zeros((1, 16), dtype=torch.int32),
             4, 8)),
+        "srt_radix_pack64": ("sort.py", lambda: tsort.radix_pack_pairs(
+            torch.zeros((1, 16), dtype=torch.uint64), torch.zeros((1, 16), dtype=torch.int64),
+            4, 8, 64)),
         "srt_merge_runs": ("sort.py", lambda: tsort.merge_sorted_runs(
             torch.zeros((2, 2, 8), dtype=torch.uint32), torch.zeros((2, 2), dtype=torch.int32),
             0xFFFFFFFF)),
