@@ -159,7 +159,9 @@ exits nonzero and prints no result. Phases, each one JSON line:
    after 10 within 5e-3 of the plain version's. Walls (data, upload,
    prepare, steps cold and warm, readback), peak device bytes and a
    profiled step each; ``HashJoin`` launches ``srt_radix_pack`` once a
-   side a step, ``PageRank.blocks`` once a call (its bucketing),
+   side a step and ``srt_sorted_probe`` once a step (at 8-byte rows
+   ``srt_radix_pack64`` and ``srt_sorted_probe64``), ``PageRank.blocks``
+   once a call (its bucketing),
    ``PageRank``'s step one CSR build a call and one ``srt_csr_pull`` an
    iteration (three calls of 20: 3 and 60), and nothing else, ALS no
    kernel (the exchanges are the dense all-to-all);
@@ -170,7 +172,11 @@ exits nonzero and prints no result. Phases, each one JSON line:
    bit for bit against its plain version at the sort cell's merge
    (``[8, 8, 2^23]``) and times it beside its byte bound, the plain
    version, ``torch.sort`` of the same masked slab and the per-shard
-   path it replaced;
+   path it replaced; ``timing_sorted_probe`` and ``timing_sorted_probe64``
+   check ``srt_sorted_probe`` and ``srt_sorted_probe64`` bit for bit
+   against their plain version at the two join cells' probes and time
+   them beside their byte bounds, the plain version and
+   ``torch.searchsorted`` alone;
 13. ``data_planes``: the host plane's record writers and readers over the
    python transport at HiBench TeraSort's small profile (3,200,000
    records of a uint32 key and 12 uint64 payload words, word j = key *
@@ -3107,8 +3113,10 @@ def phase_spmd_models(torch, dev):
     their users' sizes, each checked against an independent version on
     the card. The join's packs launch ``srt_radix_pack``, one a side a
     step, and PageRank's bucketing one a ``blocks`` call (two: ``run``'s
-    and the warm step's); the join at 8-byte rows (a2) launches
-    ``srt_radix_pack64`` in its place, one a side a step; PageRank's
+    and the warm step's); the join's probe launches ``srt_sorted_probe``
+    once a step; the join at 8-byte rows (a2) launches
+    ``srt_radix_pack64`` and ``srt_sorted_probe64`` in their place;
+    PageRank's
     step builds its CSR once a call and launches ``srt_csr_pull`` once
     an iteration; nothing else launches a
     hand-written kernel (the exchanges are the dense all-to-all's
@@ -3123,18 +3131,25 @@ def phase_spmd_models(torch, dev):
     _, report["map_sorter_warm_s"] = _synced_s(
         torch, lambda: MapShardSorter(dev).warm(KEYS // EXECUTORS, REDUCERS - 1))
     report["a_hashjoin"] = _models_hashjoin(torch, dev, mesh)
-    # join()'s tries, the warm step and the profiled step: two packs each
-    want = 2 * (report["a_hashjoin"]["tries"] + 2)
-    if _launched("srt_radix_pack") != want:
+    # join()'s tries, the warm step and the profiled step: two packs and
+    # one probe each
+    steps = report["a_hashjoin"]["tries"] + 2
+    want = 2 * steps
+    if (_launched("srt_radix_pack"), _launched("srt_sorted_probe")) != (want, steps):
         raise AssertionError(
-            f"the join launched srt_radix_pack {_launched('srt_radix_pack')} times, not {want}")
+            f"the join launched srt_radix_pack {_launched('srt_radix_pack')} and "
+            f"srt_sorted_probe {_launched('srt_sorted_probe')} times, not {want} and {steps}")
     report["a2_hashjoin_wide"] = _models_hashjoin_wide(torch, dev, mesh)
-    # join()'s tries and the warm step: two 8-byte packs each, no 4-byte one
-    wide = 2 * (report["a2_hashjoin_wide"]["tries"] + 1)
-    if (_launched("srt_radix_pack64"), _launched("srt_radix_pack")) != (wide, want):
+    # join()'s tries and the warm step: two 8-byte packs and one 8-byte
+    # probe each, no 4-byte one
+    wide_steps = report["a2_hashjoin_wide"]["tries"] + 1
+    wide = 2 * wide_steps
+    got = (_launched("srt_radix_pack64"), _launched("srt_radix_pack"),
+           _launched("srt_sorted_probe64"), _launched("srt_sorted_probe"))
+    if got != (wide, want, wide_steps, steps):
         raise AssertionError(
-            f"the wide join launched srt_radix_pack64 {_launched('srt_radix_pack64')} and "
-            f"srt_radix_pack {_launched('srt_radix_pack') - want} times, not {wide} and 0")
+            f"the wide join launched srt_radix_pack64, srt_radix_pack, srt_sorted_probe64 "
+            f"and srt_sorted_probe {got} times, not {(wide, want, wide_steps, steps)}")
     report["b_pagerank"] = _models_pagerank(torch, dev, mesh)
     by_model = {"a_hashjoin": want, "b_pagerank": _launched("srt_radix_pack") - want}
     if by_model["b_pagerank"] != 2:  # its two ``blocks`` calls, one pack each
@@ -3158,8 +3173,11 @@ def phase_spmd_models(torch, dev):
             f"{_launched('srt_csr_build')} and {_launched('srt_csr_pull')}")
     if _launched("srt_radix_pack64") != wide:
         raise AssertionError("a model past (a2) launched srt_radix_pack64")
+    if (_launched("srt_sorted_probe"), _launched("srt_sorted_probe64")) != (steps, wide_steps):
+        raise AssertionError("a model past (a2) launched srt_sorted_probe or srt_sorted_probe64")
     launches = {"srt_radix_pack": _launched("srt_radix_pack"),
                 "srt_radix_pack64": _launched("srt_radix_pack64"),
+                "srt_sorted_probe": steps, "srt_sorted_probe64": wide_steps,
                 "srt_csr_build": _launched("srt_csr_build"),
                 "srt_csr_pull": _launched("srt_csr_pull")}
     emit(12, name="spmd_models", launches=launches, seconds=time.perf_counter() - t0,
@@ -3628,6 +3646,192 @@ def time_merge_runs(torch, dev):
     }
     emit("timing_merge_runs", kernels=[entry])
     return entry
+
+
+# the join cells' probes: 8 shards, [8, 8, 4,000,000] probe slots into
+# build rows of 32,000,000 slots at 4-byte rows (shufflebench
+# join.pkfk.128m), [8, 8, 2^23] into rows of 2^22 at 8-byte rows
+# (join.pkfk.u64.256m); the counts near half of each capacity
+SP_SHARDS = 8
+SP_SHAPES = {False: (32_000_000, 4_000_000), True: (1 << 22, 1 << 23)}
+SP_SEED = 4_300_000_001
+
+
+def _probe_inputs(torch, dev, wide, kind="uniform"):
+    """What ``hashjoin.build_sort`` leaves and a probe slab at a join
+    cell's probe shape: uniform keys whose top 3 bits are the shard, as
+    the join partitions them; 15 of 16 valid probe keys from the shard's
+    build keys. ``kind`` ``one_bucket``: every build key in a range of
+    4,096 but 0 and the largest key below the maximum, so that one
+    directory bucket holds all but two; ``empty``: no valid build key in
+    any shard."""
+    from sparkrdma_tpu_torch.ops import sort as so
+
+    e = SP_SHARDS
+    m, cap_p = SP_SHAPES[wide]
+    cap_b = m // e
+    bits = 64 if wide else 32
+    bit_dtype, key_dtype = (torch.int64, torch.uint64) if wide else (torch.int32, torch.uint32)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SP_SEED + wide)
+    bcnt = (cap_b // 2 + torch.randint(-(cap_b >> 6), (cap_b >> 6) + 1, (e, e), device=dev,
+                                       generator=g)).to(torch.int32)
+    if kind == "empty":
+        bcnt.zero_()
+    if kind == "one_bucket":
+        keys = torch.randint(0, 4096, (e, m), device=dev, generator=g) + (1 << (bits - 2))
+        keys[:, 0], keys[:, 1] = 0, (1 << bits) - 2 if not wide else -2
+    else:
+        keys = torch.randint(0, 1 << 61, (e, m), device=dev, generator=g)
+        keys &= (1 << (bits - 3)) - 1
+        keys |= torch.arange(e, device=dev).view(e, 1) << (bits - 3)
+    if not wide:
+        keys = (keys - ((keys >> 31) << 32)).to(torch.int32)
+    valid = (torch.arange(cap_b, device=dev) < bcnt.unsqueeze(-1)).view(e, m)
+    masked = torch.where(valid, keys, -1).view(key_dtype)
+    del keys, valid
+    order = so.device_argsort(masked)
+    bkeys_s = torch.gather(masked.view(bit_dtype), 1, order)
+    del masked
+    bvals_s = torch.gather(torch.arange(e * m, dtype=bit_dtype, device=dev).view(e, m), 1,
+                           order)
+    del order
+    pcnt = (cap_p // 2 + torch.randint(-(cap_p >> 6), (cap_p >> 6) + 1, (e, e), device=dev,
+                                       generator=g)).to(torch.int32)
+    n = bcnt.to(torch.int64).sum(1, keepdim=True).clamp_(min=1)
+    at = (torch.rand((e, e * cap_p), device=dev, generator=g, dtype=torch.float64) * n
+          ).to(torch.int64)
+    pkeys = torch.gather(bkeys_s, 1, at)
+    del at
+    noise = torch.rand((e, e * cap_p), device=dev, generator=g) < 1 / 16
+    pkeys = torch.where(noise, pkeys ^ 1, pkeys)
+    del noise
+    return (bkeys_s.view(key_dtype), bvals_s, bcnt, pkeys.view(e, e, cap_p).view(key_dtype),
+            pcnt)
+
+
+def time_sorted_probe(torch, dev, wide=False):
+    """srt_sorted_probe at the join cell's probe (``wide``:
+    srt_sorted_probe64 at the wide join cell's): checked bit for bit
+    against the plain version, then timed as the C entry point alone on
+    prebuilt outputs, the wrapper, the plain version
+    (``probe_sorted_reference``: the composition it replaced) and
+    ``torch.searchsorted`` of the ordered keys alone, each by CUDA events
+    over back-to-back calls, beside the bytes the probe needs. Then the
+    kernel again, checked and timed, with every build key but two in one
+    directory bucket and with every shard empty (``_probe_inputs``'
+    ``one_bucket`` and ``empty``), its two kernels apart by the
+    profiler."""
+    from sparkrdma_tpu_torch.ops import _build
+    from sparkrdma_tpu_torch.ops import sort as so
+
+    e = SP_SHARDS
+    m, cap_p = SP_SHAPES[wide]
+    symbol = "srt_sorted_probe64" if wide else "srt_sorted_probe"
+    width = 8 if wide else 4
+    t = time.perf_counter()
+    lib = _build._load("libsrt_sorted_probe.so")
+    load_s = time.perf_counter() - t
+    built = _build.builds.get("libsrt_sorted_probe.so")
+    args = _probe_inputs(torch, dev, wide)
+    bkeys_s, bvals_s, bcnt, pkeys, pcnt = args
+    got, stats = so.probe_sorted(*args, -1)
+    if not torch.equal(got, so.probe_sorted_reference(*args, -1)[0]):
+        raise AssertionError(f"{symbol}'s joined differs from the plain version's")
+    probes, steps = (int(x) for x in stats.sum(0).tolist())
+    valid_probes = int(pcnt.to(torch.int64).clamp(0, cap_p).sum())
+    if probes != valid_probes:
+        raise AssertionError(f"{symbol} counted {probes} probes, not {valid_probes}")
+    hits = int((got != -1).sum())
+    scratch = torch.empty((lib.srt_sorted_probe_scratch(e, m),), dtype=torch.int32,
+                          device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = getattr(lib, symbol)
+
+    def raw():
+        code = fn(bkeys_s.data_ptr(), bvals_s.data_ptr(), bcnt.data_ptr(), pkeys.data_ptr(),
+                  pcnt.data_ptr(), got.data_ptr(), stats.data_ptr(), scratch.data_ptr(), e, m,
+                  cap_p, -1, stream)
+        if code:
+            raise RuntimeError(f"{symbol} launch failed ({code})")
+
+    ordered_b = so._ordered(bkeys_s).contiguous()
+    ordered_p = so._ordered(pkeys.view(e, -1)).contiguous()
+
+    def library():
+        return torch.searchsorted(ordered_b, ordered_p, out_int32=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            raw()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    by_kernel = {k: ev.self_device_time_total / 1e3 / 10
+                 for ev in prof.key_averages()
+                 if getattr(ev, "device_type", None) == cuda
+                 for k in ("probe_directory", "probe_search") if k in ev.key}
+    n_valid = int(bcnt.to(torch.int64).clamp(min=0).sum())
+    read = valid_probes * width + n_valid * 2 * width  # probe keys, build keys and payloads
+    written = e * e * cap_p * width  # joined
+    kernel_ms = event_ms_per_call(torch, raw, 20)
+    bound_ms = (read + written) / HBM_BYTES_PER_S * 1e3
+    entry = {
+        "name": symbol, "route": "cuda",
+        "source": "sparkrdma_tpu_torch/ops/csrc/sorted_probe.cu",
+        "replaces": "none (the JAX join's search is plain jnp: sparkrdma_tpu/models/"
+                    "hashjoin.py, jnp.searchsorted)",
+        "max_abs_err": 0,
+        "ms": kernel_ms,
+        "plain_ms": event_ms_per_call(torch, lambda: so.probe_sorted_reference(*args, -1), 3),
+        "library_ms": event_ms_per_call(torch, library, 5),
+        "library": f"torch.searchsorted of the ordered [8, {e * cap_p}] probe keys in the "
+                   f"[8, {m}] build rows alone",
+        "bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / kernel_ms,
+        "wrapper_event_ms": event_ms_per_call(
+            torch, lambda: so.probe_sorted(*args, -1), 20),
+        "kernel_profiler_ms": device_ms_per_call(torch, raw, 10),
+        "by_kernel_profiler_ms": by_kernel,
+        "kernel_gbps": (read + written) / (kernel_ms / 1e3) / 1e9,
+        "build_s": built[0] if built else None, "load_s": load_s,
+        "ptxas": [ln.strip() for ln in (built[1] if built else "").splitlines()
+                  if "registers" in ln or "spill" in ln or "smem" in ln],
+        "timer": "cuda_events",
+        "shape": {"shards": e, "build_slots": m, "probe_cap": cap_p, "valid_build": n_valid,
+                  "valid_probes": valid_probes, "hits": hits, "search_steps": steps,
+                  "read_bytes": read, "written_bytes": written},
+    }
+    del ordered_b, ordered_p, args, bkeys_s, bvals_s, pkeys, got, scratch
+    entry["skew"] = {kind: _time_probe_skew(torch, dev, so, wide, kind)
+                     for kind in ("one_bucket", "empty")}
+    emit("timing_sorted_probe64" if wide else "timing_sorted_probe", kernels=[entry])
+    return entry
+
+
+def _time_probe_skew(torch, dev, so, wide, kind):
+    """probe_sorted on ``_probe_inputs(..., kind)``: checked bit for bit
+    against the plain version, then timed by CUDA events and, kernel by
+    kernel, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _probe_inputs(torch, dev, wide, kind)
+    got, stats = so.probe_sorted(*args, -1)
+    if not torch.equal(got, so.probe_sorted_reference(*args, -1)[0]):
+        raise AssertionError(f"the probe's joined differs from the plain version's ({kind})")
+    del got
+    probes, steps = (int(x) for x in stats.sum(0).tolist())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            so.probe_sorted(*args, -1)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return {"ms": event_ms_per_call(torch, lambda: so.probe_sorted(*args, -1), 10),
+            "by_kernel_profiler_ms": {
+                k: ev.self_device_time_total / 1e3 / 10 for ev in prof.key_averages()
+                if getattr(ev, "device_type", None) == cuda
+                for k in ("probe_directory", "probe_search") if k in ev.key},
+            "valid_probes": probes, "search_steps": steps}
 
 
 DP_RECORDS = 3_200_000  # HiBench TeraSort "small" (hibench.terasort.small.datasize)
@@ -6248,6 +6452,8 @@ def _main(torch, dev):
     kernels.append(time_radix_pack(torch, dev, wide=True))
     kernels.append(time_csr_pull(torch, dev))
     kernels.append(time_merge_runs(torch, dev))
+    kernels.append(time_sorted_probe(torch, dev))
+    kernels.append(time_sorted_probe(torch, dev, wide=True))
     phase_data_planes(torch, dev)
     phase_engine(torch, dev)
     native_plane = phase_native_plane(torch, dev, data)

@@ -5,7 +5,7 @@ The PyTorch counterpart of the JAX package's ``models/hashjoin.py``
 on the key's top bits, every shard of a side in one ``radix_pack_pairs``
 call (on CUDA one hand-written pack kernel, keys and payloads together),
 and ride one all-to-all each (``ExchangeProgram`` over the shard
-stack); the local join sorts the build side and binary-searches the
+stack); the local join sorts the build side and searches it for the
 probes.
 
 Join shape: the build side has UNIQUE keys (the dimension-table case);
@@ -25,8 +25,13 @@ around ``_build``'s ``fn``, the whole step; directly in it
 ``hashjoin.pack`` once a side (``radix_pack_pairs``: every shard's keys
 and payloads), ``hashjoin.build_sort`` once (the build keys' mask,
 ``device_argsort``, the two gathers), ``hashjoin.probe`` once
-(``searchsorted``, the clamp, the gathers, ``hit``, ``joined``), and the
-exchange's ``exchange.a2a`` four times; both widths open the same spans.
+(``probe_sorted``, on CUDA one ``srt_sorted_probe`` or
+``srt_sorted_probe64`` call: a key directory a shard and a search of one
+bucket a probe slot), and the exchange's ``exchange.a2a`` four times;
+both widths open the same spans. The probe's counters stay on the
+device (``last_probe_stats``); ``join`` adds them to the registry's
+``hashjoin.probes`` and ``hashjoin.probe_bucket_steps`` after each
+step's overflow read.
 """
 
 from __future__ import annotations
@@ -39,9 +44,10 @@ import numpy as np
 import torch
 
 from sparkrdma_tpu_torch.models.terasort import KEY_BITS, SENTINEL
+from sparkrdma_tpu_torch.obs import get_registry
 from sparkrdma_tpu_torch.obs.trace import span
 from sparkrdma_tpu_torch.ops.exchange import ExchangeProgram
-from sparkrdma_tpu_torch.ops.sort import device_argsort, radix_pack_pairs, searchsorted
+from sparkrdma_tpu_torch.ops.sort import device_argsort, probe_sorted, radix_pack_pairs
 from sparkrdma_tpu_torch.parallel.mesh import ShardMesh, mesh_or_one_shard
 from sparkrdma_tpu_torch.utils.torch_compat import torch_dtype
 
@@ -88,6 +94,10 @@ class HashJoin:
         # the overflow readback), row assembly and readback
         self.last_capacities: List[Tuple[int, int]] = []
         self.last_walls: Dict[str, float] = {}
+        # the last step's int64 [E, 2] probe counters on the device: each
+        # shard's valid probes and bucket search steps (probe_sorted's
+        # stats); the step never reads them
+        self.last_probe_stats: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------
     def _build(self, nb_local: int, np_local: int, cap_b: int, cap_p: int):
@@ -137,11 +147,8 @@ class HashJoin:
                     bvals_s = torch.gather(bv2.view(e, -1), 1, order)
                     del bkeys, order
                 with span("hashjoin.probe"):
-                    pkeys = pk2.view(e, -1)
-                    pos = searchsorted(bkeys_s.view(key_dtype), pkeys.view(key_dtype))
-                    pos = pos.clamp_(max=bkeys_s.shape[1] - 1).to(torch.int64)
-                    hit = (torch.gather(bkeys_s, 1, pos) == pkeys) & valid(pcnt, cap_p)
-                    joined = torch.where(hit, torch.gather(bvals_s, 1, pos), miss)
+                    joined, self.last_probe_stats = probe_sorted(
+                        bkeys_s.view(key_dtype), bvals_s, bcnt, pk2.view(key_dtype), pcnt, miss)
                 # [E, E, cap_p] rows aligned with pk2/pv2: shard d's row s is
                 # what shard s sent it, its first pcnt[d, s] slots valid
                 return (pk2.view(key_dtype), pv2, joined.view(e, e, cap_p), pcnt,
@@ -161,6 +168,14 @@ class HashJoin:
             fn = self._build(nb_local, np_local, cap_b, cap_p)
             self._cache[key] = fn
         return fn
+
+    def _count_probes(self) -> None:
+        """Add the last step's probe counters to the registry's
+        ``hashjoin.probes`` and ``hashjoin.probe_bucket_steps``."""
+        probes, steps = self.last_probe_stats.sum(0).tolist()
+        reg = get_registry()
+        reg.counter("hashjoin.probes").inc(probes)
+        reg.counter("hashjoin.probe_bucket_steps").inc(steps)
 
     def _rows(self, pk2, pv2, joined, pcnt) -> torch.Tensor:
         """The ``[m, 3]`` int64 output rows on the device: every valid slot
@@ -251,7 +266,9 @@ class HashJoin:
         for _ in range(8):
             self.last_capacities.append((cap_b, cap_p))
             pk2, pv2, joined, pcnt, overflow = self.step(nb, npl, cap_b, cap_p)(*args)
-            if not bool(overflow):
+            overflowed = bool(overflow)
+            self._count_probes()
+            if not overflowed:
                 break
             del pk2, pv2, joined, pcnt
             cap_b *= 2

@@ -114,6 +114,9 @@ METRIC_FAMILIES: Dict[str, Tuple[str, frozenset]] = {
     "exchange.bytes_received": ("counter", _L({"schedule"})),
     "exchange.bytes_received_valid": ("counter", _L({"schedule"})),
     "exchange.time_ms": ("histogram", _L({"schedule"})),
+    # hash join (models/hashjoin.py; ops/sort.py probe_sorted's counters)
+    "hashjoin.probes": ("counter", _L()),
+    "hashjoin.probe_bucket_steps": ("counter", _L()),
     # HBM arena (ops/hbm_arena.py)
     "hbm.pool_hits": ("counter", _L()),
     "hbm.pool_misses": ("counter", _L()),

@@ -6,10 +6,10 @@ under ``csrc/`` by name, and every C function it exports with its ctypes
 ``(argtypes, restype)``. Each source is compiled by its own ``nvcc`` for
 ``sm_90a`` (all started together; ``csrc/*.cuh`` are their shared
 headers), and the objects are linked into the library, which has a
-plain C interface and is loaded with ``ctypes``. The hash join's pack,
-the sort's merge and PageRank's CSR kernels are libraries of their own,
-so that a path that needs only them builds one file, in seconds, and
-not every attention kernel. Nothing links ``-lcuda``: the one driver function a
+plain C interface and is loaded with ``ctypes``. The hash join's pack
+and probe, the sort's merge and PageRank's CSR kernels are libraries of
+their own, so that a path that needs only them builds one file, in
+seconds, and not every attention kernel. Nothing links ``-lcuda``: the one driver function a
 kernel needs (``cuTensorMapEncodeTiled``, for the tensor-core kernels'
 TMA maps, ``flash_attn_sm90_common.cuh``) is reached through the
 runtime's ``cudaGetDriverEntryPoint``. Each library goes to
@@ -65,6 +65,8 @@ _FWD = ((_vp,) * 5 + (_ll,) * 6 + (_vp,), _int)  # q k v out lse
 _BWD_DQ = ((_vp,) * 7 + (_ll,) * 6 + (_vp,), _int)  # q k v do lse delta dq
 _BWD_DKV = ((_vp,) * 8 + (_ll,) * 6 + (_vp,), _int)  # ... dk dv
 _PACK = ((_vp,) * 7 + (_ll,) * 7 + (_vp,), _int)  # keys vals kslab vslab counts flags scratch
+# bkeys bvals bcnt pkeys pcnt joined stats scratch; e m cap_p miss
+_PROBE = ((_vp,) * 8 + (_ll,) * 4 + (_vp,), _int)
 _ERROR_STRING = ((_int,), ctypes.c_char_p)
 
 
@@ -109,6 +111,12 @@ LIBRARIES: Dict[str, Library] = {
          "srt_csr_scratch_bytes": ((_ll,) * 4, _ll),
          "srt_csr_build": ((_vp,) * 5 + (_ll,) * 5 + (_vp,), _int),
          "srt_csr_pull": ((_vp,) * 6 + (_ll,) * 3 + (_vp,), _int),
+         "srt_error_string": _ERROR_STRING}),
+    "libsrt_sorted_probe.so": Library(
+        ("sorted_probe.cu",),
+        {"srt_sorted_probe": _PROBE,
+         "srt_sorted_probe64": _PROBE,
+         "srt_sorted_probe_scratch": ((_ll,) * 2, _ll),
          "srt_error_string": _ERROR_STRING}),
 }
 # C function -> the library that holds it (each holds its own srt_error_string)

@@ -32,6 +32,16 @@ same arguments, results and overflow contract:
   passes that use the slab as their scratch); on the CPU it runs
   :func:`merge_sorted_runs_reference`, ``merge_received`` shard by
   shard; nothing falls back,
+- ``probe_sorted``: the hash join's probe of its sorted build side, for
+  every shard at once, at 4- or 8-byte rows: the lower bound of each
+  valid probe slot's key in its shard's build row, the key there
+  compared, the payload taken or ``miss``. On CUDA it launches the
+  hand-written ``srt_sorted_probe`` or ``srt_sorted_probe64``
+  (``csrc/sorted_probe.cu``, one template, a library of its own: a
+  per-shard key directory, then a search of one directory bucket a
+  probe); on the CPU it runs :func:`probe_sorted_reference`, the plain
+  version (``searchsorted``, the clamp, two gathers, the masks and the
+  where); nothing falls back,
 - ``device_put_columns``: the columns of one columnar block (DESIGN.md
   §25), each staged to the device by one host-to-device copy.
 
@@ -65,6 +75,7 @@ _UNSIGNED = {torch.uint32: (torch.int32, _SIGN, 32),
 # the pack's two row widths: key dtype -> payload dtype
 _PACK_ROWS = {torch.uint32: torch.int32, torch.uint64: torch.int64}
 _PACK_SYMBOL = {torch.uint32: "srt_radix_pack", torch.uint64: "srt_radix_pack64"}
+_PROBE_SYMBOL = {torch.uint32: "srt_sorted_probe", torch.uint64: "srt_sorted_probe64"}
 RADIX_PACK_MAX_PARTITIONS = 256  # the kernel's per-block histogram
 MERGE_RUNS_MAX_RUNS = 1024  # srt_merge_runs: a shard's runs summed in one block
 MERGE_RUNS_MAX_SLOTS = 2**31 - 1  # R * cap: int32 places in a shard's row
@@ -474,3 +485,116 @@ def _launch_merge_runs(slab, counts, sentinel):
                      totals.data_ptr(), scratch.data_ptr(), e, r, cap, sentinel,
                      k.stream))
     return merged, totals
+
+
+def probe_sorted_reference(
+    bkeys_s: torch.Tensor, bvals_s: torch.Tensor, bcnt: torch.Tensor,
+    pkeys: torch.Tensor, pcnt: torch.Tensor, miss: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`probe_sorted`: ``searchsorted`` (left)
+    of every probe slot in its shard's whole build row, clamped to the
+    row's last slot, the key there gathered and compared, ``&`` the valid
+    slots of ``pcnt``, then the payload gathered or ``miss``. ``bcnt`` is
+    not read. Its ``stats`` hold each shard's valid probes and 0 bucket
+    steps: it searches no directory."""
+    e, m = bkeys_s.shape
+    cap_p = pkeys.shape[-1]
+    pk = pkeys.reshape(e, -1)
+    pos = searchsorted(bkeys_s, pk).clamp_(max=m - 1).to(torch.int64)
+    col = torch.arange(cap_p, dtype=torch.int32, device=pcnt.device)
+    valid = (col[None, None, :] < pcnt[:, :, None]).view(e, -1)
+    hit = (torch.gather(_bits(bkeys_s), 1, pos) == _bits(pk)) & valid
+    stats = torch.stack([valid.sum(1), torch.zeros(e, dtype=torch.int64, device=pk.device)], 1)
+    return torch.where(hit, torch.gather(bvals_s, 1, pos), miss), stats
+
+
+def _probe_kernel_path(bkeys_s: torch.Tensor) -> bool:
+    return bkeys_s.device.type == "cuda"
+
+
+def _check_probe_sorted(bkeys_s, bvals_s, bcnt, pkeys, pcnt, miss):
+    if _PACK_ROWS.get(bkeys_s.dtype) != bvals_s.dtype or pkeys.dtype != bkeys_s.dtype:
+        raise ValueError(
+            f"probe_sorted takes uint32 keys and int32 payloads or uint64 keys and int64 "
+            f"payloads, not build keys {bkeys_s.dtype}, payloads {bvals_s.dtype} and "
+            f"probe keys {pkeys.dtype}")
+    if bkeys_s.dim() != 2 or bvals_s.shape != bkeys_s.shape or min(bkeys_s.shape) < 1:
+        raise ValueError(f"probe_sorted takes [E, M] build rows (E, M >= 1), not "
+                         f"{list(bkeys_s.shape)} and {list(bvals_s.shape)}")
+    e = bkeys_s.shape[0]
+    if pkeys.dim() != 3 or pkeys.shape[:2] != (e, e) or pkeys.shape[2] < 1:
+        raise ValueError(f"probe_sorted takes an [{e}, {e}, cap_p] probe slab, not "
+                         f"{list(pkeys.shape)}")
+    for name, cnt in (("bcnt", bcnt), ("pcnt", pcnt)):
+        if cnt.dtype != torch.int32 or cnt.shape != (e, e):
+            raise ValueError(f"probe_sorted takes int32 [{e}, {e}] {name}, not "
+                             f"{list(cnt.shape)} {cnt.dtype}")
+    tensors = [bkeys_s, bvals_s, bcnt, pkeys, pcnt]
+    if any(t.device != bkeys_s.device for t in tensors):
+        raise ValueError("probe_sorted's tensors lie on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("probe_sorted takes contiguous tensors")
+    width = _UNSIGNED[bkeys_s.dtype][2]
+    if not -(1 << (width - 1)) <= miss < 1 << (width - 1):
+        raise ValueError(f"miss {miss} is not an int{width}")
+
+
+def _check_probe_limits(bkeys_s, pkeys):
+    """The kernel's own limits: a grid dimension of shards and int32
+    places in a build row and in a shard's probe slots."""
+    e, m = bkeys_s.shape
+    if e > 65535 or m >= 1 << 31 or e * pkeys.shape[2] >= 1 << 31:
+        raise ValueError(
+            f"srt_sorted_probe takes at most 65535 shards and rows and probe slots a "
+            f"shard below 2^31, not {list(bkeys_s.shape)} and {list(pkeys.shape)}")
+
+
+def probe_sorted(
+    bkeys_s: torch.Tensor, bvals_s: torch.Tensor, bcnt: torch.Tensor,
+    pkeys: torch.Tensor, pcnt: torch.Tensor, miss: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hash join's probe, every shard at once. ``bkeys_s`` ``[E, M]``
+    holds each shard's build keys ascending (uint32 or uint64) and
+    ``bvals_s`` their payloads (int32 or int64), as
+    ``hashjoin.build_sort`` leaves them: at most ``bcnt[d].sum()`` keys
+    of row ``d`` lie below the key type's maximum (``bcnt`` int32
+    ``[E, E]``, the build side's received counts). ``pkeys`` is the
+    ``[E, E, cap_p]`` probe slab of the same key dtype, its slot ``(d,
+    s, j)`` valid when ``j < pcnt[d, s]`` (int32 ``[E, E]``).
+
+    Returns ``(joined, stats)``. ``joined`` ``[E, E * cap_p]`` of the
+    payloads' dtype: for each valid slot whose key equals the key at its
+    clamped lower bound in its shard's row, the payload there (the first
+    row of a repeated key); ``miss`` elsewhere. Byte for byte
+    :func:`probe_sorted_reference`'s. ``stats`` int64 ``[E, 2]``: each
+    shard's valid probes and its bucket search steps.
+
+    CUDA tensors: one ``srt_sorted_probe`` (4-byte rows) or
+    ``srt_sorted_probe64`` (8-byte rows) call on the current stream (two
+    kernels), not waited on and with nothing read back; ``joined``,
+    ``stats`` and the scratch come from ``torch.empty``. CPU tensors:
+    the plain version."""
+    _check_probe_sorted(bkeys_s, bvals_s, bcnt, pkeys, pcnt, miss)
+    args = (bkeys_s, bvals_s, bcnt, pkeys, pcnt, miss)
+    if _probe_kernel_path(bkeys_s):
+        _check_probe_limits(bkeys_s, pkeys)
+        return _launch_sorted_probe(*args)
+    if bkeys_s.device.type == "cpu":
+        return probe_sorted_reference(*args)
+    raise ValueError(f"probe_sorted runs on cuda or cpu, not {bkeys_s.device}")
+
+
+def _launch_sorted_probe(bkeys_s, bvals_s, bcnt, pkeys, pcnt, miss):
+    e, m = bkeys_s.shape
+    cap_p = pkeys.shape[2]
+    dev = bkeys_s.device
+    with _build.launch(_PROBE_SYMBOL[bkeys_s.dtype], dev) as k:
+        joined = torch.empty((e, e * cap_p), dtype=bvals_s.dtype, device=dev)
+        stats = torch.empty((e, 2), dtype=torch.int64, device=dev)
+        scratch = torch.empty((k.lib.srt_sorted_probe_scratch(e, m),), dtype=torch.int32,
+                              device=dev)
+        k.check(k.fn(
+            bkeys_s.data_ptr(), bvals_s.data_ptr(), bcnt.data_ptr(), pkeys.data_ptr(),
+            pcnt.data_ptr(), joined.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
+            e, m, cap_p, miss, k.stream))
+    return joined, stats

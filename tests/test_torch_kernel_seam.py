@@ -228,6 +228,14 @@ def _ops():
         "srt_merge_runs": ("sort.py", lambda: tsort.merge_sorted_runs(
             torch.zeros((2, 2, 8), dtype=torch.uint32), torch.zeros((2, 2), dtype=torch.int32),
             0xFFFFFFFF)),
+        "srt_sorted_probe": ("sort.py", lambda: tsort.probe_sorted(
+            torch.zeros((2, 16), dtype=torch.uint32), torch.zeros((2, 16), dtype=torch.int32),
+            torch.zeros((2, 2), dtype=torch.int32), torch.zeros((2, 2, 4), dtype=torch.uint32),
+            torch.zeros((2, 2), dtype=torch.int32), -1)),
+        "srt_sorted_probe64": ("sort.py", lambda: tsort.probe_sorted(
+            torch.zeros((2, 16), dtype=torch.uint64), torch.zeros((2, 16), dtype=torch.int64),
+            torch.zeros((2, 2), dtype=torch.int32), torch.zeros((2, 2, 4), dtype=torch.uint64),
+            torch.zeros((2, 2), dtype=torch.int32), -1)),
         "srt_csr_build": ("csr.py", lambda: csr.csr_build(packed(), 2)),
         "srt_csr_pull": ("csr.py", lambda: csr.csr_pull(
             torch.zeros(2), csr.csr_build(packed(), 2))),
@@ -241,7 +249,8 @@ def test_the_kernel_call_is_made_in_the_op_module(cuda, monkeypatch, symbol):
     innermost package frame open at its launch."""
     for mod, path in ((trc, "_kernel_path"), (trc, "_wave_kernel_path"),
                       (tpa, "_kernel_path"), (tsort, "_pack_kernel_path"),
-                      (tsort, "_merge_kernel_path"), (csr, "_kernel_path")):
+                      (tsort, "_merge_kernel_path"), (tsort, "_probe_kernel_path"),
+                      (csr, "_kernel_path")):
         monkeypatch.setattr(mod, path, lambda t: True)
     module, run = _ops()[symbol]
     run()
